@@ -1,0 +1,78 @@
+"""The port stands alone: it imports neither ``jax`` nor ``repro``, and
+importing it builds nothing and does not import ``triton``. Its entry
+points run on the CUDA card by default and raise without one."""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.launch.serve import load_reasoner
+from repro_torch.models import Model, ModelConfig
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any import of jax now fails
+sys.modules["repro"] = None        # ... and of the JAX package
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "triton" not in sys.modules, "importing the port imported triton"
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "repro" or m.startswith("repro.")]
+assert not [m for m in bad if sys.modules[m] is not None], bad
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    """Each repro_torch module imports in a fresh process where jax and
+    repro cannot be imported, and triton stays unimported."""
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=SRC,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 25
+
+
+def test_no_source_mentions_jax_or_the_reference_package():
+    """No import line of the port names jax or repro (only repro_torch)."""
+    for path in (SRC / "repro_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1]
+                assert not (mod == "jax" or mod.startswith("jax.")
+                            or mod == "repro" or mod.startswith("repro.")), \
+                    f"{path}: {s}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_the_card(no_card):
+    """Without a card, the default device raises instead of falling back
+    to the CPU; naming the CPU works."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_raise_without_a_card(no_card):
+    """Model and the serve launcher default to the card and raise here."""
+    cfg = ModelConfig(num_layers=1, d_model=64, num_heads=4, num_kv_heads=2,
+                      d_ff=64, vocab_size=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_reasoner(None)
+    assert Model(cfg, device="cpu").device == torch.device("cpu")

@@ -1,0 +1,272 @@
+"""The port's paged attention kernels (K1 decode, K2 prefill) on the CPU.
+
+On a CPU tensor the ``ops`` dispatchers run the plain PyTorch versions;
+these are held against both the JAX package's jnp refs and its Pallas
+kernels in interpret mode (``use_kernel=True`` on the CPU, as
+``tests/test_kernels.py`` runs them), on the same seeded numpy inputs, in
+fp32 to atol=rtol=1e-5 (different summation orders). A row of length 0
+is compared with the Pallas kernel only: the kernel's max(l, 1e-30)
+epilogue gives exact zeros there, while the JAX ref's softmax over an
+all-masked row averages garbage. The CUDA kernels themselves run only
+on a card (tests marked ``gpu``, skipped here).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_prefill.ops import \
+    mixed_step_bytes_read as jax_bytes_read
+from repro.kernels.flash_prefill.ops import paged_flash_prefill as jax_k2
+from repro.kernels.flash_prefill.ref import \
+    paged_flash_prefill_ref as jax_k2_ref
+from repro.kernels.paged_attention.ops import paged_attention as jax_k1
+from repro.kernels.paged_attention.ref import \
+    paged_attention_decode_ref as jax_k1_ref
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_prefill.ops import (mixed_step_bytes_read,
+                                                   paged_flash_prefill)
+from repro_torch.kernels.flash_prefill.paged_prefill import \
+    paged_flash_prefill_fwd
+from repro_torch.kernels.flash_prefill.ref import paged_flash_prefill_ref
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.paged_attention import \
+    paged_attention_decode
+from repro_torch.kernels.paged_attention.ref import paged_attention_decode_ref
+
+F32 = dict(atol=1e-5, rtol=1e-5)
+
+
+def _decode_inputs(rng, *, batch, q_heads, kv_heads, hd, ps, width, lengths,
+                   num_pages=None):
+    """Random pool, distinct pages per row, sentinel (num_pages) tails."""
+    num_pages = num_pages or batch * width + 3
+    q = rng.normal(size=(batch, q_heads, hd)).astype(np.float32)
+    k = rng.normal(size=(kv_heads, num_pages, ps, hd)).astype(np.float32)
+    v = rng.normal(size=(kv_heads, num_pages, ps, hd)).astype(np.float32)
+    perm = rng.permutation(num_pages)
+    bt = np.full((batch, width), num_pages, np.int32)
+    off = 0
+    for b, n_tok in enumerate(lengths):
+        n = -(-n_tok // ps)
+        bt[b, :n] = perm[off:off + n]
+        off += n
+    return q, k, v, bt, np.asarray(lengths, np.int32)
+
+
+def _prefill_inputs(rng, *, t, q_heads, kv_heads, hd, ps, width, end):
+    num_pages = width + 5
+    q = rng.normal(size=(t, q_heads, hd)).astype(np.float32)
+    k = rng.normal(size=(kv_heads, num_pages, ps, hd)).astype(np.float32)
+    v = rng.normal(size=(kv_heads, num_pages, ps, hd)).astype(np.float32)
+    n = -(-end // ps)
+    bt = np.full((width,), num_pages, np.int32)
+    bt[:n] = rng.permutation(num_pages)[:n]
+    return q, k, v, bt
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+DECODE_CASES = {
+    # name: (q_heads, kv_heads, hd, ps, width, lengths)
+    "group1_ragged": (4, 4, 64, 8, 4, [1, 7, 8, 9, 32]),
+    "group2_zero": (4, 2, 64, 4, 6, [0, 5, 24, 13]),
+    "group5_r1": (10, 2, 128, 16, 3, [17, 0, 48, 33]),
+    "group7_qwen2": (14, 2, 64, 16, 4, [64, 1, 30]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_matches_jax_ref(case, rng):
+    """Plain K1 = the JAX ref on every row of non-zero length (ragged
+    lengths, sentinel tails, GQA groups 1/2/5/7)."""
+    qh, kvh, hd, ps, width, lengths = DECODE_CASES[case]
+    q, k, v, bt, ln = _decode_inputs(rng, batch=len(lengths), q_heads=qh,
+                                     kv_heads=kvh, hd=hd, ps=ps, width=width,
+                                     lengths=lengths)
+    out = paged_attention(*_torch(q, k, v, bt, ln)).numpy()
+    ref = np.asarray(jax_k1_ref(*map(jnp.asarray, (q, k, v, bt, ln))))
+    live = ln > 0
+    np.testing.assert_allclose(out[live], ref[live], **F32)
+    assert (out[~live] == 0).all(), "a length-0 row must give exact zeros"
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_matches_pallas_interpret(case, rng):
+    """Plain K1 = the Pallas kernel run in interpret mode on every row,
+    length-0 rows (exact zeros) included."""
+    qh, kvh, hd, ps, width, lengths = DECODE_CASES[case]
+    q, k, v, bt, ln = _decode_inputs(rng, batch=len(lengths), q_heads=qh,
+                                     kv_heads=kvh, hd=hd, ps=ps, width=width,
+                                     lengths=lengths)
+    out = paged_attention(*_torch(q, k, v, bt, ln)).numpy()
+    ker = np.asarray(jax_k1(*map(jnp.asarray, (q, k, v, bt, ln)),
+                            use_kernel=True))
+    np.testing.assert_allclose(out, ker, **F32)
+
+
+def test_decode_plain_ignores_poisoned_stale_slots(rng):
+    """NaN in a page's slots past a row's length (stale bytes) must not
+    reach the output: masked keys are skipped, not weighted by zero."""
+    q, k, v, bt, ln = _decode_inputs(rng, batch=2, q_heads=4, kv_heads=2,
+                                     hd=64, ps=8, width=3, lengths=[5, 12])
+    base = paged_attention(*_torch(q, k, v, bt, ln)).numpy()
+    k2, v2 = k.copy(), v.copy()
+    for b, n_tok in enumerate(ln):
+        last = bt[b, (n_tok - 1) // 8]
+        k2[:, last, n_tok % 8:] = np.nan
+        v2[:, last, n_tok % 8:] = np.nan
+    got = paged_attention(*_torch(q, k2, v2, bt, ln)).numpy()
+    np.testing.assert_array_equal(got, base)
+
+
+PREFILL_CASES = {
+    # name: (t, pos0, valid, q_heads, kv_heads, hd, ps, width)
+    "first_chunk_pad_rows": (8, 0, 5, 4, 2, 64, 4, 6),
+    "pos0_mid_page": (8, 6, 8, 4, 4, 64, 4, 6),
+    "group5_mid_page_pad": (16, 37, 11, 10, 2, 128, 16, 4),
+    "group7_one_valid_row": (8, 13, 1, 14, 2, 64, 8, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_plain_matches_jax_ref_and_pallas(case, rng):
+    """Plain K2 = the JAX ref and the Pallas kernel (interpret mode):
+    causal on absolute positions, pos0 mid-page, pad rows exact zeros."""
+    t, pos0, valid, qh, kvh, hd, ps, width = PREFILL_CASES[case]
+    q, k, v, bt = _prefill_inputs(rng, t=t, q_heads=qh, kv_heads=kvh, hd=hd,
+                                  ps=ps, width=width, end=pos0 + valid)
+    out = paged_flash_prefill(*_torch(q, k, v, bt), pos0, valid).numpy()
+    jargs = list(map(jnp.asarray, (q, k, v, bt))) + [jnp.int32(pos0),
+                                                     jnp.int32(valid)]
+    ref = np.asarray(jax_k2_ref(*jargs))
+    ker = np.asarray(jax_k2(*jargs, use_kernel=True))
+    np.testing.assert_allclose(out, ref, **F32)
+    np.testing.assert_allclose(out, ker, **F32)
+    assert (out[valid:] == 0).all(), "pad rows must give exact zeros"
+
+
+def test_prefill_plain_ignores_poisoned_future_slots(rng):
+    """NaN past the chunk's last valid position never reaches a row."""
+    t, pos0, valid, ps = 8, 3, 6, 4
+    q, k, v, bt = _prefill_inputs(rng, t=t, q_heads=4, kv_heads=2, hd=64,
+                                  ps=ps, width=4, end=pos0 + valid)
+    base = paged_flash_prefill(*_torch(q, k, v, bt), pos0, valid).numpy()
+    end = pos0 + valid
+    k2, v2 = k.copy(), v.copy()
+    k2[:, bt[(end - 1) // ps], end % ps:] = np.nan
+    v2[:, bt[(end - 1) // ps], end % ps:] = np.nan
+    got = paged_flash_prefill(*_torch(q, k2, v2, bt), pos0, valid).numpy()
+    np.testing.assert_array_equal(got, base)
+
+
+def test_prefill_matches_decode_path_row_by_row(rng):
+    """K2 over a chunk = K1 per chunk row with length pos0 + i + 1 (the
+    engine's "decode" fallback computes the same attention)."""
+    t, pos0, valid, ps = 8, 5, 7, 4
+    q, k, v, bt = _prefill_inputs(rng, t=t, q_heads=6, kv_heads=2, hd=64,
+                                  ps=ps, width=5, end=pos0 + valid)
+    out = paged_flash_prefill(*_torch(q, k, v, bt), pos0, valid).numpy()
+    rows = np.broadcast_to(bt, (t, bt.shape[0])).copy()
+    lens = (pos0 + np.arange(t) + 1).astype(np.int32)
+    dec = paged_attention(*_torch(q, k, v, rows, lens)).numpy()
+    np.testing.assert_allclose(out[:valid], dec[:valid], **F32)
+
+
+def test_plain_versions_keep_bf16(rng):
+    """bf16 in, bf16 out, within bf16 rounding of the fp32 result."""
+    q, k, v, bt, ln = _decode_inputs(rng, batch=3, q_heads=4, kv_heads=2,
+                                     hd=64, ps=8, width=3, lengths=[3, 9, 24])
+    ref = paged_attention(*_torch(q, k, v, bt, ln))
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    out = paged_attention(qb, kb, vb, *_torch(bt, ln))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_mixed_step_bytes_read_is_the_reference_formula():
+    """The copied analytic byte count equals the JAX package's."""
+    for chunk, pos0, path in ((64, 0, "fused"), (32, 37, "fused"),
+                              (16, 5, "decode"), (48, 448, "decode")):
+        kw = dict(page_size=16, kv_heads=8, head_dim=128, path=path,
+                  block_q=32, itemsize=2)
+        assert mixed_step_bytes_read(chunk, pos0, **kw) == \
+            jax_bytes_read(chunk, pos0, **kw)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors(rng):
+    """The CUDA wrappers never compute on the CPU: they raise, and only
+    the ops dispatchers route CPU tensors to the plain versions."""
+    q, k, v, bt, ln = _torch(*_decode_inputs(
+        rng, batch=2, q_heads=4, kv_heads=2, hd=64, ps=8, width=2,
+        lengths=[3, 9]))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_attention_decode(q, k, v, bt, ln)
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_prefill_fwd(q, k, v, bt[0], 0, 2)
+
+
+def test_build_raises_without_nvcc(monkeypatch):
+    """No compiler means an error, never a silent fallback."""
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build._nvcc()
+
+
+def test_build_dir_is_keyed_by_sources():
+    """The build goes under the repo's build/ and its hash covers every
+    csrc file, so an edited kernel is rebuilt."""
+    d = build.build_dir()
+    assert d.parent == build.BUILD_ROOT
+    assert d.parent.parent.name == "build"
+    assert d == build.build_dir()
+    names = {p.name for p in build.CSRC.iterdir()}
+    assert {f"{s}.cu" for s in build.SOURCES} <= names
+
+
+# ------------------------------------------------------- on the card only
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_kernel_matches_plain_on_card(cuda, case, dtype, tol, rng):
+    """CUDA K1 = plain K1 on the card, in the working dtype."""
+    qh, kvh, hd, ps, width, lengths = DECODE_CASES[case]
+    args = [t.to(cuda) for t in _torch(*_decode_inputs(
+        rng, batch=len(lengths), q_heads=qh, kv_heads=kvh, hd=hd, ps=ps,
+        width=width, lengths=lengths))]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    out = paged_attention(*args)
+    ref = paged_attention_decode_ref(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_kernel_matches_plain_on_card(cuda, case, dtype, tol, rng):
+    """CUDA K2 = plain K2 on the card, in the working dtype."""
+    t, pos0, valid, qh, kvh, hd, ps, width = PREFILL_CASES[case]
+    args = [a.to(cuda) for a in _torch(*_prefill_inputs(
+        rng, t=t, q_heads=qh, kv_heads=kvh, hd=hd, ps=ps, width=width,
+        end=pos0 + valid))]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    out = paged_flash_prefill(*args, pos0, valid)
+    ref = paged_flash_prefill_ref(*args, pos0, valid)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert (out[valid:] == 0).all()
