@@ -9,20 +9,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
   2. build   — nvcc builds the CUDA kernels from ``src/repro_torch/csrc``;
-  3. kernels — K1 (paged flash-decode) and K2 (paged flash-prefill) against
-               their plain PyTorch versions on the card, bf16 and fp32, at
-               the serving shapes of r1-distill-14b and one qwen2-0.5b shape;
+  3. kernels — K1 (paged flash-decode), K2 (paged flash-prefill) and both
+               passes of K3 (tree decode) against their plain PyTorch
+               versions on the card, bf16 and fp32, at the serving shapes of
+               r1-distill-14b, one qwen2-0.5b shape and K3's edge cases;
                then each timed with CUDA events (L2 flushed before every
                launch) beside its plain version, a bound from bytes and
                operations, and one library call as a yardstick;
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on a small fp32 model, greedy, with
-               chunked admission, forked branches and CoW;
+               chunked admission, forked branches and CoW; then again with
+               the prefix cache and tree decode on, a warm request sharing
+               the cold one's header;
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
                Kernel launch counters are zeroed just before and read just
-               after, and every request must complete with no fault.
+               after, and every request must complete with no fault;
+  6. tree    — the same model and weights, phase 5's engine freed, with
+               ``prefix_cache=True, decode_kernel="tree"``: 4 requests whose
+               prompts share a 256-token few-shot header. The cache must
+               hit, K3 must carry every decode row and K1 must not launch.
 
 Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
@@ -31,12 +38,15 @@ Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src"
 DEVICE = "cuda"
@@ -109,6 +119,53 @@ def k2_inputs(torch, gen, dev, *, t, pos0, valid_len, q_heads, kv_heads, hd,
 
 
 # ---------------------------------------------------------------- timing
+
+
+def k3_inputs(torch, gen, dev, *, groups, singles, q_heads, kv_heads, hd,
+              ps, width, pool_pages, dtype):
+    """A fork topology and its tree map, as ``tree_decode_map`` lays it
+    out (group axis padded to the batch). ``groups``: (shared pages, [row
+    lengths in tokens]) per fork group; ``singles``: lengths of rows in no
+    group. Every page no row owns is NaN, and so is every slot past a
+    row's end in a page only that row reads."""
+    perm = iter(torch.randperm(pool_pages, generator=gen,
+                               device=dev).tolist())
+
+    def take(n):
+        return [next(perm) for _ in range(n)]
+
+    rows = []                      # (group or None, shared, suffix, length)
+    for gi, (n_shared, lens) in enumerate(groups):
+        shared = take(n_shared)
+        for n in lens:
+            rows.append((gi, shared, take(-(-max(n - n_shared * ps, 0)
+                                            // ps)), n))
+    rows += [(None, [], take(-(-n // ps)), n) for n in singles]
+    batch = len(rows)
+    q = torch.randn((batch, q_heads, hd), generator=gen, device=dev).to(dtype)
+    k_pages, v_pages = _pages(torch, gen, dev, kv_heads, pool_pages, ps, hd,
+                              dtype)
+    rg = torch.full((batch,), batch, dtype=torch.int32)
+    sbt = torch.full((batch, width), pool_pages, dtype=torch.int32)
+    sl = torch.zeros((batch,), dtype=torch.int32)
+    bbt = torch.full((batch, width), pool_pages, dtype=torch.int32)
+    used = set()
+    for b, (gi, shared, suffix, n) in enumerate(rows):
+        if gi is not None:
+            rg[b] = gi
+            sbt[gi, :len(shared)] = torch.tensor(shared, dtype=torch.int32)
+            sl[gi] = len(shared) * ps
+        bbt[b, :len(suffix)] = torch.tensor(suffix, dtype=torch.int32)
+        used.update(shared + suffix)
+        if suffix and n % ps:
+            _poison_tail(k_pages, v_pages, suffix[-1], n % ps)
+    unowned = torch.ones((pool_pages,), dtype=torch.bool)
+    unowned[sorted(used)] = False
+    k_pages[:, unowned.to(dev)] = float("nan")
+    v_pages[:, unowned.to(dev)] = float("nan")
+    lengths = torch.tensor([r[3] for r in rows], dtype=torch.int32)
+    return (q, k_pages, v_pages, rg.to(dev), sbt.to(dev), sl.to(dev),
+            bbt.to(dev), lengths.to(dev))
 
 
 def time_ms(torch, fn, n: int = 50, warmup: int = 5) -> float:
@@ -284,10 +341,184 @@ def phase_kernels(torch):
     return errs, {"paged_decode": k1, "paged_prefill": k2}
 
 
+def phase_tree_kernels(torch):
+    """Hold both passes of K3 against their plain versions (the branch
+    pass's output is K3's output, held against the full plain version
+    that defers to K1's); returns per-pass results for the JSON line,
+    timed at the tree serve's shape."""
+    from repro_torch.kernels.paged_attention.ops import tree_decode_bytes_read
+    from repro_torch.kernels.paged_attention.paged_attention import \
+        paged_attention_decode
+    from repro_torch.kernels.paged_attention.ref import (
+        gather_pages, paged_tree_attention_ref, tree_branch_merge_ref,
+        tree_full_tables, tree_shared_partials_ref)
+    from repro_torch.kernels.paged_attention.tree_decode import (
+        paged_tree_branch_fwd, paged_tree_shared_fwd)
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(2)
+    rng = torch.Generator().manual_seed(3)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    r1 = dict(q_heads=40, kv_heads=8, hd=128, ps=16, width=32,
+              pool_pages=4097)
+    qw = dict(r1, q_heads=14, kv_heads=2, hd=64)
+    errs = {"paged_tree_shared": [], "paged_tree_branch": []}
+
+    def serve_topology():
+        # 16 rows in 2 groups of 8, a 16-page span, suffixes of 1-6 pages
+        lens = (256 + torch.randint(1, 97, (16,), generator=rng)).tolist()
+        return [(16, lens[:8]), (16, lens[8:])], []
+
+    cases = [("r1 serve", r1, *serve_topology()),
+             ("qwen2 serve", qw, *serve_topology()),
+             # a row ending inside its span, a 1-member group, length-0
+             # rows in a group and alone, ungrouped singletons
+             ("r1 edges", r1, [(4, [4 * 16 + 5, 2 * 16 + 3, 0, 4 * 16]),
+                               (2, [2 * 16 + 9])], [37, 0, 1]),
+             ("qwen2 edges", qw, [(3, [3 * 16 + 1, 16 + 7]), (1, [20])],
+              [0, 300])]
+    for name, shape, groups, singles in cases:
+        for dn, dt in dtypes.items():
+            args = k3_inputs(torch, gen, dev, groups=groups, singles=singles,
+                             dtype=dt, **shape)
+            q, kp, vp, rg, sbt, sl, bbt, ln = args
+            m, l, acc = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
+            out = paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln, m, l, acc)
+            m_r, l_r, acc_r = tree_shared_partials_ref(q, kp, vp, rg, sbt, sl,
+                                                       ln)
+            ref = paged_tree_attention_ref(*args)
+            torch.cuda.synchronize()
+            grouped = rg < rg.shape[0]
+            check(bool((out[ln == 0] == 0).all()),
+                  "K3 length-0 row is not zero")
+            errs["paged_tree_shared"].append(_compare(
+                torch, f"K3 shared {name} {dn} B={q.shape[0]}",
+                torch.cat([m[grouped, :, None], l[grouped, :, None],
+                           acc[grouped]], -1),
+                torch.cat([m_r[grouped, :, None], l_r[grouped, :, None],
+                           acc_r[grouped]], -1), dn))
+            errs["paged_tree_branch"].append(_compare(
+                torch, f"K3 branch (output) {name} {dn} B={q.shape[0]}",
+                out, ref, dn))
+
+    # timing at the tree serve's shape (bf16)
+    groups, _ = serve_topology()
+    args = k3_inputs(torch, gen, dev, groups=groups, singles=[],
+                     dtype=torch.bfloat16, **r1)
+    q, kp, vp, rg, sbt, sl, bbt, ln = args
+    H, kv, hd, ps = r1["q_heads"], r1["kv_heads"], r1["hd"], r1["ps"]
+    B = q.shape[0]
+    lens = ln.tolist()
+    span = 256
+    suffix = [n - span for n in lens]
+    m, l, acc = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
+    full = tree_full_tables(rg, sbt, sl, bbt, ps)
+    k1_ms = time_ms(torch, lambda: paged_attention_decode(q, kp, vp, full,
+                                                          ln))
+    k3_ms = time_ms(torch, lambda: paged_tree_branch_fwd(
+        q, kp, vp, rg, sl, bbt, ln, *paged_tree_shared_fwd(
+            q, kp, vp, rg, sbt, sl, ln)))
+    # the reference's byte model at token granularity, per fork group
+    kv_bytes = {path: sum(tree_decode_bytes_read(
+        span, suffix[g * 8:(g + 1) * 8], 1, kv, hd, path=path, itemsize=2)
+        for g in range(2)) for path in ("branch", "tree")}
+    print(f"[kernels] tree serve shape (B=16, 2 groups of 8, span 256, "
+          f"suffixes {min(suffix)}..{max(suffix)} tokens, bf16): K1 over "
+          f"the rebuilt full tables {k1_ms:.4f} ms; K3 both passes "
+          f"{k3_ms:.4f} ms; K/V bytes per-branch {kv_bytes['branch']} "
+          f"({kv_bytes['branch'] / HBM_BYTES_PER_S * 1e6:.2f} us), tree "
+          f"{kv_bytes['tree']} "
+          f"({kv_bytes['tree'] / HBM_BYTES_PER_S * 1e6:.2f} us)")
+    # library yardsticks over K/V gathered beforehand: the members of each
+    # group against their shared span; each row against its suffix
+    ks = gather_pages(kp, sbt[:2, :span // ps]).nan_to_num()  # [2, kv, S, hd]
+    vs = gather_pages(vp, sbt[:2, :span // ps]).nan_to_num()
+    qs = q.reshape(2, 8, H, hd).transpose(1, 2)              # [2, H, 8, hd]
+    kb = gather_pages(kp, bbt).nan_to_num()                   # [B, kv, S, hd]
+    vb = gather_pages(vp, bbt).nan_to_num()
+    mask = (torch.arange(kb.shape[2], device=dev)[None, :]
+            < torch.tensor(suffix, device=dev)[:, None])[:, None, None, :]
+    common = 4 * B + B * 4 + 2 * 4     # lengths, row_group, shared_lens
+    shared = {
+        "ms": time_ms(torch, lambda: paged_tree_shared_fwd(
+            q, kp, vp, rg, sbt, sl, ln)),
+        "plain_ms": time_ms(torch, lambda: tree_shared_partials_ref(
+            q, kp, vp, rg, sbt, sl, ln)),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True)),
+        # the two spans' K/V once, q in, fp32 (m, l, acc) out, the span's
+        # table entries of each group
+        "bytes": tree_decode_bytes_read(2 * span, [], 1, kv, hd,
+                                        path="tree", itemsize=2)
+        + B * H * hd * 2 + B * H * (hd + 2) * 4 + 2 * (span // ps) * 4
+        + common,
+        "ops": 4 * B * span * H * hd,
+        "shape": "B=16 in 2 groups of 8, shared span 256 tokens (16 pages),"
+                 " H=40 kv=8 hd=128 ps=16 W=32 bf16",
+    }
+    followed = sum(-(-n // ps) for n in suffix)
+    branch = {
+        "ms": time_ms(torch, lambda: paged_tree_branch_fwd(
+            q, kp, vp, rg, sl, bbt, ln, m, l, acc)),
+        "plain_ms": time_ms(torch, lambda: tree_branch_merge_ref(
+            q, kp, vp, rg, sl, bbt, ln, m, l, acc)),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True)),
+        # the suffixes' K/V once, q and the shared partials in, the output
+        # out, the suffix table entries followed
+        "bytes": tree_decode_bytes_read(0, suffix, 1, kv, hd, path="tree",
+                                        itemsize=2)
+        + B * H * hd * 2 + B * H * (hd + 2) * 4 + B * H * hd * 2
+        + followed * 4 + common,
+        "ops": 4 * sum(suffix) * H * hd,
+        "shape": f"B=16, suffixes {min(suffix)}..{max(suffix)} tokens (sum "
+                 f"{sum(suffix)}), H=40 kv=8 hd=128 ps=16 W=32 bf16",
+    }
+    return errs, {"paged_tree_shared": shared, "paged_tree_branch": branch}
+
+
+def _parity_scenario(torch, eng, vocab: int):
+    """A cold request (a 16-token header + its own 21 tokens, a partial
+    last page) forks 3 branches that decode 6 steps (CoW of the shared
+    page); then a warm request sharing the header rides the decode steps
+    as a chunk lane and forks 2 more branches; 6 more steps. Returns
+    (tokens of every branch, both prefill logits, live rows' hidden)."""
+    header = [int(x) for x in (np.arange(16) * 7 + 3) % vocab]
+    cold = header + [int(x) for x in (np.arange(21) * 5 + 1) % vocab]
+    warm = header + [int(x) for x in (np.arange(9) * 11 + 2) % vocab]
+    blocks, lg_cold, _ = eng.prefill(cold)
+    hs = [eng.spawn_branch(0, blocks, lg_cold, None, len(cold),
+                           prompt_tokens=cold) for _ in range(3)]
+    for _ in range(6):
+        eng.decode_step()
+    st = eng.begin_prefill(warm)
+    while not st.done:
+        eng.decode_step()
+    b2, lg_warm, _ = eng.finish_prefill(st)
+    hs += [eng.spawn_branch(1, b2, lg_warm, None, len(warm),
+                            prompt_tokens=warm) for _ in range(2)]
+    for _ in range(6):
+        eng.decode_step()
+    out = ([h.tokens for h in hs],
+           torch.stack([lg_cold.float().cpu(), lg_warm.float().cpu()]),
+           eng._last_hidden[[h.slot for h in hs]].float().cpu(),
+           st.cached_tokens)
+    for h in hs:
+        eng.free_branch(h)
+    eng.release_prefix(blocks)
+    eng.release_prefix(b2)
+    check(eng.allocator.used_pages == 0, "parity engine leaked pages")
+    eng.allocator.check_invariants()
+    return out
+
+
 def phase_parity(torch):
     """The engine with the kernels on the card against the engine with the
-    plain versions on the CPU: same fp32 weights, greedy decoding."""
+    plain versions on the CPU: same fp32 weights, greedy decoding; first
+    per-branch decode (K1) with the cache off, then the prefix cache and
+    tree decode (K3) on."""
     from repro_torch.configs import smoke
+    from repro_torch.kernels.paged_attention import tree_decode
     from repro_torch.models import Model
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
     cfg = smoke("r1-distill-14b")
@@ -296,32 +527,33 @@ def phase_parity(torch):
     gpu_model = Model(cfg, device=DEVICE)
     gpu_params = {k: _to(v, DEVICE) for k, v in params.items()}
     gpu_model.load_params(gpu_params)
-    ecfg = EngineConfig(page_size=4, num_pages=64, max_slots=4,
-                        max_pages_per_branch=24, prefill_chunk=16,
-                        sampling=SamplingParams(temperature=0.0))
-    runs = []
-    for model, p in ((cpu_model, params), (gpu_model, gpu_params)):
-        eng = Engine(model, p, ecfg)
-        prompt = [int(x) for x in (torch.arange(37) * 7 % cfg.vocab_size)]
-        blocks, logits, _ = eng.prefill(prompt)
-        hs = [eng.spawn_branch(0, blocks, logits, None, len(prompt))
-              for _ in range(3)]
-        for _ in range(12):
-            eng.decode_step()
-        runs.append(([h.tokens for h in hs], logits.float().cpu(),
-                     eng._last_hidden[:3].float().cpu()))
-        for h in hs:
-            eng.free_branch(h)
-        eng.release_prefix(blocks)
-        check(eng.allocator.used_pages == 0, "parity engine leaked pages")
-    (t_cpu, l_cpu, h_cpu), (t_gpu, l_gpu, h_gpu) = runs
-    err = max(float((l_cpu - l_gpu).abs().max()),
-              float((h_cpu - h_gpu).abs().max()))
-    ok = t_cpu == t_gpu and err <= 1e-4
-    print(f"[parity] greedy tokens equal: {t_cpu == t_gpu}; max abs err of "
-          f"prefill logits / hidden {err:.3e} (atol 1e-4) "
-          f"{'ok' if ok else 'FAIL'}")
-    check(ok, "engine on the card disagrees with the CPU engine")
+    for extra in ({}, {"prefix_cache": True, "decode_kernel": "tree"}):
+        ecfg = EngineConfig(page_size=4, num_pages=64, max_slots=6,
+                            max_pages_per_branch=24, prefill_chunk=16,
+                            sampling=SamplingParams(temperature=0.0),
+                            **extra)
+        runs = []
+        for model, p in ((cpu_model, params), (gpu_model, gpu_params)):
+            eng = Engine(model, p, ecfg)
+            tree_decode.branch_launches = 0
+            runs.append(_parity_scenario(torch, eng, cfg.vocab_size))
+            stats = eng.prefix_cache_stats()
+        (t_cpu, l_cpu, h_cpu, c_cpu), (t_gpu, l_gpu, h_gpu, c_gpu) = runs
+        err = max(float((l_cpu - l_gpu).abs().max()),
+                  float((h_cpu - h_gpu).abs().max()))
+        ok = t_cpu == t_gpu and err <= 1e-4 and c_cpu == c_gpu
+        name = ", ".join(f"{k}={v}" for k, v in extra.items()) or "defaults"
+        print(f"[parity] {name}: greedy tokens equal: {t_cpu == t_gpu}; max "
+              f"abs err of prefill logits / hidden {err:.3e} (atol 1e-4); "
+              f"warm request cached tokens {c_gpu}; "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"engine on the card disagrees with the CPU engine "
+                  f"({name})")
+        if extra:
+            check(c_gpu > 0 and stats["hit_tokens"] > 0,
+                  "the warm request missed the prefix cache")
+            check(tree_decode.branch_launches > 0,
+                  "the tree parity run never launched K3")
 
 
 def _to(tree, dev):
@@ -389,6 +621,126 @@ def phase_serve(torch):
           "non-finite hidden state")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
+    return model, params, launches
+
+
+def few_shot_header(n_tokens: int, seed: int):
+    """Seeded solved problems rendered as traces (EOS dropped), joined
+    and cut to ``n_tokens``: the shared few-shot header of phase 6."""
+    from repro_torch.data import tasks
+    from repro_torch.data import tokenizer as tk
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n_tokens:
+        out += [t for t in tasks.render_trace(tasks.gen_problem(rng), rng)
+                if t != tk.EOS]
+    return out[:n_tokens]
+
+
+def _serve_shared_header(torch, model, params, decode_kernel: str):
+    """One serve of phase 6's traffic with the prefix cache on: 4
+    requests every 8 steps, each prompt a 256-token few-shot header (16
+    whole pages) and then the request's own problem. The run_serving
+    config otherwise (4096 x 16 pages, 16 slots, 32 pages per branch,
+    chunk 64; SART n=8, window 8, max 96 tokens, OraclePRM noise 0.05),
+    built here so the launcher gains no feature the reference lacks.
+    Launch counters are zeroed just before the run and read just after.
+    Returns (summary line, launches)."""
+    from repro_torch.core import OraclePRM, Scheduler, SchedulerConfig
+    from repro_torch.core.scheduler import percentile_latency
+    from repro_torch.data import tasks
+    from repro_torch.data import tokenizer as tk
+    from repro_torch.kernels.flash_prefill import paged_prefill
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     tree_decode)
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    gc.collect()                 # the previous engine and its KV pools
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    seed = 0
+    header = few_shot_header(256, seed=seed + 3)
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, params, EngineConfig(
+        page_size=16, num_pages=4096, max_slots=16, max_pages_per_branch=32,
+        eos_id=tk.EOS, sampling=SamplingParams(temperature=0.9, top_p=0.95),
+        seed=seed, prefix_cache=True, decode_kernel=decode_kernel))
+    prm = OraclePRM(tasks.oracle_grader, noise=0.05, seed=seed + 1)
+    sch = Scheduler(engine, prm, SchedulerConfig(policy="sart", n=8,
+                                                 window=8, max_tokens=96),
+                    answer_fn=tasks.extract_answer)
+    rng = np.random.default_rng(seed + 2)
+    for i in range(4):
+        prob = tasks.gen_problem(rng)
+        sch.submit(header + prob.prompt_tokens(), payload=prob,
+                   arrival=i * 8)
+
+    paged_attention.launches = 0
+    paged_prefill.launches = 0
+    tree_decode.shared_launches = tree_decode.branch_launches = 0
+    t0 = time.perf_counter()
+    metrics = sch.run(max_steps=2_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": paged_attention.launches,
+                "paged_prefill": paged_prefill.launches,
+                "paged_tree_shared": tree_decode.shared_launches,
+                "paged_tree_branch": tree_decode.branch_launches}
+
+    steps = sorted(engine.step_seconds)
+    faults = metrics["faults"]
+    stats = engine.prefix_cache_stats()
+    line = {
+        "decode_kernel": decode_kernel,
+        "completed_requests": metrics["completed_requests"],
+        "unfinished_requests": metrics["unfinished_requests"],
+        "decode_steps": engine.decode_steps_executed,
+        "mixed_steps": engine.mixed_steps_executed,
+        "wall_s": round(wall, 3),
+        "generated_tokens": engine.tokens_generated,
+        "tokens_per_s": round(engine.tokens_generated / wall, 2),
+        "step_ms_p50": round(steps[len(steps) // 2] * 1e3, 3),
+        "step_ms_mean": round(sum(steps) / len(steps) * 1e3, 3),
+        "mem_held_before_gb": round(held, 2),
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        "launches": launches,
+        "prefix_cache": stats,
+        "cached_tokens": [r["cached_tokens"] for r in metrics["requests"]],
+        "e2e_p50_steps": percentile_latency(metrics, 50),
+        "ttfb50_steps": percentile_latency(metrics, 50, "ttfb"),
+        "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
+                                          "quarantined")},
+        "used_pages": engine.allocator.used_pages,
+    }
+    print("[serve-tree] " + json.dumps(line))
+    check(metrics["completed_requests"] == 4
+          and metrics["unfinished_requests"] == 0,
+          "not every request completed")
+    check(faults["step_faults"] == faults["engine_restarts"]
+          == faults["quarantined"] == 0, f"faults in the run: {faults}")
+    check(engine.allocator.used_pages == 0, "pages leaked after serving")
+    check(bool(torch.isfinite(engine._last_hidden.float()).all()),
+          "non-finite hidden state")
+    check(stats["hit_tokens"] > 0 and stats["hit_rate"] > 0,
+          "the shared header never hit the prefix cache")
+    return line, launches
+
+
+def phase_tree_serve(torch, model, params):
+    """Phase 6: the shared-header traffic with tree decode (the path,
+    whose launches are counted), then the same traffic with per-branch
+    decode for the step-time comparison inside this one call."""
+    line, launches = _serve_shared_header(torch, model, params, "tree")
+    check(launches["paged_decode"] == 0, "K1 launched in the tree run")
+    check(launches["paged_tree_branch"]
+          == model.cfg.num_layers * line["decode_steps"],
+          "K3's branch pass did not carry every decode step")
+    check(launches["paged_tree_shared"] > 0
+          and launches["paged_prefill"] > 0,
+          f"a kernel of the tree path never launched: {launches}")
+    paged, _ = _serve_shared_header(torch, model, params, "paged")
+    print(f"[serve-tree] step p50 tree {line['step_ms_p50']} ms vs paged "
+          f"{paged['step_ms_p50']} ms on the same traffic "
+          f"({line['step_ms_p50'] / paged['step_ms_p50'] - 1:+.1%})")
     return launches
 
 
@@ -464,11 +816,18 @@ def main() -> int:
         phase_profile(torch, Path(args.profile))
         return 0
     errs, timing = phase_kernels(torch)
+    tree_errs, tree_timing = phase_tree_kernels(torch)
+    errs.update(tree_errs)
+    timing.update(tree_timing)
     if args.skip_serve:
         print(json.dumps(timing))
         return 0
     phase_parity(torch)
-    launches = phase_serve(torch)
+    model, params, launches = phase_serve(torch)
+    # K1 and K2 count phase 5's run, the K3 passes phase 6's
+    tree_run = phase_tree_serve(torch, model, params)
+    for name in ("paged_tree_shared", "paged_tree_branch"):
+        launches[name] = tree_run[name]
 
     meta = {
         "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
@@ -477,6 +836,12 @@ def main() -> int:
         "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                           "src/repro/kernels/flash_prefill/"
                           "paged_prefill.py:176"),
+        "paged_tree_shared": ("src/repro_torch/csrc/paged_tree_decode.cu",
+                              "src/repro/kernels/paged_attention/"
+                              "tree_decode.py:170"),
+        "paged_tree_branch": ("src/repro_torch/csrc/paged_tree_decode.cu",
+                              "src/repro/kernels/paged_attention/"
+                              "tree_decode.py:229"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("paged_decode", "paged_prefill")
+SOURCES = ("paged_decode", "paged_prefill", "paged_tree_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -107,6 +107,26 @@ def check_operands(kernel: str, *tensors) -> None:
                              f"device, got {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+def check_paged_operands(kernel: str, q, k_pages, v_pages,
+                         max_group: int) -> None:
+    """q [..., H, hd] against K/V pools [kv, P, ps, hd] of q's dtype, with
+    head_dim 64 or 128 and at most ``max_group`` query heads per KV head
+    (what the paged attention launchers are built for), or raise."""
+    q_heads, head_dim = q.shape[-2:]
+    kv_heads, hd = k_pages.shape[0], k_pages.shape[-1]
+    if k_pages.shape != v_pages.shape or hd != head_dim:
+        raise ValueError(f"{kernel}: pages {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"{kernel}: q and the pages must share a dtype")
+    if head_dim not in (64, 128):
+        raise ValueError(f"{kernel}: head_dim {head_dim} not in (64, 128)")
+    if q_heads % kv_heads or q_heads // kv_heads > max_group:
+        raise ValueError(f"{kernel}: {q_heads} query heads over "
+                         f"{kv_heads} KV heads")
 
 
 def raise_on_error(kernel: str, rc: int) -> None:

@@ -32,20 +32,10 @@ def paged_flash_prefill_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     [T, H, hd]."""
     global launches
     build.check_operands("paged_prefill", q, k_pages, v_pages, block_table)
+    build.check_paged_operands("paged_prefill", q, k_pages, v_pages,
+                               MAX_ROWS)
     t, q_heads, head_dim = q.shape
-    kv_heads, num_pages, page_size, hd = k_pages.shape
-    if k_pages.shape != v_pages.shape or hd != head_dim:
-        raise ValueError(f"paged_prefill: pages {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("paged_prefill: q and the pages must share a dtype")
-    if head_dim not in (64, 128):
-        raise ValueError(f"paged_prefill: head_dim {head_dim} not in "
-                         "(64, 128)")
-    if q_heads % kv_heads or q_heads // kv_heads > MAX_ROWS:
-        raise ValueError(f"paged_prefill: {q_heads} query heads over "
-                         f"{kv_heads} KV heads")
+    kv_heads, num_pages, page_size, _ = k_pages.shape
     if block_table.dtype != torch.int32 or block_table.dim() != 1:
         raise TypeError("paged_prefill: the block table is int32 [W]")
     pos0, valid_len = int(pos0), int(valid_len)

@@ -27,19 +27,10 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
     global launches
     build.check_operands("paged_decode", q, k_pages, v_pages, block_tables,
                          lengths)
+    build.check_paged_operands("paged_decode", q, k_pages, v_pages,
+                               MAX_GROUP)
     batch, q_heads, head_dim = q.shape
-    kv_heads, num_pages, page_size, hd = k_pages.shape
-    if k_pages.shape != v_pages.shape or hd != head_dim:
-        raise ValueError(f"paged_decode: pages {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("paged_decode: q and the pages must share a dtype")
-    if head_dim not in (64, 128):
-        raise ValueError(f"paged_decode: head_dim {head_dim} not in (64, 128)")
-    if q_heads % kv_heads or q_heads // kv_heads > MAX_GROUP:
-        raise ValueError(f"paged_decode: {q_heads} query heads over "
-                         f"{kv_heads} KV heads")
+    kv_heads, num_pages, page_size, _ = k_pages.shape
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_decode: block tables and lengths are int32")
     if block_tables.shape[0] != batch or tuple(lengths.shape) != (batch,):

@@ -41,13 +41,12 @@ here):
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-# The radix prefix cache is not ported yet; ``attach_cache`` keeps its
-# duck-typed hook so the allocator stays a whole copy of the reference.
-PrefixCache = Any
+if TYPE_CHECKING:  # pragma: no cover - import cycle guard, types only
+    from .prefix_cache import PrefixCache
 
 
 class OutOfPagesError(RuntimeError):
@@ -298,8 +297,8 @@ def tree_decode_map(
     page_size: int,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Build the branch×page dedup map the tree-decode attention kernel
-    consumes (the tree-decode kernel, not ported yet) from the slots'
-    fork topology.
+    consumes (``repro_torch.kernels.paged_attention.ops.paged_tree_attention``,
+    kernel K3) from the slots' fork topology.
 
     Rows sharing their first page id form a fork group (page ids are
     refcount-shared on fork, so a common ``pages[0]`` — whether from

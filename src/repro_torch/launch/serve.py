@@ -9,8 +9,8 @@ the Algorithm-1 scheduler and prints accuracy and latency percentiles.
 The model build (``load_reasoner``) is separate from the run
 (``run_serving``: engine, scheduler, request loop), so a caller with its
 own model — ``chip_smoke.py`` serves r1-distill-14b — drives the same run.
-Runs on the CUDA card unless ``--device cpu``. Fault plans, the prefix
-cache and the ssm/hybrid fallback trunks are not ported yet.
+Runs on the CUDA card unless ``--device cpu``. Fault plans and the
+ssm/hybrid fallback trunks are not ported yet.
 """
 from __future__ import annotations
 
@@ -69,7 +69,8 @@ def run_serving(model: Model, params: dict, prm_head: Optional[dict], *,
                 prm_kind: str, window: int, max_tokens: int, max_slots: int,
                 seed: int, temperature: float,
                 mixed_step_kernel: str = "fused",
-                step_token_budget: int = 0, admission_policy: str = "fifo",
+                step_token_budget: int = 0, prefix_cache: bool = False,
+                admission_policy: str = "fifo",
                 deadline: Optional[int] = None) -> Tuple[dict, Engine]:
     """Serve ``num_requests`` synthetic problems arriving every
     ``rate_gap`` decode steps under ``policy``. Returns the summary dict
@@ -79,7 +80,7 @@ def run_serving(model: Model, params: dict, prm_head: Optional[dict], *,
         max_pages_per_branch=32, eos_id=tk.EOS,
         sampling=SamplingParams(temperature=temperature, top_p=0.95),
         seed=seed, mixed_step_kernel=mixed_step_kernel,
-        step_token_budget=step_token_budget),
+        step_token_budget=step_token_budget, prefix_cache=prefix_cache),
         prm_params=prm_head)
     if prm_kind == "head" and prm_head is not None:
         prm = RewardHeadPRM(engine)
@@ -135,8 +136,8 @@ def serve(policy: str, n: int, num_requests: int, rate_gap: int,
           ckpt: Optional[str], prm_kind: str, window: int, max_tokens: int,
           max_slots: int, seed: int, temperature: float,
           mixed_step_kernel: str = "fused", step_token_budget: int = 0,
-          admission_policy: str = "fifo", deadline: Optional[int] = None,
-          device=None) -> dict:
+          prefix_cache: bool = False, admission_policy: str = "fifo",
+          deadline: Optional[int] = None, device=None) -> dict:
     """``load_reasoner`` then ``run_serving``; returns the summary dict."""
     model, params, prm_head = load_reasoner(ckpt, device)
     out, _ = run_serving(
@@ -144,7 +145,7 @@ def serve(policy: str, n: int, num_requests: int, rate_gap: int,
         num_requests=num_requests, rate_gap=rate_gap, prm_kind=prm_kind,
         window=window, max_tokens=max_tokens, max_slots=max_slots, seed=seed,
         temperature=temperature, mixed_step_kernel=mixed_step_kernel,
-        step_token_budget=step_token_budget,
+        step_token_budget=step_token_budget, prefix_cache=prefix_cache,
         admission_policy=admission_policy, deadline=deadline)
     return out
 
@@ -168,6 +169,10 @@ def main():
                     help="max chunk-row tokens per mixed step, drawn from "
                          "multiple in-flight prefills; 0 = one FIFO chunk "
                          "per step")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix page-hash prompt prefix cache: admission "
+                         "reuses cached page-aligned prefixes (shared "
+                         "headers) instead of recomputing them")
     ap.add_argument("--admission-policy", default="fifo",
                     help="admission ordering over the arrived set: fifo, "
                          "lpm, edf, priority, or compositions like "
@@ -188,7 +193,8 @@ def main():
                 args.ckpt, args.prm, args.window, args.max_tokens,
                 args.slots, args.seed, args.temperature,
                 args.mixed_step_kernel, args.step_token_budget,
-                args.admission_policy, args.deadline, args.device)
+                args.prefix_cache, args.admission_policy, args.deadline,
+                args.device)
     print(json.dumps(out, indent=2))
 
 

@@ -6,9 +6,13 @@ prompts are admitted chunk by chunk as extra rows ("lanes") of the same
 decode step; page accounting and copy-on-write run on the host in
 ``repro_torch.kv.PageAllocator``. Each step runs eagerly on the engine's
 device: a Python loop over layers in place of ``jax.lax.scan``, the
-paged flash-decode (kernel K1) for every decode row and the paged
-flash-prefill (kernel K2) once per chunk lane, as the reference's
-``mixed_step_kernel="fused"`` default.
+paged flash-decode (kernel K1) for every decode row — or, with
+``decode_kernel="tree"``, the tree-decode pair (kernel K3) over the
+slots' fork-group map — and the paged flash-prefill (kernel K2) once per
+chunk lane, as the reference's ``mixed_step_kernel="fused"`` default.
+With ``prefix_cache=True`` admission serves the longest cached
+page-aligned prefix from the radix cache (``repro_torch.kv.PrefixCache``)
+and chunks from the first uncached token.
 
 Differences from the reference that a reader must know:
 
@@ -22,10 +26,11 @@ Differences from the reference that a reader must know:
     each layer writes every row's K/V before any row attends, so a
     chunk's own keys are visible to K2, as ``engine.py:1069-1170``.
   * **One host sync per step**, the sampled tokens. The step's index
-    arrays are built on the host in numpy and copied to the device once.
+    arrays, the tree map's four included, are built on the host in numpy
+    and copied to the device once.
   * **Families and options of later slices raise** in ``__init__``:
-    ssm/hybrid, MoE, M-RoPE and sinusoidal positions, the prefix cache,
-    ``decode_kernel="tree"`` and ``chunked_prefill=False``.
+    ssm/hybrid, MoE, M-RoPE and sinusoidal positions and
+    ``chunked_prefill=False``.
   * **Randomness** comes from one ``torch.Generator`` on the device,
     seeded from ``EngineConfig.seed``; greedy sampling matches the
     reference token for token, stochastic sampling only in distribution.
@@ -46,8 +51,10 @@ import numpy as np
 import torch
 
 from ..kernels.flash_prefill.ops import paged_flash_prefill
-from ..kernels.paged_attention.ops import paged_attention
-from ..kv import BranchBlocks, OutOfPagesError, PageAllocator
+from ..kernels.paged_attention.ops import (paged_attention,
+                                           paged_tree_attention)
+from ..kv import (BranchBlocks, OutOfPagesError, PageAllocator, PrefixCache,
+                  tree_decode_map)
 from ..models.attention import _project_qkv, _rotate
 from ..models.layers import apply_mlp, apply_norm, embed_tokens, unembed
 from ..models.model import Model
@@ -76,8 +83,14 @@ class EngineConfig:
     # block table; "decode" re-uses the per-token flash-decode (kernel K1)
     # for every chunk row, kept for equivalence testing.
     mixed_step_kernel: str = "fused"
-    # Decode-slot attention path. Only "paged" (kernel K1) is ported;
-    # "tree" raises.
+    # Decode-slot attention path. "paged" runs the per-branch flash-decode
+    # (kernel K1: every branch streams its whole context, shared ancestor
+    # pages once per sibling); "tree" splits the step over the branch x
+    # page map of the slots' fork topology (``kv.tree_decode_map``) so
+    # each shared ancestor page is streamed once per step for all its
+    # branches (kernel K3). Bit-exact with "paged" on the CPU (the plain
+    # version rebuilds the same full tables); requires
+    # ``mixed_step_kernel="fused"``.
     decode_kernel: str = "paged"
     # Token-budget lane scheduling: a mixed step carries up to
     # ``step_token_budget`` chunk-row tokens drawn from several in-flight
@@ -92,7 +105,12 @@ class EngineConfig:
     # A pending prefill skipped by the packer more than this many times
     # blocks packing past it (bounded overtaking).
     prefill_starvation_bound: int = 4
-    # Radix prefix cache: not ported yet, ``True`` raises.
+    # Radix page-hash prompt prefix cache: admission increfs the longest
+    # cached page-aligned prefix of the prompt into its block list and
+    # starts chunking at the first uncached token (no prefill compute and
+    # no K/V writes for shared tokens). Refcount-0 cached pages park on an
+    # LRU list and are evicted only under page pressure. Tokens and logits
+    # stay bit-exact with the cache off.
     prefix_cache: bool = False
 
 
@@ -105,7 +123,8 @@ class ChunkedPrefillState:
     been written and the last-position logits are available for
     ``spawn_branch``. ``harvested`` flips in ``finish_prefill`` — from
     then on the pages belong to the caller and ``abort_prefill`` must not
-    release them."""
+    release them. With the prefix cache, ``next_pos`` starts at the
+    cached page-aligned boundary (``cached_tokens``)."""
     prompt: List[int]
     blocks: BranchBlocks
     next_pos: int = 0                # prompt tokens written so far
@@ -113,6 +132,7 @@ class ChunkedPrefillState:
     done: bool = False
     harvested: bool = False
     passed_over: int = 0             # consecutive packer skips (starvation)
+    cached_tokens: int = 0           # prefix tokens served from the cache
 
     @property
     def remaining(self) -> int:
@@ -207,16 +227,22 @@ class BranchHandle:
     done: bool = False
     last_reward: float = 0.0
     scored: bool = False              # has the PRM ever scored this branch?
+    # prefix cache on: the prompt tokens key the branch's generated full
+    # pages into the radix cache at page boundaries and on completion
+    prompt_tokens: Optional[List[int]] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class StepVariant:
     """One reachable step shape: ``"decode"`` or ``"mixed:b{bucket}x
     l{lanes}"``; ``lane_buckets`` (each lane's padded row count) selects
-    it — the shape set a later slice captures as CUDA graphs."""
+    it — the shape set a later slice captures as CUDA graphs. ``args``
+    maps each host index array the step takes to its (shape, dtype)."""
 
     name: str
     lane_buckets: Tuple[int, ...]
+    args: Dict[str, Tuple[tuple, str]] = dataclasses.field(
+        default_factory=dict)
 
 
 def _layer_slices(layers: dict, num_layers: int) -> List[dict]:
@@ -235,23 +261,35 @@ class Engine:
         self.cfg = cfg
         self.device = model.device
         mc = model.cfg
+        assert cfg.mixed_step_kernel in ("fused", "decode"), \
+            cfg.mixed_step_kernel
+        assert cfg.decode_kernel in ("paged", "tree"), cfg.decode_kernel
+        # the reference's configuration errors come before the check for
+        # options of later slices
+        if cfg.decode_kernel == "tree" and cfg.mixed_step_kernel == "decode":
+            raise ValueError(
+                "decode_kernel='tree' requires mixed_step_kernel='fused' — "
+                "the 'decode' fallback runs decode slots and chunk rows "
+                "through one per-branch call, which the tree dedup map "
+                "cannot cover (its row axis is the decode slots only)")
+        if cfg.prefix_cache and not cfg.chunked_prefill:
+            raise ValueError(
+                "prefix_cache requires chunked_prefill=True — the exact-"
+                "length path writes every page via the dense scatter and "
+                "has no chunk-start offset to resume from")
         for later, what in ((mc.uses_ssm, f"{mc.arch_type} layers"),
                             (mc.uses_moe, "MoE layers"),
                             (mc.pos_embedding in ("mrope", "sinusoidal"),
                              f"{mc.pos_embedding} positions"),
-                            (cfg.prefix_cache, "the prefix cache"),
-                            (cfg.decode_kernel == "tree",
-                             "decode_kernel='tree'"),
                             (not cfg.chunked_prefill,
                              "exact-length prefill (chunked_prefill=False)")):
             if later:
                 raise NotImplementedError(f"{what}: not ported yet")
         assert not mc.sliding_window, \
             "paged engine serves full-attention configs"
-        assert cfg.mixed_step_kernel in ("fused", "decode"), \
-            cfg.mixed_step_kernel
-        assert cfg.decode_kernel == "paged", cfg.decode_kernel
         self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
+        self.prefix_cache = (PrefixCache(self.allocator)
+                             if cfg.prefix_cache else None)
         self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self._next_branch_id = 0
 
@@ -331,10 +369,23 @@ class Engine:
 
     def _new_chunked_state(self, prompt: List[int]) -> ChunkedPrefillState:
         """Allocate a prompt's pages (all-or-nothing) and wrap them in a
-        chunked state that starts at position 0."""
+        chunked state. With the prefix cache, the longest cached
+        page-aligned prefix leads the block list and chunking starts at
+        the first uncached token; ``admit`` rolls its references back if
+        the tail allocation fails, so admission stays all-or-nothing."""
+        # width check BEFORE admit: an oversized prompt must fail without
+        # acquiring references it would then leak
         self._check_prompt_width(len(prompt))
-        blocks = self.allocator.alloc_prefix(len(prompt))
-        return ChunkedPrefillState(prompt=list(prompt), blocks=blocks)
+        if self.prefix_cache is None:
+            blocks = self.allocator.alloc_prefix(len(prompt))
+            cached = 0
+        else:
+            # the two acquisitions sit in exclusive branches, and each is
+            # all-or-nothing on its own
+            blocks, _ = self.prefix_cache.admit(prompt)  # reprolint: disable=REP002
+            cached = blocks.num_shared * self.cfg.page_size
+        return ChunkedPrefillState(prompt=list(prompt), blocks=blocks,
+                                   next_pos=cached, cached_tokens=cached)
 
     def begin_prefill(self, prompt: List[int]) -> ChunkedPrefillState:
         """Admit a request without stalling decode. The returned state is
@@ -370,12 +421,18 @@ class Engine:
         return bool(self._pending_prefills)
 
     def prefix_cache_stats(self) -> Optional[Dict]:
-        """None: the prefix cache is not ported yet (always off)."""
-        return None
+        """Radix-cache hit/eviction counters, or None with the cache off
+        (surfaced by the serve CLI and ``Scheduler.metrics``)."""
+        return (self.prefix_cache.stats()
+                if self.prefix_cache is not None else None)
 
     def match_cached_tokens(self, prompt: List[int]) -> int:
-        """0: no prompt token is served from a cache (cache off)."""
-        return 0
+        """Non-mutating probe for LPM admission ordering: prompt tokens a
+        warm admission would serve from the radix cache right now (0 with
+        the cache off)."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.match_tokens(prompt)
 
     @property
     def prefill_compile_count(self) -> int:
@@ -385,12 +442,30 @@ class Engine:
 
     def step_variants(self) -> List[StepVariant]:
         """Every step shape this engine can dispatch: the pure-decode
-        shape plus one mixed shape per (bucket, lane-count) pair."""
-        variants = [StepVariant("decode", ())]
+        shape plus one mixed shape per (bucket, lane-count) pair, each
+        with the host index arrays it takes (the tree map's four with
+        ``decode_kernel="tree"``)."""
+        cfg = self.cfg
+        B, w = cfg.max_slots, cfg.max_pages_per_branch
+
+        def args(rows: int) -> dict:
+            out = {"tokens": ((rows,), "int32"),
+                   "positions": ((rows,), "int32"),
+                   "block_tables": ((rows, w), "int32"),
+                   "lengths": ((rows,), "int32")}
+            if cfg.decode_kernel == "tree":
+                out.update(branch_bt=((B, w), "int32"),
+                           row_group=((B,), "int32"),
+                           shared_bt=((B, w), "int32"),
+                           shared_lens=((B,), "int32"))
+            return out
+
+        variants = [StepVariant("decode", (), args(B))]
         for bucket in self._buckets:
             for n in self._lane_configs:
                 variants.append(StepVariant(f"mixed:b{bucket}xl{n}",
-                                            (bucket,) * n))
+                                            (bucket,) * n,
+                                            args(B + n * bucket)))
         return variants
 
     def _bucket_for(self, n: int) -> int:
@@ -440,12 +515,15 @@ class Engine:
 
     def _advance_chunks(self, sts: List[ChunkedPrefillState],
                         piggyback: bool, bucket: int = 0,
-                        cows: Sequence[tuple] = ()):
+                        cows: Sequence[tuple] = (),
+                        tree: Optional[tuple] = None):
         """Run one chunk of each state in ``sts`` through the step as
         concurrent lanes. With ``piggyback`` the caller (``decode_step``)
-        supplies the live decode rows plus the step's CoW page copies;
-        standalone draining pads with inert rows (sentinel block tables
-        send their page writes to the spare page)."""
+        supplies the live decode rows plus the step's CoW page copies and
+        tree map; standalone draining pads with inert rows (sentinel block
+        tables send their page writes to the spare page; the tree map
+        groups none of them). With the prefix cache, a finished prompt's
+        full pages are inserted into the radix."""
         cfg = self.cfg
         B = cfg.max_slots
         if not bucket:
@@ -461,6 +539,7 @@ class Engine:
             d_bt = np.full((B, cfg.max_pages_per_branch), cfg.num_pages,
                            np.int32)
             d_lengths = np.zeros((B,), np.int32)
+            tree = self._tree_map([None] * B)
         lane_buckets = (bucket,) * len(sts)
         self._buckets_used.add((bucket, len(sts)))
         next_tokens, hidden, logits = self._step(
@@ -468,7 +547,8 @@ class Engine:
             np.concatenate([d_positions] + [ln[1] for ln in lanes]),
             np.concatenate([d_bt] + [ln[2] for ln in lanes]),
             np.concatenate([d_lengths] + [ln[3] for ln in lanes]),
-            lane_buckets, chunk_lens, [st.next_pos for st in sts], cows)
+            lane_buckets, chunk_lens, [st.next_pos for st in sts], cows,
+            tree)
         self.prefill_chunk_steps += len(sts)
         self.mixed_steps_executed += 1
         for i, st in enumerate(sts):
@@ -479,6 +559,8 @@ class Engine:
                 st.last_logits = logits[B + i * bucket + cl - 1]
                 if st in self._pending_prefills:
                     self._pending_prefills.remove(st)
+                if self.prefix_cache is not None:
+                    self.prefix_cache.insert(st.prompt, st.blocks.pages)
         return next_tokens, hidden
 
     # --------------------------------------------------------------- branches
@@ -490,9 +572,11 @@ class Engine:
         """Fork one branch off a prefilled prefix and seat it in a free
         slot, sampling its own first token from the prefill logits.
         Returns None if no slot is free (caller queues the branch).
-        ``ssm_state``, ``first_fork`` and ``prompt_tokens`` (the prefix
-        cache's key) keep the reference's signature; the dense path
-        without a cache does not use them."""
+        ``prompt_tokens`` (the request's prompt) keys the branch's
+        generated full pages into the prefix cache at completion and
+        page-aligned decode boundaries — without it the branch inserts
+        nothing. ``ssm_state`` and ``first_fork`` keep the reference's
+        signature; the dense path does not use them."""
         free = self.free_slots
         if not free:
             return None
@@ -501,7 +585,9 @@ class Engine:
         first = int(sample(self._gen, last_logits, self.cfg.sampling))
         handle = BranchHandle(
             branch_id=self._next_branch_id, request_id=request_id, slot=slot,
-            blocks=blocks, tokens=[first], prompt_len=prompt_len)
+            blocks=blocks, tokens=[first], prompt_len=prompt_len,
+            prompt_tokens=(list(prompt_tokens)
+                           if prompt_tokens is not None else None))
         self._next_branch_id += 1
         self.slots[slot] = handle
         self._seat(handle)
@@ -535,7 +621,9 @@ class Engine:
         handle = BranchHandle(
             branch_id=self._next_branch_id, request_id=parent.request_id,
             slot=slot, blocks=blocks, tokens=list(parent.tokens),
-            prompt_len=parent.prompt_len)
+            prompt_len=parent.prompt_len,
+            prompt_tokens=(list(parent.prompt_tokens)
+                           if parent.prompt_tokens is not None else None))
         self._next_branch_id += 1
         self.slots[slot] = handle
         self._seat(handle)
@@ -576,8 +664,25 @@ class Engine:
                 need += 1
         return need
 
+    def _insert_generated(self, h: BranchHandle) -> None:
+        """Insert a branch's generated full pages into the prefix cache,
+        keyed by prompt + generated tokens (``insert`` skips the trailing
+        partial page, which keeps private CoW semantics). Released pages
+        then park on the LRU instead of freeing, so a resample of the
+        same trajectory admits warm."""
+        if self.prefix_cache is None or h.prompt_tokens is None:
+            return
+        written = h.blocks.length - h.prompt_len
+        if written <= 0:
+            return
+        key = list(h.prompt_tokens) + h.tokens[:written]
+        self.prefix_cache.insert(key, h.blocks.pages)
+
     def free_branch(self, h: BranchHandle):
-        """Release a branch's slot and eagerly free its pages."""
+        """Release a branch's slot and eagerly free its pages (inserting
+        its generated full pages into the prefix cache first, so they park
+        warm on the LRU instead of freeing)."""
+        self._insert_generated(h)
         self.allocator.release(h.blocks)
         slot = h.slot
         if slot >= 0:                 # suspended branches hold no slot
@@ -599,10 +704,24 @@ class Engine:
         dst = np.asarray([new for _, new in cows], np.int32)
         return src, dst
 
+    def _tree_map(self, blocks: List[Optional[BranchBlocks]]
+                  ) -> Optional[tuple]:
+        """The decode rows' branch x page map for K3 as host arrays
+        ``(row_group, shared_bt, shared_lens, branch_bt)`` from the slots'
+        blocks (None for an empty slot), or None with the per-branch
+        kernel."""
+        cfg = self.cfg
+        if cfg.decode_kernel != "tree":
+            return None
+        return tree_decode_map(
+            blocks, pages_per_branch=cfg.max_pages_per_branch,
+            num_pages=cfg.num_pages, page_size=cfg.page_size)
+
     def _step(self, tokens: np.ndarray, positions: np.ndarray,
               block_tables: np.ndarray, lengths: np.ndarray,
               lane_buckets: tuple = (), chunk_lens: Sequence[int] = (),
-              lane_pos0: Sequence[int] = (), cows: Sequence[tuple] = ()):
+              lane_pos0: Sequence[int] = (), cows: Sequence[tuple] = (),
+              tree: Optional[tuple] = None):
         """One batched token step (the reference's ``_step_fn``), generic
         in row count and lane count.
 
@@ -610,12 +729,15 @@ class Engine:
         step's prefill chunk lanes — ``lane_buckets`` gives each lane's
         padded row count, ``chunk_lens[i]`` its true chunk length and
         ``lane_pos0[i]`` the absolute position of its first row (host
-        ints, so the lanes' K2 launches need no device sync). Order, as
-        the reference: CoW copies, then per layer norm -> QKV -> RoPE ->
-        K/V page writes of every row -> attention (K1 for the decode rows,
-        K2 once per lane with the "fused" kernel) -> wo -> MLP; then the
-        final norm, unembed and sampling. Returns (next_tokens [rows]
-        int32, hidden [rows, D], logits [rows, V]), all on the device.
+        ints, so the lanes' K2 launches need no device sync). ``tree`` is
+        the decode rows' map from ``_tree_map`` (None: per-branch K1).
+        Order, as the reference: CoW copies, then per layer norm -> QKV ->
+        RoPE -> K/V page writes of every row -> attention (K1, or K3 over
+        ``tree``, for the decode rows; K2 once per lane with the "fused"
+        kernel) -> wo -> MLP; then the final norm, unembed and sampling.
+        CoW runs before attention, so no shared page of the map is
+        written mid-step. Returns (next_tokens [rows] int32, hidden
+        [rows, D], logits [rows, V]), all on the device.
         """
         mc, cfg, p = self.model.cfg, self.cfg, self.params
         B, nS = tokens.shape[0], cfg.max_slots
@@ -632,18 +754,29 @@ class Engine:
                    for i, bk in enumerate(lane_buckets)])
             page_of = np.where(write_ok, page_of, cfg.num_pages)
         cow_src, cow_dst = self._cow_arrays(cows)
-        host = np.concatenate([tokens, positions, page_of, positions % ps,
-                               lengths + 1, block_tables.reshape(-1),
-                               cow_src, cow_dst]).astype(np.int32)
+        # the step's one host-to-device copy: every index array, the tree
+        # map's included, sliced apart on the device
+        parts = [tokens, positions, page_of, positions % ps, lengths + 1,
+                 block_tables.reshape(-1)]
+        if tree is not None:
+            rg, sbt, sl, bbt = tree
+            parts += [rg, sl, sbt.reshape(-1), bbt.reshape(-1)]
+        host = np.concatenate(parts + [cow_src, cow_dst]).astype(np.int32)
         dev = torch.from_numpy(host).to(self.device)
         tok_d, pos_d, page_d, slot_d, len_d = dev[:5 * B].view(5, B)
-        bt_d = dev[5 * B:5 * B + B * w].view(B, w)
+        off = 5 * B + B * w
+        bt_d = dev[5 * B:off].view(B, w)
+        if tree is not None:
+            rg_d, sl_d = dev[off:off + 2 * nS].view(2, nS)
+            sbt_d, bbt_d = dev[off + 2 * nS:off + 2 * nS + 2 * nS * w].view(
+                2, nS, w)
+            off += 2 * nS + 2 * nS * w
         kp_all, vp_all = self.state["k_pages"], self.state["v_pages"]
         if cows:
             # CoW before any write (in place on the pools)
             nc = len(cows)
-            src = dev[5 * B + B * w:5 * B + B * w + nc].long()
-            dst = dev[5 * B + B * w + nc:].long()
+            src = dev[off:off + nc].long()
+            dst = dev[off + nc:].long()
             kp_all[:, :, dst] = kp_all[:, :, src]
             vp_all[:, :, dst] = vp_all[:, :, src]
         page_i, slot_i = page_d.long(), slot_d.long()
@@ -659,19 +792,27 @@ class Engine:
             kp[:, page_i, slot_i] = k[:, 0].transpose(0, 1)
             vp[:, page_i, slot_i] = v[:, 0].transpose(0, 1)
             q = q[:, 0]                                        # [B, H, hd]
-            if fused_chunk:
-                parts = [paged_attention(q[:nS], kp, vp, bt_d[:nS],
-                                         len_d[:nS])]
-                for i, bk in enumerate(lane_buckets):
-                    o = lane_off[i]
-                    parts.append(paged_flash_prefill(
-                        q[o:o + bk], kp, vp, bt_d[o], lane_pos0[i],
-                        chunk_lens[i]))
-                att = torch.cat(parts, 0)
-            else:
-                # decode rows, or the mixed_step_kernel="decode" fallback:
-                # every row through the per-token flash-decode
+            if B > nS and not fused_chunk:
+                # the mixed_step_kernel="decode" fallback: every row
+                # through the per-token flash-decode (the tree map needs
+                # the fused path)
                 att = paged_attention(q, kp, vp, bt_d, len_d)
+            else:
+                if tree is not None:
+                    # decode rows over the fork-group map (K3)
+                    att = paged_tree_attention(q[:nS], kp, vp, rg_d, sbt_d,
+                                               sl_d, bbt_d, len_d[:nS])
+                else:
+                    att = paged_attention(q[:nS], kp, vp, bt_d[:nS],
+                                          len_d[:nS])
+                if fused_chunk:
+                    parts = [att]
+                    for i, bk in enumerate(lane_buckets):
+                        o = lane_off[i]
+                        parts.append(paged_flash_prefill(
+                            q[o:o + bk], kp, vp, bt_d[o], lane_pos0[i],
+                            chunk_lens[i]))
+                    att = torch.cat(parts, 0)
             x = x + att.reshape(B, 1, -1) @ lp["attn"]["wo"]
             if mc.d_ff:
                 x = x + apply_mlp(mc, lp["mlp"], apply_norm(mc, lp["norm2"],
@@ -718,13 +859,18 @@ class Engine:
         # pack only after the page accounting above: an OutOfPagesError
         # abort must not charge skipped prefills' starvation counters
         lanes, bucket = self._pack_lanes()
+        # the tree map reflects POST-accounting topology: CoW and boundary
+        # allocation above already diverged any page this step writes, so
+        # no fork group's shared span covers a written page
+        tree = self._tree_map([h.blocks if h is not None else None
+                               for h in self.slots])
         if lanes:
             next_tokens, hidden = self._advance_chunks(
-                lanes, piggyback=True, bucket=bucket, cows=cows)
+                lanes, piggyback=True, bucket=bucket, cows=cows, tree=tree)
         else:
             next_tokens, hidden, _ = self._step(
                 self._tokens, self._positions, self._block_tables,
-                self._lengths, cows=cows)
+                self._lengths, cows=cows, tree=tree)
         self._last_hidden = hidden[:cfg.max_slots]
         self.decode_steps_executed += 1
 
@@ -742,6 +888,12 @@ class Engine:
             self._tokens[slot] = tok
             self._positions[slot] += 1
             self._lengths[slot] += 1
+            if (self.prefix_cache is not None
+                    and h.prompt_tokens is not None
+                    and h.blocks.length % cfg.page_size == 0):
+                # page-aligned decode boundary: long-running branches
+                # publish their generated full pages before completion
+                self._insert_generated(h)
         self.tokens_generated += len(out)
         self.step_seconds.append(time.perf_counter() - t0)
         return out

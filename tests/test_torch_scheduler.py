@@ -32,7 +32,7 @@ ECFG = dict(page_size=8, num_pages=256, max_slots=8, max_pages_per_branch=16,
             eos_id=jtk.EOS, seed=1)
 
 
-def _run(sch_cls, cfg_cls, prm_cls, task_mod, engine, policy):
+def _run(sch_cls, cfg_cls, prm_cls, task_mod, engine, policy, header=()):
     prm = prm_cls(task_mod.oracle_grader, noise=0.0, seed=2)
     sch = sch_cls(engine, prm, cfg_cls(policy=policy, n=4, window=8,
                                        max_tokens=24),
@@ -40,7 +40,8 @@ def _run(sch_cls, cfg_cls, prm_cls, task_mod, engine, policy):
     rng = np.random.default_rng(3)
     for i in range(3):
         prob = task_mod.gen_problem(rng)
-        sch.submit(prob.prompt_tokens(), payload=prob, arrival=i * 5)
+        sch.submit(list(header) + prob.prompt_tokens(), payload=prob,
+                   arrival=i * 5)
     m = sch.run(max_steps=5000)
     return m, engine
 
@@ -75,6 +76,33 @@ def test_scheduler_matches_jax(policy):
     te.allocator.check_invariants()
 
 
+@pytest.mark.parametrize("policy", ["sart", "rebase"])
+def test_scheduler_with_cache_and_tree_matches_jax(policy):
+    """Prompts behind a shared 16-token header, prefix cache and tree
+    decode on in both packages: the same per-request records (the later
+    requests admit warm), clock and cache counters."""
+    cfg = tiny_config(vocab_size=jtk.VOCAB_SIZE)
+    jm = JModel(cfg)
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tm = Model(ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
+    tp = params_from_numpy(_flatten(jp), device="cpu")
+    ecfg = dict(ECFG, prefix_cache=True, decode_kernel="tree")
+    je = JEngine(jm, jp, JConfig(sampling=JSampling(temperature=0.0), **ecfg))
+    te = Engine(tm, tp, EngineConfig(sampling=SamplingParams(temperature=0.0),
+                                     **ecfg))
+    header = [3 + i % 10 for i in range(16)]
+    jm_, je = _run(JScheduler, JSchedulerConfig, JOraclePRM, jtasks, je,
+                   policy, header)
+    tm_, te = _run(Scheduler, SchedulerConfig, OraclePRM, tasks, te, policy,
+                   header)
+    assert _summary(tm_) == _summary(jm_)
+    assert [r["cached_tokens"] for r in tm_["requests"]] == \
+        [r["cached_tokens"] for r in jm_["requests"]] == [0, 16, 16]
+    assert tm_["prefix_cache"] == jm_["prefix_cache"]
+    assert te.allocator.used_pages == 0 == je.allocator.used_pages
+    te.allocator.check_invariants()
+
+
 def test_run_serving_on_cpu_completes():
     """The launcher's run function (engine + scheduler + request loop)
     serves every request with no fault and returns every page."""
@@ -90,3 +118,18 @@ def test_run_serving_on_cpu_completes():
     assert engine.allocator.used_pages == 0
     assert engine.tokens_generated > 0
     assert len(engine.step_seconds) == engine.decode_steps_executed
+
+
+def test_run_serving_with_prefix_cache_on_cpu():
+    """``prefix_cache`` passes through the launcher's run function to the
+    engine; the run completes with no fault and looks every prompt up."""
+    model, params, prm = load_reasoner(None, device="cpu")
+    out, engine = run_serving(
+        model, params, prm, policy="sart", n=4, num_requests=3, rate_gap=4,
+        prm_kind="oracle", window=8, max_tokens=32, max_slots=8, seed=0,
+        temperature=0.9, prefix_cache=True)
+    assert engine.cfg.prefix_cache
+    assert out["completed_requests"] == 3
+    assert out["faults"]["step_faults"] == 0
+    assert out["prefix_cache"]["lookups"] == 3
+    assert engine.allocator.used_pages == 0
