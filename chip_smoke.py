@@ -3,24 +3,32 @@
 
     python3 chip_smoke.py              # every phase; needs one card
     python3 chip_smoke.py --skip-serve # build + kernel checks only, no "ok"
-    python3 chip_smoke.py --profile DIR  # build + a profiled serve, no "ok"
+    python3 chip_smoke.py --profile DIR  # build + profiled serves, no "ok"
+    python3 chip_smoke.py --tree-pairs 3 # build + phase 6 tree/paged pairs
 
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
   2. build   — nvcc builds the CUDA kernels from ``src/repro_torch/csrc``;
-  3. kernels — K1 (paged flash-decode), K2 (paged flash-prefill) and both
-               passes of K3 (tree decode) against their plain PyTorch
-               versions on the card, bf16 and fp32, at the serving shapes of
-               r1-distill-14b, one qwen2-0.5b shape and K3's edge cases;
-               then each timed with CUDA events (L2 flushed before every
-               launch) beside its plain version, a bound from bytes and
-               operations, and one library call as a yardstick;
+  3. kernels — K1 (paged flash-decode), K2 (paged flash-prefill), both
+               passes of K3 (tree decode) and K4 (the SSD chunked scan, y
+               and final state, with and without an initial state) against
+               their plain PyTorch versions on the card, bf16 and fp32, at
+               the serving shapes of r1-distill-14b and mamba2-130m, one
+               qwen2-0.5b and one hymba-1.5b shape, and the edge cases
+               (K3's topologies; K4's non-divisible S, masked dt and
+               all-invalid rows); then each timed with CUDA events (L2
+               flushed before every launch) beside its plain version, a
+               bound from bytes and operations, and one library call as a
+               yardstick where one exists (none for K4);
   4. parity  — the engine on the card (kernels) against the engine on the
-               CPU (plain versions) on a small fp32 model, greedy, with
-               chunked admission, forked branches and CoW; then again with
-               the prefix cache and tree decode on, a warm request sharing
-               the cold one's header;
+               CPU (plain versions) on small fp32 models, greedy, with
+               chunked admission, forked branches, CoW and a suspend/resume
+               round trip: dense, then with the prefix cache and tree
+               decode on (a warm request sharing the cold one's header);
+               ssm and hybrid (K4 in the chunk lanes), the hybrid again
+               with the cache and tree on, its warm request seeded from a
+               page-aligned SSM boundary snapshot;
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
@@ -29,7 +37,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. tree    — the same model and weights, phase 5's engine freed, with
                ``prefix_cache=True, decode_kernel="tree"``: 4 requests whose
                prompts share a 256-token few-shot header. The cache must
-               hit, K3 must carry every decode row and K1 must not launch.
+               hit, K3 must carry every decode row and K1 must not launch;
+  7. ssm     — mamba2-130m at full width and depth (24 layers, d_model
+               768, 24 SSD heads, state 128, bf16, random weights from a
+               seed) through ``run_serving``: 4 requests, n=8. K4 must
+               launch once per layer per mixed step, K1-K3 never; every
+               request completes with no fault and no leaked page.
 
 Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
@@ -477,32 +490,198 @@ def phase_tree_kernels(torch):
     return errs, {"paged_tree_shared": shared, "paged_tree_branch": branch}
 
 
+def ssd_inputs(torch, gen, dev, *, b, s, h, p, n, dtype, state=False):
+    """Seeded SSD scan operands: x, b, c ~ N(0, 1) in ``dtype``, dt in
+    [0.01, 0.2) and a in (-2, -0.5] fp32 (the reference kernel tests'
+    ranges), and an initial state ~ N(0, 1) or None."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    dt = 0.01 + 0.19 * torch.rand((b, s, h), generator=gen, device=dev)
+    a = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev))
+    init = randn(b, h, p, n) if state else None
+    return randn(b, s, h, p), dt, a, randn(b, s, h, n), randn(b, s, h, n), \
+        init
+
+
+def ssd_flops(seqlen: int, heads: int, head_dim: int, state_dim: int,
+              chunk: int) -> int:
+    """Operations (2 per multiply-add) the chunked scan needs for one row
+    of ``seqlen`` positions: per chunk of q rows the causal half of C·Bᵀ
+    and of gate·X, then C·S_prev and the state update, q·N·P each."""
+    total = 0
+    for c0 in range(0, seqlen, chunk):
+        q = min(chunk, seqlen - c0)
+        tri = q * (q + 1) // 2
+        total += tri * (state_dim + head_dim) + 2 * q * state_dim * head_dim
+    return 2 * heads * total
+
+
+SSD_TOL = {"bf16": 2e-2, "fp32": 1e-4}   # atol = rtol (K4, see below)
+
+
+def phase_ssd_kernels(torch):
+    """Hold K4 (the SSD chunked scan, state in and out) against its plain
+    version ``ssd_chunked`` on the same inputs, y and final state. The
+    plain version runs in fp32 on the (bf16-rounded) inputs, the
+    arithmetic K4 does: fp32 to 1e-4 because each output sums up to
+    Q·N = 16,384 products in another order; bf16 to 2e-2, the rounding of
+    K4's bf16 outputs. The plain version run in bf16 (rounding gate and
+    chunk states as the reference does) is printed beside, ungated.
+    Returns the results for the JSON line, timed at phase 7's lane
+    shape."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(4)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    errs = []
+
+    def compare(name, out, ref, dn, exact=False):
+        tol = SSD_TOL[dn]
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        ok = bool(torch.isfinite(out.float()).all()) and (
+            bool((out == ref).all()) if exact else torch.allclose(
+                out.float(), ref.float(), atol=tol, rtol=tol))
+        print(f"[kernels] {name}: max_abs_err {err:.3e} "
+              f"({'bit-exact' if exact else f'atol=rtol={tol}'}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name} disagrees with its plain version")
+        errs.append(err)
+
+    def plain32(x, dt, a, b, c, chunk, init, valid=None):
+        return ssd_chunked(x.float(), dt, a, b.float(), c.float(), chunk,
+                           init.float() if init is not None else None, valid)
+
+    # (name, batch, S, H, P, N, chunk): phase 7's lanes (mamba2-130m, S in
+    # a 32- or 64-row bucket under chunk 128), a hymba-1.5b-width lane
+    # (50 heads of 64, N=16), the reference kernel tests' shapes
+    cases = [("mamba2 1 lane", 1, 64, 24, 64, 128, 128),
+             ("mamba2 4 lanes", 4, 64, 24, 64, 128, 128),
+             ("mamba2 bucket 32", 1, 32, 24, 64, 128, 128),
+             ("hymba widths", 2, 64, 50, 64, 16, 128),
+             ("ref 2x32x3 p16 n8 q8", 2, 32, 3, 16, 8, 8),
+             ("ref 1x64x2 p32 n16 q16", 1, 64, 2, 32, 16, 16),
+             ("ref 2x40x4 p8 n4 q16", 2, 40, 4, 8, 4, 16),
+             ("ref 1x16x1 p64 n32 q4", 1, 16, 1, 64, 32, 4),
+             ("non-divisible S=13 q8", 1, 13, 2, 8, 4, 8)]
+    for name, b, s, h, p, n, q in cases:
+        for dn, dt_ in dtypes.items():
+            for state in (False, True):
+                x, dt, a, bb, cc, init = ssd_inputs(
+                    torch, gen, dev, b=b, s=s, h=h, p=p, n=n, dtype=dt_,
+                    state=state)
+                y, fin = ssd_scan(x, dt, a, bb, cc, chunk=q,
+                                  initial_state=init)
+                y_r, fin_r = plain32(x, dt, a, bb, cc, q, init)
+                torch.cuda.synchronize()
+                tag = f"K4 {name} {dn}{' +state' if state else ''}"
+                compare(f"{tag} y", y, y_r, dn)
+                compare(f"{tag} final state", fin, fin_r, dn)
+                if dn == "bf16" and name == "mamba2 1 lane" and state:
+                    y_b, fin_b = ssd_chunked(x, dt, a, bb, cc, q, init)
+                    e_y = float((y.float() - y_b.float()).abs().max())
+                    e_s = float((fin.float() - fin_b.float()).abs().max())
+                    print(f"[kernels] {tag}: against the plain version in "
+                          f"bf16: max_abs_err y {e_y:.3e}, state {e_s:.3e} "
+                          "(not gated)")
+    # masked dt: each row's valid prefix gives the unpadded scan's
+    # outputs and final state; an all-invalid row returns its state
+    # bit-identical (dt = 0 is an exact identity)
+    for dn, dt_ in dtypes.items():
+        for vl in (1, 7, 11, 16):
+            x, dt, a, bb, cc, init = ssd_inputs(
+                torch, gen, dev, b=2, s=16, h=2, p=8, n=4, dtype=dt_,
+                state=True)
+            valid = torch.arange(16, device=dev)[None, :] < vl
+            y, fin = ssd_scan(x, dt * valid[..., None], a, bb, cc, chunk=8,
+                              initial_state=init)
+            y_u, fin_u = plain32(x[:, :vl], dt[:, :vl], a, bb[:, :vl],
+                                 cc[:, :vl], 8, init)
+            compare(f"K4 valid_len={vl} {dn} y", y[:, :vl], y_u, dn)
+            compare(f"K4 valid_len={vl} {dn} final state", fin, fin_u, dn)
+        x, dt, a, bb, cc, init = ssd_inputs(
+            torch, gen, dev, b=2, s=24, h=24, p=64, n=128, dtype=dt_,
+            state=True)
+        _, fin = ssd_scan(x, torch.zeros_like(dt), a, bb, cc, chunk=128,
+                          initial_state=init)
+        compare(f"K4 all-invalid rows {dn} final state", fin, init, dn,
+                exact=True)
+
+    # lanes are independent and the kernel deterministic: 4 lanes in one
+    # launch give each lane's result alone, bit for bit
+    x, dt, a, bb, cc, init = ssd_inputs(
+        torch, gen, dev, b=4, s=64, h=24, p=64, n=128, dtype=torch.bfloat16,
+        state=True)
+    y, fin = ssd_scan(x, dt, a, bb, cc, chunk=128, initial_state=init)
+    y1, fin1 = ssd_scan(x[2:3], dt[2:3], a, bb[2:3], cc[2:3], chunk=128,
+                        initial_state=init[2:3])
+    compare("K4 lane 3 of 4 vs alone bf16 y", y[2:3], y1, "bf16", exact=True)
+    compare("K4 lane 3 of 4 vs alone bf16 final state", fin[2:3], fin1,
+            "bf16", exact=True)
+
+    # timing at phase 7's lane shape: one lane of a 32-row bucket (an
+    # 11-17-token prompt), mamba2-130m's widths, a zero start, bf16
+    b, s, h, p, n, q = 1, 32, 24, 64, 128, 128
+    x, dt, a, bb, cc, _ = ssd_inputs(torch, gen, dev, b=b, s=s, h=h, p=p,
+                                     n=n, dtype=torch.bfloat16)
+    valid = torch.arange(s, device=dev)[None, :] < 17
+    dtm = dt * valid[..., None]
+    state_bytes = b * h * p * n * 2
+    timing = {
+        "ms": time_ms(torch, lambda: ssd_scan(x, dtm, a, bb, cc, chunk=q)),
+        "plain_ms": time_ms(torch, lambda: ssd_chunked(x, dt, a, bb, cc, q,
+                                                       valid=valid)),
+        "library_ms": None,
+        # x, b, c, dt, a in; y and the final state out (the zero start is
+        # not read)
+        "bytes": x.numel() * 2 * 2 + bb.numel() * 2 * 2 + dt.numel() * 4
+        + a.numel() * 4 + state_bytes,
+        # the scan over the valid rows only (masked rows are identity
+        # transitions whose products are all zero)
+        "ops": b * ssd_flops(17, h, p, n, q),
+        "shape": f"B=1 S={s} (17 valid) H={h} P={p} N={n} chunk {q} bf16",
+    }
+    return {"ssd_scan": errs}, {"ssd_scan": timing}
+
+
 def _parity_scenario(torch, eng, vocab: int):
     """A cold request (a 16-token header + its own 21 tokens, a partial
     last page) forks 3 branches that decode 6 steps (CoW of the shared
-    page); then a warm request sharing the header rides the decode steps
-    as a chunk lane and forks 2 more branches; 6 more steps. Returns
-    (tokens of every branch, both prefill logits, live rows' hidden)."""
+    page); a mid-generation fork joins them and the second branch is
+    suspended for 2 steps, then resumed; then a warm request sharing the
+    header rides the decode steps as a chunk lane and forks 2 more
+    branches; 6 more steps. SSM states travel with every prefill. Returns
+    (tokens of every branch, both prefill logits, live rows' hidden, the
+    warm request's cached tokens, the branches' final (conv, ssd) rows or
+    [])."""
     header = [int(x) for x in (np.arange(16) * 7 + 3) % vocab]
     cold = header + [int(x) for x in (np.arange(21) * 5 + 1) % vocab]
     warm = header + [int(x) for x in (np.arange(9) * 11 + 2) % vocab]
-    blocks, lg_cold, _ = eng.prefill(cold)
-    hs = [eng.spawn_branch(0, blocks, lg_cold, None, len(cold),
+    blocks, lg_cold, ssm_cold = eng.prefill(cold)
+    hs = [eng.spawn_branch(0, blocks, lg_cold, ssm_cold, len(cold),
                            prompt_tokens=cold) for _ in range(3)]
     for _ in range(6):
         eng.decode_step()
+    hs.append(eng.fork_branch(hs[0]))
+    eng.suspend_branch(hs[1])
+    for _ in range(2):
+        eng.decode_step()
+    check(eng.resume_branch(hs[1]), "a suspended branch found no slot")
     st = eng.begin_prefill(warm)
     while not st.done:
         eng.decode_step()
-    b2, lg_warm, _ = eng.finish_prefill(st)
-    hs += [eng.spawn_branch(1, b2, lg_warm, None, len(warm),
+    b2, lg_warm, ssm_warm = eng.finish_prefill(st)
+    hs += [eng.spawn_branch(1, b2, lg_warm, ssm_warm, len(warm),
                             prompt_tokens=warm) for _ in range(2)]
     for _ in range(6):
         eng.decode_step()
+    slots = [h.slot for h in hs]
+    states = ([eng.state[k][:, slots].float().cpu() for k in ("conv", "ssd")]
+              if eng.model.cfg.uses_ssm else [])
     out = ([h.tokens for h in hs],
            torch.stack([lg_cold.float().cpu(), lg_warm.float().cpu()]),
-           eng._last_hidden[[h.slot for h in hs]].float().cpu(),
-           st.cached_tokens)
+           eng._last_hidden[slots].float().cpu(), st.cached_tokens, states)
     for h in hs:
         eng.free_branch(h)
     eng.release_prefix(blocks)
@@ -512,48 +691,77 @@ def _parity_scenario(torch, eng, vocab: int):
     return out
 
 
+def _tiny_family(arch: str):
+    """The tests' ssm/hybrid widths (``tests/conftest.py`` FAMILY_CONFIGS):
+    2 layers, d_model 64, 4 SSD heads of 32, state 16, chunk 8; the
+    hybrid's 4/2 attention heads are 64 wide (the tests' 16 is below the
+    64 or 128 that K1-K3 take)."""
+    from repro_torch.models import ModelConfig
+    attn = dict(d_ff=0) if arch == "ssm" else dict(d_ff=128, head_dim=64)
+    return ModelConfig(name=f"tiny-{arch}", arch_type=arch, num_layers=2,
+                       d_model=64, vocab_size=97, num_heads=4,
+                       num_kv_heads=2, ssm_state=16, ssm_head_dim=32,
+                       ssm_chunk=8, **attn)
+
+
 def phase_parity(torch):
     """The engine with the kernels on the card against the engine with the
-    plain versions on the CPU: same fp32 weights, greedy decoding; first
-    per-branch decode (K1) with the cache off, then the prefix cache and
-    tree decode (K3) on."""
+    plain versions on the CPU: same fp32 weights, greedy decoding. Dense
+    (r1-distill-14b's smoke widths): per-branch decode (K1) with the cache
+    off, then the prefix cache and tree decode (K3) on. ssm and hybrid
+    (the tests' widths): the chunk lanes' scan is K4; the hybrid runs again
+    with the cache (the warm request seeded from a page-aligned boundary
+    snapshot) and the tree on, K1-K4 in one engine."""
     from repro_torch.configs import smoke
     from repro_torch.kernels.paged_attention import tree_decode
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import Model
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
-    cfg = smoke("r1-distill-14b")
-    cpu_model = Model(cfg, device="cpu")
-    params = cpu_model.init_params(torch.Generator().manual_seed(0))
-    gpu_model = Model(cfg, device=DEVICE)
-    gpu_params = {k: _to(v, DEVICE) for k, v in params.items()}
-    gpu_model.load_params(gpu_params)
-    for extra in ({}, {"prefix_cache": True, "decode_kernel": "tree"}):
-        ecfg = EngineConfig(page_size=4, num_pages=64, max_slots=6,
-                            max_pages_per_branch=24, prefill_chunk=16,
-                            sampling=SamplingParams(temperature=0.0),
-                            **extra)
-        runs = []
-        for model, p in ((cpu_model, params), (gpu_model, gpu_params)):
-            eng = Engine(model, p, ecfg)
-            tree_decode.branch_launches = 0
-            runs.append(_parity_scenario(torch, eng, cfg.vocab_size))
-            stats = eng.prefix_cache_stats()
-        (t_cpu, l_cpu, h_cpu, c_cpu), (t_gpu, l_gpu, h_gpu, c_gpu) = runs
-        err = max(float((l_cpu - l_gpu).abs().max()),
-                  float((h_cpu - h_gpu).abs().max()))
-        ok = t_cpu == t_gpu and err <= 1e-4 and c_cpu == c_gpu
-        name = ", ".join(f"{k}={v}" for k, v in extra.items()) or "defaults"
-        print(f"[parity] {name}: greedy tokens equal: {t_cpu == t_gpu}; max "
-              f"abs err of prefill logits / hidden {err:.3e} (atol 1e-4); "
-              f"warm request cached tokens {c_gpu}; "
-              f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"engine on the card disagrees with the CPU engine "
-                  f"({name})")
-        if extra:
-            check(c_gpu > 0 and stats["hit_tokens"] > 0,
-                  "the warm request missed the prefix cache")
-            check(tree_decode.branch_launches > 0,
-                  "the tree parity run never launched K3")
+    cache_tree = {"prefix_cache": True, "decode_kernel": "tree"}
+    for cfg, extras in ((smoke("r1-distill-14b"), ({}, cache_tree)),
+                        (_tiny_family("ssm"), ({},)),
+                        (_tiny_family("hybrid"), ({}, cache_tree))):
+        cpu_model = Model(cfg, device="cpu")
+        params = cpu_model.init_params(torch.Generator().manual_seed(0))
+        gpu_model = Model(cfg, device=DEVICE)
+        gpu_params = {k: _to(v, DEVICE) for k, v in params.items()}
+        gpu_model.load_params(gpu_params)
+        for extra in extras:
+            ecfg = EngineConfig(page_size=4, num_pages=64, max_slots=6,
+                                max_pages_per_branch=24, prefill_chunk=16,
+                                sampling=SamplingParams(temperature=0.0),
+                                **extra)
+            runs = []
+            for model, p in ((cpu_model, params), (gpu_model, gpu_params)):
+                eng = Engine(model, p, ecfg)
+                tree_decode.branch_launches = 0
+                ssd_scan.launches = 0
+                runs.append(_parity_scenario(torch, eng, cfg.vocab_size))
+                stats = eng.prefix_cache_stats()
+            (t_cpu, l_cpu, h_cpu, c_cpu, s_cpu), \
+                (t_gpu, l_gpu, h_gpu, c_gpu, s_gpu) = runs
+            err = max([float((l_cpu - l_gpu).abs().max()),
+                       float((h_cpu - h_gpu).abs().max())]
+                      + [float((a - b).abs().max())
+                         for a, b in zip(s_cpu, s_gpu)])
+            ok = t_cpu == t_gpu and err <= 1e-4 and c_cpu == c_gpu
+            name = cfg.arch_type + ": " + (", ".join(
+                f"{k}={v}" for k, v in extra.items()) or "defaults")
+            print(f"[parity] {name}: greedy tokens equal: {t_cpu == t_gpu}; "
+                  f"max abs err of prefill logits / hidden"
+                  f"{' / (conv, ssd) state' if s_cpu else ''} {err:.3e} "
+                  f"(atol 1e-4); warm request cached tokens {c_gpu}; K4 "
+                  f"launches {ssd_scan.launches}; {'ok' if ok else 'FAIL'}")
+            check(ok, f"engine on the card disagrees with the CPU engine "
+                      f"({name})")
+            if cfg.uses_ssm:
+                check(ssd_scan.launches > 0,
+                      f"the {name} parity run never launched K4")
+            if extra:
+                check(c_gpu > 0 and stats["hit_tokens"] > 0,
+                      "the warm request missed the prefix cache")
+                check(tree_decode.branch_launches > 0,
+                      "the tree parity run never launched K3")
 
 
 def _to(tree, dev):
@@ -744,6 +952,111 @@ def phase_tree_serve(torch, model, params):
     return launches
 
 
+def phase_ssm_serve(torch):
+    """Phase 7: mamba2-130m at full width and depth (24 layers, d_model
+    768, 24 SSD heads of 64, state 128, chunk 128, vocab 50280), bf16,
+    random weights from a seed, behind the SART scheduler through
+    ``run_serving`` (4 requests, n=8). Every chunk lane's scan is K4, one
+    launch per layer per mixed step; no attention kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import paged_prefill
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     tree_decode)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models import Model
+    gc.collect()                 # phase 6's model, engines and pools
+    torch.cuda.empty_cache()
+    cfg = get_config("mamba2-130m")
+    t0 = time.perf_counter()
+    model = Model(cfg, dtype=torch.bfloat16, device=DEVICE)
+    params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"[serve-ssm] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, "
+          f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, "
+          f"{cfg.param_count() / 1e9:.3f} B params bf16, random weights in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    paged_attention.launches = 0
+    paged_prefill.launches = 0
+    tree_decode.shared_launches = tree_decode.branch_launches = 0
+    ssd_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, engine = run_serving(
+        model, params, None, policy="sart", n=8, num_requests=4, rate_gap=8,
+        prm_kind="oracle", window=8, max_tokens=96, max_slots=16, seed=0,
+        temperature=0.9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": paged_attention.launches,
+                "paged_prefill": paged_prefill.launches,
+                "paged_tree_shared": tree_decode.shared_launches,
+                "paged_tree_branch": tree_decode.branch_launches,
+                "ssd_scan": ssd_scan.launches}
+
+    steps = sorted(engine.step_seconds)
+    faults = out["faults"]
+    line = {
+        "completed_requests": out["completed_requests"],
+        "unfinished_requests": out["unfinished_requests"],
+        "decode_steps": engine.decode_steps_executed,
+        "mixed_steps": engine.mixed_steps_executed,
+        "wall_s": round(wall, 3),
+        "generated_tokens": engine.tokens_generated,
+        "tokens_per_s": round(engine.tokens_generated / wall, 2),
+        "step_ms_p50": round(steps[len(steps) // 2] * 1e3, 3),
+        "step_ms_mean": round(sum(steps) / len(steps) * 1e3, 3),
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        "launches": launches,
+        "e2e_p50_steps": out["p50"], "ttfb50_steps": out["ttfb50"],
+        "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
+                                          "quarantined")},
+        "used_pages": engine.allocator.used_pages,
+    }
+    print("[serve-ssm] " + json.dumps(line))
+    check(out["completed_requests"] == 4 and out["unfinished_requests"] == 0,
+          "not every request completed")
+    check(faults["step_faults"] == faults["engine_restarts"]
+          == faults["quarantined"] == 0, f"faults in the run: {faults}")
+    check(engine.allocator.used_pages == 0, "pages leaked after serving")
+    check(bool(torch.isfinite(engine._last_hidden.float()).all()),
+          "non-finite hidden state")
+    check(launches["ssd_scan"] > 0 and launches["ssd_scan"]
+          == cfg.num_layers * engine.mixed_steps_executed,
+          f"K4 did not carry every mixed step's layers: {launches}")
+    check(all(launches[k] == 0 for k in launches if k != "ssd_scan"),
+          f"an attention kernel launched in the ssm serve: {launches}")
+    return launches
+
+
+def phase_tree_pairs(torch, pairs: int) -> None:
+    """Phase 6's traffic on r1-distill-14b (bf16, random weights from a
+    seed) served with tree and with per-branch decode in alternating
+    order (tree, paged, paged, tree, ...) after one discarded warm-up run
+    of each, so that a drift of the host's speed during the call falls on
+    both alike. Prints each run's step p50 and tokens/s and the tree/paged
+    step p50 ratio of each pair."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    model = Model(get_config("r1-distill-14b"), dtype=torch.bfloat16,
+                  device=DEVICE)
+    params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
+    for kind in ("paged", "tree"):
+        _serve_shared_header(torch, model, params, kind)
+    runs = {"tree": [], "paged": []}
+    for i in range(pairs):
+        for kind in (("tree", "paged") if i % 2 == 0 else ("paged", "tree")):
+            line, _ = _serve_shared_header(torch, model, params, kind)
+            runs[kind].append((line["step_ms_p50"], line["tokens_per_s"]))
+    ratios = [t[0] / p[0] for t, p in zip(runs["tree"], runs["paged"])]
+    print("[tree-pairs] " + json.dumps({
+        "step_ms_p50": {k: [r[0] for r in v] for k, v in runs.items()},
+        "tokens_per_s": {k: [r[1] for r in v] for k, v in runs.items()},
+        "tree_over_paged": [round(r, 4) for r in ratios]}))
+
+
 def _step_stats(engine, wall: float) -> dict:
     steps = sorted(engine.step_seconds)
     return {"decode_steps": engine.decode_steps_executed, "wall_s": wall,
@@ -752,44 +1065,51 @@ def _step_stats(engine, wall: float) -> dict:
 
 
 def phase_profile(torch, out_dir: Path) -> None:
-    """The serve phase's traffic (4 requests, n=8, 96 tokens) served twice:
-    once plain, for step times, then under torch.profiler tracing device
-    activity only (no host ops, so the trace adds little to the host
-    side), for device time by kernel and the device's busy share of that
-    run's own wall time. The table goes to ``out_dir/profile_serve.txt``."""
+    """The serve phases' traffic (4 requests, n=8, 96 tokens) on
+    r1-distill-14b (phase 5) and on mamba2-130m (phase 7), each served
+    twice: once plain, for step times, then under torch.profiler tracing
+    device activity only (no host ops, so the trace adds little to the
+    host side), for device time by kernel and the device's busy share of
+    that run's own wall time. The tables go to
+    ``out_dir/profile_serve.txt`` and ``out_dir/profile_serve_ssm.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serving
     from repro_torch.models import Model
-    model = Model(get_config("r1-distill-14b"), dtype=torch.bfloat16,
-                  device=DEVICE)
-    params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
     kw = dict(policy="sart", n=8, num_requests=4, rate_gap=8,
               prm_kind="oracle", window=8, max_tokens=96, max_slots=16,
               seed=0, temperature=0.9)
-    t0 = time.perf_counter()
-    _, engine = run_serving(model, params, None, **kw)
-    torch.cuda.synchronize()
-    plain = _step_stats(engine, time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for arch, fname in (("r1-distill-14b", "profile_serve.txt"),
+                        ("mamba2-130m", "profile_serve_ssm.txt")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(get_config(arch), dtype=torch.bfloat16, device=DEVICE)
+        params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
         t0 = time.perf_counter()
         _, engine = run_serving(model, params, None, **kw)
         torch.cuda.synchronize()
-        traced = _step_stats(engine, time.perf_counter() - t0)
-    events = prof.key_averages()
-    # one stream, so kernels never overlap and their sum is busy time
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.is_user_annotation)
-    traced["device_busy_s"] = device_us / 1e6
-    traced["device_busy_share"] = device_us / 1e6 / traced["wall_s"]
-    table = events.table(sort_by="self_device_time_total", row_limit=30,
-                         max_name_column_width=90)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "profile_serve.txt").write_text(table)
-    print(table)
-    print("[profile] " + json.dumps({"untraced": plain, "traced": traced}))
+        plain = _step_stats(engine, time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, engine = run_serving(model, params, None, **kw)
+            torch.cuda.synchronize()
+            traced = _step_stats(engine, time.perf_counter() - t0)
+        events = prof.key_averages()
+        # one stream, so kernels never overlap and their sum is busy time
+        device_us = sum(e.self_device_time_total for e in events
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and not e.is_user_annotation)
+        traced["device_busy_s"] = device_us / 1e6
+        traced["device_busy_share"] = device_us / 1e6 / traced["wall_s"]
+        table = events.table(sort_by="self_device_time_total", row_limit=30,
+                             max_name_column_width=90)
+        (out_dir / fname).write_text(table)
+        print(table)
+        print("[profile] " + json.dumps({"model": arch, "untraced": plain,
+                                         "traced": traced}))
+        del model, params, engine, prof, events
 
 
 def main() -> int:
@@ -797,9 +1117,13 @@ def main() -> int:
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel checks (prints no result)")
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile the serve phase's traffic instead of the "
-                         "checks, writing the table under DIR (prints no "
-                         "result)")
+                    help="profile the serve phases' traffic (r1-distill-14b"
+                         " and mamba2-130m) instead of the checks, writing "
+                         "the tables under DIR (prints no result)")
+    ap.add_argument("--tree-pairs", type=int, metavar="N",
+                    help="serve phase 6's traffic in N alternating "
+                         "tree/paged pairs instead of the checks (prints "
+                         "no result)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -815,10 +1139,16 @@ def main() -> int:
     if args.profile:
         phase_profile(torch, Path(args.profile))
         return 0
+    if args.tree_pairs:
+        phase_tree_pairs(torch, args.tree_pairs)
+        return 0
     errs, timing = phase_kernels(torch)
     tree_errs, tree_timing = phase_tree_kernels(torch)
     errs.update(tree_errs)
     timing.update(tree_timing)
+    ssd_errs, ssd_timing = phase_ssd_kernels(torch)
+    errs.update(ssd_errs)
+    timing.update(ssd_timing)
     if args.skip_serve:
         print(json.dumps(timing))
         return 0
@@ -828,40 +1158,47 @@ def main() -> int:
     tree_run = phase_tree_serve(torch, model, params)
     for name in ("paged_tree_shared", "paged_tree_branch"):
         launches[name] = tree_run[name]
+    del model, params
+    launches["ssd_scan"] = phase_ssm_serve(torch)["ssd_scan"]
 
+    sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
+            "K/V (a yardstick; the port never calls it)")
+    attn_tol = "atol=rtol=2e-2 bf16, 1e-5 fp32"
     meta = {
         "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
                          "src/repro/kernels/paged_attention/"
-                         "paged_attention.py:144"),
+                         "paged_attention.py:144", attn_tol, sdpa),
         "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
                           "src/repro/kernels/flash_prefill/"
-                          "paged_prefill.py:176"),
+                          "paged_prefill.py:176", attn_tol, sdpa),
         "paged_tree_shared": ("src/repro_torch/csrc/paged_tree_decode.cu",
                               "src/repro/kernels/paged_attention/"
-                              "tree_decode.py:170"),
+                              "tree_decode.py:170", attn_tol, sdpa),
         "paged_tree_branch": ("src/repro_torch/csrc/paged_tree_decode.cu",
                               "src/repro/kernels/paged_attention/"
-                              "tree_decode.py:229"),
+                              "tree_decode.py:229", attn_tol, sdpa),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/ssd_scan.py:117",
+                     "atol=rtol=2e-2 bf16, 1e-4 fp32 (against the plain "
+                     "version in fp32); all-invalid rows bit-exact",
+                     "none: no single PyTorch call computes the SSD scan"),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, tol, library) in meta.items():
         tm = timing[name]
         b_ms, b_by = bound(tm["bytes"], tm["ops"], "bf16")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs[name]),
-            "tolerance": "atol=rtol=2e-2 bf16, 1e-5 fp32",
+            "max_abs_err": max(errs[name]), "tolerance": tol,
             "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": tm["library_ms"],
-            "library": "scaled_dot_product_attention over pre-gathered "
-                       "contiguous K/V (a yardstick; the port never calls "
-                       "it)",
-            "timed_shape": tm["shape"], "card": smi,
+            "library": library, "timed_shape": tm["shape"], "card": smi,
         })
     for k in kernels:
-        check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms",
-                                                "library_ms")),
+        check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")
+                  ) and (k["library_ms"] is None
+                         or math.isfinite(k["library_ms"])),
               f"non-finite timing for {k['name']}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

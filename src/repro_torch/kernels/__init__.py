@@ -7,7 +7,10 @@
 #                     csrc/paged_tree_decode.cu, wrapper tree_decode.py);
 #   flash_prefill   — the fused paged flash-prefill of a prefill chunk's
 #                     rows in the mixed decode+prefill step (K2,
-#                     csrc/paged_prefill.cu, wrapper paged_prefill.py).
+#                     csrc/paged_prefill.cu, wrapper paged_prefill.py);
+#   ssd_scan        — the Mamba-2 SSD chunked scan with state in and out of
+#                     the ssm/hybrid chunk lanes (K4, csrc/ssd_scan.cu,
+#                     wrapper ssd_scan.py; plain versions in ref.py).
 # build.py compiles csrc/ with nvcc at first use. Nothing is re-exported
 # here, so each wrapper module stays importable under its own name (its
 # launch counters are module attributes).

@@ -6,17 +6,23 @@
 Counterpart of ``repro.launch.serve``: runs the trained tiny reasoner (or,
 with no checkpoint, an untrained model: scheduling behaviour only) behind
 the Algorithm-1 scheduler and prints accuracy and latency percentiles.
+``--arch ssm|hybrid`` serves the untrained fallback trunk of that family
+(masked-dt chunked admission of the Mamba2 mixer, kernel K4 on the card).
 The model build (``load_reasoner``) is separate from the run
 (``run_serving``: engine, scheduler, request loop), so a caller with its
-own model — ``chip_smoke.py`` serves r1-distill-14b — drives the same run.
-Runs on the CUDA card unless ``--device cpu``. Fault plans and the
-ssm/hybrid fallback trunks are not ported yet.
+own model — ``chip_smoke.py`` serves r1-distill-14b and mamba2-130m —
+drives the same run. Runs on the CUDA card unless ``--device cpu``. The
+fallback trunks keep the reference's widths, whose 32-wide attention heads
+K1-K3 (head_dim 64 or 128) refuse: on the card only the ssm fallback runs;
+the dense and hybrid ones need ``--device cpu``. Fault plans are not ported
+yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,18 +37,37 @@ from ..models import Model, ModelConfig, params_from_numpy
 from ..serving import Engine, EngineConfig, SamplingParams
 
 
+# untrained-fallback trunks per family (scheduling behaviour only): lets the
+# CLI drive the ssm/hybrid serving paths — masked-dt chunked admission — end
+# to end without a checkpoint (the reference's, ``launch/serve.py``)
+_FALLBACK_FAMILIES = {
+    "dense": dict(arch_type="dense", d_ff=512),
+    "ssm": dict(arch_type="ssm", d_ff=0, ssm_state=16, ssm_head_dim=32,
+                ssm_chunk=16),
+    "hybrid": dict(arch_type="hybrid", d_ff=512, ssm_state=16,
+                   ssm_head_dim=32, ssm_chunk=16),
+}
+
+
 def _load_npz(path: str, device, dtype=torch.float32) -> dict:
     with np.load(path) as data:
         return params_from_numpy(dict(data), device=device, dtype=dtype)
 
 
-def load_reasoner(ckpt_dir: Optional[str], device=None
+def load_reasoner(ckpt_dir: Optional[str], device=None, arch: str = "dense"
                   ) -> Tuple[Model, dict, Optional[dict]]:
     """Returns (model, params, prm_head_params_or_None): the trained tiny
     reasoner from ``ckpt_dir`` (``config.json``, ``lm.npz``, optional
-    ``prm.npz``), else the untrained dense fallback."""
+    ``prm.npz``), else the untrained fallback trunk of ``arch``
+    (checkpoints are dense-only)."""
     dev = resolve_device(device)
-    if ckpt_dir and os.path.exists(os.path.join(ckpt_dir, "config.json")):
+    has_ckpt = ckpt_dir and os.path.exists(
+        os.path.join(ckpt_dir, "config.json"))
+    if arch != "dense" and has_ckpt:
+        print(f"warning: checkpoint {ckpt_dir} is dense-only; "
+              f"--arch {arch} serves the untrained fallback trunk instead",
+              file=sys.stderr)
+    if arch == "dense" and has_ckpt:
         with open(os.path.join(ckpt_dir, "config.json")) as f:
             c = json.load(f)
         cfg = ModelConfig(
@@ -56,9 +81,9 @@ def load_reasoner(ckpt_dir: Optional[str], device=None
         prm_path = os.path.join(ckpt_dir, "prm.npz")
         prm = _load_npz(prm_path, dev) if os.path.exists(prm_path) else None
         return model, params, prm
-    cfg = ModelConfig(name="untrained-dense", arch_type="dense",
-                      num_layers=2, d_model=128, vocab_size=tk.VOCAB_SIZE,
-                      num_heads=4, num_kv_heads=2, d_ff=512, max_seq_len=512)
+    cfg = ModelConfig(name=f"untrained-{arch}", num_layers=2, d_model=128,
+                      vocab_size=tk.VOCAB_SIZE, num_heads=4, num_kv_heads=2,
+                      max_seq_len=512, **_FALLBACK_FAMILIES[arch])
     model = Model(cfg, device=dev)
     params = model.init_params(torch.Generator(dev).manual_seed(0))
     return model, params, None
@@ -137,9 +162,10 @@ def serve(policy: str, n: int, num_requests: int, rate_gap: int,
           max_slots: int, seed: int, temperature: float,
           mixed_step_kernel: str = "fused", step_token_budget: int = 0,
           prefix_cache: bool = False, admission_policy: str = "fifo",
-          deadline: Optional[int] = None, device=None) -> dict:
+          deadline: Optional[int] = None, device=None,
+          arch: str = "dense") -> dict:
     """``load_reasoner`` then ``run_serving``; returns the summary dict."""
-    model, params, prm_head = load_reasoner(ckpt, device)
+    model, params, prm_head = load_reasoner(ckpt, device, arch)
     out, _ = run_serving(
         model, params, prm_head, policy=policy, n=n,
         num_requests=num_requests, rate_gap=rate_gap, prm_kind=prm_kind,
@@ -160,6 +186,11 @@ def main():
     ap.add_argument("--rate-gap", type=int, default=8,
                     help="decode steps between arrivals")
     ap.add_argument("--ckpt", default="checkpoints/reasoner")
+    ap.add_argument("--arch", default="dense",
+                    choices=sorted(_FALLBACK_FAMILIES),
+                    help="model family of the untrained fallback trunk; "
+                         "ssm/hybrid exercise masked-dt chunked admission "
+                         "(checkpoints are dense-only)")
     ap.add_argument("--mixed-step-kernel", default="fused",
                     choices=["fused", "decode"],
                     help="chunk-row attention path of the mixed step: one "
@@ -194,7 +225,7 @@ def main():
                 args.slots, args.seed, args.temperature,
                 args.mixed_step_kernel, args.step_token_budget,
                 args.prefix_cache, args.admission_policy, args.deadline,
-                args.device)
+                args.device, args.arch)
     print(json.dumps(out, indent=2))
 
 

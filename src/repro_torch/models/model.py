@@ -1,10 +1,12 @@
-"""Decoder-only model of the dense families, as a PyTorch module.
+"""Decoder-only model of the dense, ssm and hybrid families, as a PyTorch
+module.
 
 Counterpart of ``repro.models.model``. The weights keep the JAX pytree's
 key paths and layout: per-layer tensors are stacked along a leading
-``[L, ...]`` axis, matrices are ``[in, out]``, norm scales are fp32.
-``Model`` holds them as non-trainable parameters under those paths
-(``weights.embed.lm_head``, ``weights.layers.attn.wq``, ...); the
+``[L, ...]`` axis, matrices are ``[in, out]``, norm scales and the
+Mamba2 mixer's ``a_log``/``dt_bias`` are fp32. ``Model`` holds them as
+non-trainable parameters under those paths (``weights.embed.lm_head``,
+``weights.layers.attn.wq``, ``weights.layers.mamba.in_proj``, ...); the
 functional layer code and the engine take the nested dict itself. The
 serving engine loops over layers in Python where the reference scans.
 ``forward``, ``prefill`` and ``decode_step`` over the dense cache are not
@@ -22,6 +24,7 @@ from ..device import resolve_device
 from .attention import init_attention
 from .config import ModelConfig
 from .layers import init_embedding, init_mlp, init_norm
+from .mamba2 import init_mamba2
 
 Params = Dict[str, Any]
 
@@ -29,7 +32,10 @@ Params = Dict[str, Any]
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype,
                 device) -> Params:
     p: Params = {"norm1": init_norm(cfg, cfg.d_model, device)}
-    p["attn"] = init_attention(gen, cfg, dtype, device)
+    if cfg.uses_attention:
+        p["attn"] = init_attention(gen, cfg, dtype, device)
+    if cfg.uses_ssm:
+        p["mamba"] = init_mamba2(gen, cfg, dtype, device)
     if cfg.d_ff:
         p["norm2"] = init_norm(cfg, cfg.d_model, device)
         p["mlp"] = init_mlp(gen, cfg, dtype, device)
@@ -66,7 +72,7 @@ def _module_tree(tree: Params) -> nn.Module:
 
 
 class Model(nn.Module):
-    """Dense decoder: ``cfg``, compute ``dtype`` and ``device`` (the card
+    """Decoder: ``cfg``, compute ``dtype`` and ``device`` (the card
     unless the caller names another), weights bound by ``init_params``
     or ``load_params``."""
 
@@ -79,12 +85,12 @@ class Model(nn.Module):
         self.weights: Optional[nn.Module] = None
 
     def init_params(self, gen: torch.Generator) -> Params:
-        """Random weights from ``gen`` (a generator on ``self.device``).
-        Dense attention families only, as ``Model.init_params``."""
+        """Random weights from ``gen`` (a generator on ``self.device``),
+        the layout of ``Model.init_params``. MoE layers are not ported
+        yet and raise."""
         cfg = self.cfg
-        if cfg.uses_ssm or cfg.uses_moe:
-            raise NotImplementedError(
-                f"{cfg.arch_type} layers are not ported yet")
+        if cfg.uses_moe:
+            raise NotImplementedError("moe layers are not ported yet")
         embed = init_embedding(gen, cfg, self.dtype, self.device)
         layers: Params = {}
         for i in range(cfg.num_layers):
@@ -101,9 +107,16 @@ class Model(nn.Module):
         self.weights = _module_tree(params)
 
 
-def _is_norm_key(key: str) -> bool:
-    return any(part.startswith("norm") or part == "final_norm"
-               for part in key.split("/")[:-1])
+#: leaves the reference keeps in fp32 whatever the model dtype
+#: (``mamba2.init_mamba2``); norm scales and biases are the others
+_FP32_LEAVES = ("a_log", "dt_bias")
+
+
+def _is_fp32_key(key: str) -> bool:
+    parts = key.split("/")
+    return parts[-1] in _FP32_LEAVES or any(
+        part.startswith("norm") or part == "final_norm"
+        for part in parts[:-1])
 
 
 def params_from_numpy(flat: Mapping[str, np.ndarray], *,
@@ -111,8 +124,9 @@ def params_from_numpy(flat: Mapping[str, np.ndarray], *,
                       dtype=torch.float32) -> Params:
     """Slash-keyed numpy arrays (the ``lm.npz`` format of
     ``training/checkpoint.py``) -> the port's nested params, same keys.
-    Norm scales and biases stay fp32, as ``layers.init_norm`` makes them;
-    every other leaf takes ``dtype``."""
+    Norm scales and biases stay fp32, as ``layers.init_norm`` makes them,
+    and so do the mixer's ``a_log`` and ``dt_bias``, as
+    ``mamba2.init_mamba2`` makes them; every other leaf takes ``dtype``."""
     dev = resolve_device(device)
     root: Params = {}
     for key, arr in flat.items():
@@ -120,7 +134,7 @@ def params_from_numpy(flat: Mapping[str, np.ndarray], *,
         node = root
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        dt = torch.float32 if _is_norm_key(key) else dtype
+        dt = torch.float32 if _is_fp32_key(key) else dtype
         t = torch.from_numpy(np.asarray(arr, np.float32).copy())
         node[parts[-1]] = t.to(device=dev, dtype=dt)
     return root

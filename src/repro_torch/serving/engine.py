@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine over the paged KV cache (dense path).
+"""Continuous-batching serving engine over the paged KV cache.
 
 Counterpart of ``repro.serving.engine``: the substrate the SART scheduler
 drives. A fixed ``max_slots`` decode batch holds one branch per slot;
@@ -10,7 +10,11 @@ paged flash-decode (kernel K1) for every decode row — or, with
 ``decode_kernel="tree"``, the tree-decode pair (kernel K3) over the
 slots' fork-group map — and the paged flash-prefill (kernel K2) once per
 chunk lane, as the reference's ``mixed_step_kernel="fused"`` default.
-With ``prefix_cache=True`` admission serves the longest cached
+The ssm and hybrid families carry a per-slot Mamba2 state (conv tail and
+SSD state per layer): decode rows step it with ``mamba2_decode`` in plain
+torch ops, and all chunk lanes of a step run one batched masked-dt
+``mamba2_forward`` whose chunked scan is kernel K4. With
+``prefix_cache=True`` admission serves the longest cached
 page-aligned prefix from the radix cache (``repro_torch.kv.PrefixCache``)
 and chunks from the first uncached token.
 
@@ -28,9 +32,13 @@ Differences from the reference that a reader must know:
   * **One host sync per step**, the sampled tokens. The step's index
     arrays, the tree map's four included, are built on the host in numpy
     and copied to the device once.
+  * **Snapshots are clones.** A torch slice is a view, so every SSM
+    state the engine keeps past a step (a lane's running state, the
+    ``ssm_snaps`` boundary snapshots, a suspended branch's state) is a
+    copy that later in-place updates of the per-slot pools cannot reach.
+    A suspended branch's state stays on the device, not on the host.
   * **Families and options of later slices raise** in ``__init__``:
-    ssm/hybrid, MoE, M-RoPE and sinusoidal positions and
-    ``chunked_prefill=False``.
+    MoE, M-RoPE and sinusoidal positions and ``chunked_prefill=False``.
   * **Randomness** comes from one ``torch.Generator`` on the device,
     seeded from ``EngineConfig.seed``; greedy sampling matches the
     reference token for token, stochastic sampling only in distribution.
@@ -57,6 +65,7 @@ from ..kv import (BranchBlocks, OutOfPagesError, PageAllocator, PrefixCache,
                   tree_decode_map)
 from ..models.attention import _project_qkv, _rotate
 from ..models.layers import apply_mlp, apply_norm, embed_tokens, unembed
+from ..models.mamba2 import init_mamba2_state, mamba2_decode, mamba2_forward
 from ..models.model import Model
 from .sampling import SamplingParams, sample
 
@@ -124,7 +133,11 @@ class ChunkedPrefillState:
     ``spawn_branch``. ``harvested`` flips in ``finish_prefill`` — from
     then on the pages belong to the caller and ``abort_prefill`` must not
     release them. With the prefix cache, ``next_pos`` starts at the
-    cached page-aligned boundary (``cached_tokens``)."""
+    cached page-aligned boundary (``cached_tokens``). For ssm/hybrid
+    configs ``ssm_state`` carries the per-layer running (conv, ssd) state
+    of the prompt so far, ``[L, 1, ...]`` each, and with the prefix cache
+    ``ssm_snaps`` collects copies of it at page-aligned chunk boundaries
+    (what a later request resuming there is seeded from)."""
     prompt: List[int]
     blocks: BranchBlocks
     next_pos: int = 0                # prompt tokens written so far
@@ -133,6 +146,8 @@ class ChunkedPrefillState:
     harvested: bool = False
     passed_over: int = 0             # consecutive packer skips (starvation)
     cached_tokens: int = 0           # prefix tokens served from the cache
+    ssm_state: object = None         # [L,1,...] (conv, ssd) running state
+    ssm_snaps: Optional[dict] = None  # {token boundary: (conv, ssd)}
 
     @property
     def remaining(self) -> int:
@@ -230,6 +245,10 @@ class BranchHandle:
     # prefix cache on: the prompt tokens key the branch's generated full
     # pages into the radix cache at page boundaries and on completion
     prompt_tokens: Optional[List[int]] = None
+    saved_ssm: object = None          # device copy while suspended
+    # ssm/hybrid with the prefix cache: (conv, ssd) copies at page-aligned
+    # decode boundaries, attached to the generated pages on insertion
+    ssm_snaps: Optional[dict] = None  # {token boundary: (conv, ssd)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,16 +296,16 @@ class Engine:
                 "prefix_cache requires chunked_prefill=True — the exact-"
                 "length path writes every page via the dense scatter and "
                 "has no chunk-start offset to resume from")
-        for later, what in ((mc.uses_ssm, f"{mc.arch_type} layers"),
-                            (mc.uses_moe, "MoE layers"),
+        for later, what in ((mc.uses_moe, "MoE layers"),
                             (mc.pos_embedding in ("mrope", "sinusoidal"),
                              f"{mc.pos_embedding} positions"),
                             (not cfg.chunked_prefill,
                              "exact-length prefill (chunked_prefill=False)")):
             if later:
                 raise NotImplementedError(f"{what}: not ported yet")
-        assert not mc.sliding_window, \
-            "paged engine serves full-attention configs"
+        if mc.uses_attention:
+            assert not mc.sliding_window, \
+                "paged engine serves full-attention configs"
         self.allocator = PageAllocator(cfg.num_pages, cfg.page_size)
         self.prefix_cache = (PrefixCache(self.allocator)
                              if cfg.prefix_cache else None)
@@ -295,13 +314,18 @@ class Engine:
 
         B, L = cfg.max_slots, mc.num_layers
         kv, hd = mc.num_kv_heads, mc.resolved_head_dim
-        # one spare page past the pool takes every dropped write
-        shape = (L, kv, cfg.num_pages + 1, cfg.page_size, hd)
-        self.state: Dict[str, torch.Tensor] = {
-            "k_pages": torch.zeros(shape, dtype=model.dtype,
-                                   device=self.device),
-            "v_pages": torch.zeros(shape, dtype=model.dtype,
-                                   device=self.device)}
+        self.state: Dict[str, torch.Tensor] = {}
+        if mc.uses_attention:
+            # one spare page past the pool takes every dropped write
+            shape = (L, kv, cfg.num_pages + 1, cfg.page_size, hd)
+            for key in ("k_pages", "v_pages"):
+                self.state[key] = torch.zeros(shape, dtype=model.dtype,
+                                              device=self.device)
+        if mc.uses_ssm:
+            # per-slot Mamba2 state of every layer, updated in place
+            conv, ssd = init_mamba2_state(mc, B, model.dtype, self.device)
+            self.state["conv"] = conv.new_zeros((L,) + conv.shape)
+            self.state["ssd"] = ssd.new_zeros((L,) + ssd.shape)
         self._layers = _layer_slices(params["layers"], L)
 
         # host-side per-slot bookkeeping
@@ -354,38 +378,58 @@ class Engine:
     def prefill(self, prompt: List[int], exact: Optional[bool] = None):
         """Run prefill for one request to completion (synchronous
         convenience API) through the chunked path. Returns (prefix_blocks,
-        last_logits, None). The prefix pages are NOT yet shared — call
-        ``spawn_branch`` N times to fork branches off them."""
+        last_logits, ssm_state or None). The prefix pages are NOT yet
+        shared — call ``spawn_branch`` N times to fork branches off them."""
         if exact:
             raise NotImplementedError("exact-length prefill: not ported yet")
         st = self._new_chunked_state(prompt)
         while not st.done:
             self._advance_chunks([st], piggyback=False)
-        return st.blocks, st.last_logits, None
+        return st.blocks, st.last_logits, st.ssm_state
 
     def _check_prompt_width(self, s: int) -> None:
         assert self.allocator.pages_for(max(s, 1)) <= \
             self.cfg.max_pages_per_branch, "prompt exceeds block-table width"
 
     def _new_chunked_state(self, prompt: List[int]) -> ChunkedPrefillState:
-        """Allocate a prompt's pages (all-or-nothing) and wrap them in a
-        chunked state. With the prefix cache, the longest cached
+        """Allocate a prompt's pages (all-or-nothing) and, for ssm/hybrid
+        configs, the per-layer running (conv, ssd) state its chunks thread
+        through the mixed step. With the prefix cache, the longest cached
         page-aligned prefix leads the block list and chunking starts at
-        the first uncached token; ``admit`` rolls its references back if
-        the tail allocation fails, so admission stays all-or-nothing."""
+        the first uncached token (ssm/hybrid reuse is gated on a cached
+        boundary state that seeds the recurrence); ``admit`` rolls its
+        references back if the tail allocation fails, so admission stays
+        all-or-nothing."""
+        mc = self.model.cfg
         # width check BEFORE admit: an oversized prompt must fail without
         # acquiring references it would then leak
         self._check_prompt_width(len(prompt))
+        cached, cached_ssm = 0, None
         if self.prefix_cache is None:
             blocks = self.allocator.alloc_prefix(len(prompt))
-            cached = 0
         else:
             # the two acquisitions sit in exclusive branches, and each is
             # all-or-nothing on its own
-            blocks, _ = self.prefix_cache.admit(prompt)  # reprolint: disable=REP002
+            blocks, cached_ssm = self.prefix_cache.admit(  # reprolint: disable=REP002
+                prompt, need_state=mc.uses_ssm)
             cached = blocks.num_shared * self.cfg.page_size
-        return ChunkedPrefillState(prompt=list(prompt), blocks=blocks,
-                                   next_pos=cached, cached_tokens=cached)
+        st = ChunkedPrefillState(prompt=list(prompt), blocks=blocks,
+                                 next_pos=cached, cached_tokens=cached)
+        if self.prefix_cache is not None:
+            st.ssm_snaps = {}
+        if mc.uses_ssm:
+            if cached_ssm is not None:
+                # snapshots are never updated in place, so the lane may
+                # start from the cached one itself
+                st.ssm_state = cached_ssm
+                st.ssm_snaps[cached] = cached_ssm
+            else:
+                conv, ssd = init_mamba2_state(mc, 1, self.model.dtype,
+                                              self.device)
+                L = mc.num_layers
+                st.ssm_state = (conv.new_zeros((L,) + conv.shape),
+                                ssd.new_zeros((L,) + ssd.shape))
+        return st
 
     def begin_prefill(self, prompt: List[int]) -> ChunkedPrefillState:
         """Admit a request without stalling decode. The returned state is
@@ -398,12 +442,12 @@ class Engine:
         return st
 
     def finish_prefill(self, st: ChunkedPrefillState):
-        """Harvest a completed prefill: (prefix_blocks, last_logits, None —
-        no SSM state on the dense path). Ownership of the pages passes to
-        the caller."""
+        """Harvest a completed prefill: (prefix_blocks, last_logits,
+        ssm_state — None on the dense path). Ownership of the pages passes
+        to the caller."""
         assert st.done, "prefill still has pending chunks"
         st.harvested = True
-        return st.blocks, st.last_logits, None
+        return st.blocks, st.last_logits, st.ssm_state
 
     def abort_prefill(self, st: ChunkedPrefillState) -> None:
         """Drop a queued prefill and release its pages. A state already
@@ -429,10 +473,11 @@ class Engine:
     def match_cached_tokens(self, prompt: List[int]) -> int:
         """Non-mutating probe for LPM admission ordering: prompt tokens a
         warm admission would serve from the radix cache right now (0 with
-        the cache off)."""
+        the cache off), with the SSM-boundary gating of a real admission."""
         if self.prefix_cache is None:
             return 0
-        return self.prefix_cache.match_tokens(prompt)
+        return self.prefix_cache.match_tokens(
+            prompt, need_state=self.model.cfg.uses_ssm)
 
     @property
     def prefill_compile_count(self) -> int:
@@ -443,29 +488,43 @@ class Engine:
     def step_variants(self) -> List[StepVariant]:
         """Every step shape this engine can dispatch: the pure-decode
         shape plus one mixed shape per (bucket, lane-count) pair, each
-        with the host index arrays it takes (the tree map's four with
-        ``decode_kernel="tree"``)."""
-        cfg = self.cfg
+        with the arrays it takes (the tree map's four with
+        ``decode_kernel="tree"``; for ssm/hybrid the slot-validity mask,
+        the lanes' chunk lengths and their stacked (conv, ssd) chunk
+        state)."""
+        cfg, mc = self.cfg, self.model.cfg
         B, w = cfg.max_slots, cfg.max_pages_per_branch
+        dtype = str(self.model.dtype).replace("torch.", "")
 
-        def args(rows: int) -> dict:
+        def args(n_lanes: int, bucket: int) -> dict:
+            rows = B + n_lanes * bucket
             out = {"tokens": ((rows,), "int32"),
                    "positions": ((rows,), "int32"),
                    "block_tables": ((rows, w), "int32"),
                    "lengths": ((rows,), "int32")}
-            if cfg.decode_kernel == "tree":
+            if cfg.decode_kernel == "tree" and mc.uses_attention:
                 out.update(branch_bt=((B, w), "int32"),
                            row_group=((B,), "int32"),
                            shared_bt=((B, w), "int32"),
                            shared_lens=((B,), "int32"))
+            if mc.uses_ssm:
+                out.update(slot_valid=((B,), "bool"),
+                           chunk_lens=((n_lanes,), "int32"))
+                if n_lanes:
+                    conv, ssd = self.state["conv"], self.state["ssd"]
+                    L = mc.num_layers
+                    out.update(
+                        chunk_conv=((L, n_lanes) + tuple(conv.shape[2:]),
+                                    dtype),
+                        chunk_ssd=((L, n_lanes) + tuple(ssd.shape[2:]),
+                                   dtype))
             return out
 
-        variants = [StepVariant("decode", (), args(B))]
+        variants = [StepVariant("decode", (), args(0, 0))]
         for bucket in self._buckets:
             for n in self._lane_configs:
                 variants.append(StepVariant(f"mixed:b{bucket}xl{n}",
-                                            (bucket,) * n,
-                                            args(B + n * bucket)))
+                                            (bucket,) * n, args(n, bucket)))
         return variants
 
     def _bucket_for(self, n: int) -> int:
@@ -522,9 +581,17 @@ class Engine:
         supplies the live decode rows plus the step's CoW page copies and
         tree map; standalone draining pads with inert rows (sentinel block
         tables send their page writes to the spare page; the tree map
-        groups none of them). With the prefix cache, a finished prompt's
-        full pages are inserted into the radix."""
-        cfg = self.cfg
+        groups none of them; the slot-validity mask freezes every slot's
+        SSM state).
+
+        ssm/hybrid configs thread each lane's running per-layer (conv,
+        ssd) state through the step (stacked along a lane axis) and get it
+        back advanced by exactly that lane's chunk length — pad rows are
+        identity transitions under the masked-dt scan. With the prefix
+        cache, each lane keeps a copy of its SSM state at page-aligned
+        chunk boundaries, and a finished prompt's full pages are inserted
+        into the radix with them."""
+        cfg, mc = self.cfg, self.model.cfg
         B = cfg.max_slots
         if not bucket:
             bucket = max(self._chunk_bucket(st) for st in sts)
@@ -533,34 +600,50 @@ class Engine:
         if piggyback:
             d_tokens, d_positions = self._tokens, self._positions
             d_bt, d_lengths = self._block_tables, self._lengths
+            slot_valid = self._active
         else:
             d_tokens = np.zeros((B,), np.int32)
             d_positions = np.zeros((B,), np.int32)
             d_bt = np.full((B, cfg.max_pages_per_branch), cfg.num_pages,
                            np.int32)
             d_lengths = np.zeros((B,), np.int32)
+            slot_valid = np.zeros((B,), bool)
             tree = self._tree_map([None] * B)
+        chunk_state = None
+        if mc.uses_ssm:
+            chunk_state = (torch.cat([st.ssm_state[0] for st in sts], 1),
+                           torch.cat([st.ssm_state[1] for st in sts], 1))
         lane_buckets = (bucket,) * len(sts)
         self._buckets_used.add((bucket, len(sts)))
-        next_tokens, hidden, logits = self._step(
+        next_tokens, hidden, logits, chunk_out = self._step(
             np.concatenate([d_tokens] + [ln[0] for ln in lanes]),
             np.concatenate([d_positions] + [ln[1] for ln in lanes]),
             np.concatenate([d_bt] + [ln[2] for ln in lanes]),
             np.concatenate([d_lengths] + [ln[3] for ln in lanes]),
             lane_buckets, chunk_lens, [st.next_pos for st in sts], cows,
-            tree)
+            tree, slot_valid, chunk_state)
         self.prefill_chunk_steps += len(sts)
         self.mixed_steps_executed += 1
+        ps = cfg.page_size
         for i, st in enumerate(sts):
             cl = chunk_lens[i]
             st.next_pos += cl
+            if chunk_out is not None:
+                # this lane's own copy: the stacked outputs are dropped
+                st.ssm_state = (chunk_out[0][:, i:i + 1].clone(),
+                                chunk_out[1][:, i:i + 1].clone())
+                if st.ssm_snaps is not None and st.next_pos % ps == 0:
+                    # a chunk boundary on a page boundary: this state can
+                    # seed a future request resuming at exactly next_pos
+                    st.ssm_snaps[st.next_pos] = st.ssm_state
             if st.next_pos >= len(st.prompt):
                 st.done = True
                 st.last_logits = logits[B + i * bucket + cl - 1]
                 if st in self._pending_prefills:
                     self._pending_prefills.remove(st)
                 if self.prefix_cache is not None:
-                    self.prefix_cache.insert(st.prompt, st.blocks.pages)
+                    self.prefix_cache.insert(st.prompt, st.blocks.pages,
+                                             st.ssm_snaps)
         return next_tokens, hidden
 
     # --------------------------------------------------------------- branches
@@ -575,8 +658,9 @@ class Engine:
         ``prompt_tokens`` (the request's prompt) keys the branch's
         generated full pages into the prefix cache at completion and
         page-aligned decode boundaries — without it the branch inserts
-        nothing. ``ssm_state`` and ``first_fork`` keep the reference's
-        signature; the dense path does not use them."""
+        nothing. ``ssm_state`` (ssm/hybrid: the prefill's ``[L, 1, ...]``
+        (conv, ssd)) is copied into the slot's rows; ``first_fork`` keeps
+        the reference's signature and is unused."""
         free = self.free_slots
         if not free:
             return None
@@ -587,9 +671,14 @@ class Engine:
             branch_id=self._next_branch_id, request_id=request_id, slot=slot,
             blocks=blocks, tokens=[first], prompt_len=prompt_len,
             prompt_tokens=(list(prompt_tokens)
-                           if prompt_tokens is not None else None))
+                           if prompt_tokens is not None else None),
+            ssm_snaps={} if self.prefix_cache is not None else None)
         self._next_branch_id += 1
         self.slots[slot] = handle
+        if self.model.cfg.uses_ssm and ssm_state is not None:
+            conv, ssd = ssm_state
+            self.state["conv"][:, slot] = conv[:, 0]
+            self.state["ssd"][:, slot] = ssd[:, 0]
         self._seat(handle)
         return handle
 
@@ -612,7 +701,8 @@ class Engine:
 
     def fork_branch(self, parent: BranchHandle) -> Optional[BranchHandle]:
         """Mid-generation fork (Rebase tree expansion): the child shares
-        all of the parent's pages (CoW on next append)."""
+        all of the parent's pages (CoW on next append) and copies its SSM
+        state."""
         free = self.free_slots
         if not free:
             return None
@@ -623,16 +713,25 @@ class Engine:
             slot=slot, blocks=blocks, tokens=list(parent.tokens),
             prompt_len=parent.prompt_len,
             prompt_tokens=(list(parent.prompt_tokens)
-                           if parent.prompt_tokens is not None else None))
+                           if parent.prompt_tokens is not None else None),
+            ssm_snaps=(dict(parent.ssm_snaps)
+                       if parent.ssm_snaps is not None else None))
         self._next_branch_id += 1
         self.slots[slot] = handle
+        if self.model.cfg.uses_ssm:
+            for key in ("conv", "ssd"):
+                self.state[key][:, slot] = self.state[key][:, parent.slot]
         self._seat(handle)
         return handle
 
     def suspend_branch(self, h: BranchHandle) -> None:
-        """Vacate a branch's slot while KEEPING its pages, so it can be
-        reseated later via ``resume_branch``."""
+        """Vacate a branch's slot while KEEPING its pages and SSM state
+        (a device copy: the slot's rows go to the next occupant), so it
+        can be reseated later via ``resume_branch``."""
         assert self.slots[h.slot] is h
+        if self.model.cfg.uses_ssm:
+            h.saved_ssm = (self.state["conv"][:, h.slot].clone(),
+                           self.state["ssd"][:, h.slot].clone())
         slot = h.slot
         self.slots[slot] = None
         self._active[slot] = False
@@ -647,6 +746,11 @@ class Engine:
             return False
         h.slot = free[0]
         self.slots[h.slot] = h
+        if h.saved_ssm is not None:
+            conv, ssd = h.saved_ssm
+            self.state["conv"][:, h.slot] = conv
+            self.state["ssd"][:, h.slot] = ssd
+            h.saved_ssm = None
         self._seat(h)
         return True
 
@@ -669,14 +773,18 @@ class Engine:
         keyed by prompt + generated tokens (``insert`` skips the trailing
         partial page, which keeps private CoW semantics). Released pages
         then park on the LRU instead of freeing, so a resample of the
-        same trajectory admits warm."""
-        if self.prefix_cache is None or h.prompt_tokens is None:
+        same trajectory admits warm. ``ssm_snaps`` attaches (conv, ssd)
+        copies to the page-aligned boundaries that have one, keeping the
+        seedable-boundary gate for ssm/hybrid. Gated on attention: pure-ssm
+        decode allocates no generated pages to insert."""
+        if (self.prefix_cache is None or h.prompt_tokens is None
+                or not self.model.cfg.uses_attention):
             return
         written = h.blocks.length - h.prompt_len
         if written <= 0:
             return
         key = list(h.prompt_tokens) + h.tokens[:written]
-        self.prefix_cache.insert(key, h.blocks.pages)
+        self.prefix_cache.insert(key, h.blocks.pages, h.ssm_snaps)
 
     def free_branch(self, h: BranchHandle):
         """Release a branch's slot and eagerly free its pages (inserting
@@ -709,9 +817,9 @@ class Engine:
         """The decode rows' branch x page map for K3 as host arrays
         ``(row_group, shared_bt, shared_lens, branch_bt)`` from the slots'
         blocks (None for an empty slot), or None with the per-branch
-        kernel."""
+        kernel (and without attention)."""
         cfg = self.cfg
-        if cfg.decode_kernel != "tree":
+        if cfg.decode_kernel != "tree" or not self.model.cfg.uses_attention:
             return None
         return tree_decode_map(
             blocks, pages_per_branch=cfg.max_pages_per_branch,
@@ -721,7 +829,9 @@ class Engine:
               block_tables: np.ndarray, lengths: np.ndarray,
               lane_buckets: tuple = (), chunk_lens: Sequence[int] = (),
               lane_pos0: Sequence[int] = (), cows: Sequence[tuple] = (),
-              tree: Optional[tuple] = None):
+              tree: Optional[tuple] = None,
+              slot_valid: Optional[np.ndarray] = None,
+              chunk_state: Optional[tuple] = None):
         """One batched token step (the reference's ``_step_fn``), generic
         in row count and lane count.
 
@@ -731,13 +841,23 @@ class Engine:
         ``lane_pos0[i]`` the absolute position of its first row (host
         ints, so the lanes' K2 launches need no device sync). ``tree`` is
         the decode rows' map from ``_tree_map`` (None: per-branch K1).
-        Order, as the reference: CoW copies, then per layer norm -> QKV ->
-        RoPE -> K/V page writes of every row -> attention (K1, or K3 over
-        ``tree``, for the decode rows; K2 once per lane with the "fused"
-        kernel) -> wo -> MLP; then the final norm, unembed and sampling.
-        CoW runs before attention, so no shared page of the map is
-        written mid-step. Returns (next_tokens [rows] int32, hidden
-        [rows, D], logits [rows, V]), all on the device.
+        Order, as the reference: CoW copies, then per layer norm -> the
+        mixer -> MLP; then the final norm, unembed and sampling. The
+        attention mixer runs QKV -> RoPE -> K/V page writes of every row
+        -> attention (K1, or K3 over ``tree``, for the decode rows; K2
+        once per lane with the "fused" kernel) -> wo. CoW runs before
+        attention, so no shared page of the map is written mid-step.
+
+        The SSM mixer (ssm/hybrid) steps the decode rows with
+        ``mamba2_decode``, masked by ``slot_valid`` so inert slots keep
+        their state bit-identical, and writes the per-slot state in
+        place; all lanes (uniform buckets) run as ONE batched masked-dt
+        ``mamba2_forward`` (K4 on the card), seeded from ``chunk_state``
+        (per-layer (conv, ssd) stacked along a lane axis) with only each
+        lane's first ``chunk_lens[i]`` rows valid. Hybrids average the two
+        mixers. Returns (next_tokens [rows] int32, hidden [rows, D], logits
+        [rows, V], the lanes' advanced (conv, ssd) chunk state or None),
+        all on the device.
         """
         mc, cfg, p = self.model.cfg, self.cfg, self.params
         B, nS = tokens.shape[0], cfg.max_slots
@@ -755,12 +875,14 @@ class Engine:
             page_of = np.where(write_ok, page_of, cfg.num_pages)
         cow_src, cow_dst = self._cow_arrays(cows)
         # the step's one host-to-device copy: every index array, the tree
-        # map's included, sliced apart on the device
+        # map's and the SSM masks included, sliced apart on the device
         parts = [tokens, positions, page_of, positions % ps, lengths + 1,
                  block_tables.reshape(-1)]
         if tree is not None:
             rg, sbt, sl, bbt = tree
             parts += [rg, sl, sbt.reshape(-1), bbt.reshape(-1)]
+        if mc.uses_ssm:
+            parts += [slot_valid, np.asarray(chunk_lens, np.int32)]
         host = np.concatenate(parts + [cow_src, cow_dst]).astype(np.int32)
         dev = torch.from_numpy(host).to(self.device)
         tok_d, pos_d, page_d, slot_d, len_d = dev[:5 * B].view(5, B)
@@ -771,49 +893,85 @@ class Engine:
             sbt_d, bbt_d = dev[off + 2 * nS:off + 2 * nS + 2 * nS * w].view(
                 2, nS, w)
             off += 2 * nS + 2 * nS * w
-        kp_all, vp_all = self.state["k_pages"], self.state["v_pages"]
-        if cows:
-            # CoW before any write (in place on the pools)
-            nc = len(cows)
-            src = dev[off:off + nc].long()
-            dst = dev[off + nc:].long()
-            kp_all[:, :, dst] = kp_all[:, :, src]
-            vp_all[:, :, dst] = vp_all[:, :, src]
-        page_i, slot_i = page_d.long(), slot_d.long()
+        if mc.uses_ssm:
+            n_lanes = len(lane_buckets)
+            valid_d = dev[off:off + nS].bool()
+            lens_d = dev[off + nS:off + nS + n_lanes]
+            off += nS + n_lanes
+        if mc.uses_attention:
+            kp_all, vp_all = self.state["k_pages"], self.state["v_pages"]
+            if cows:
+                # CoW before any write (in place on the pools)
+                nc = len(cows)
+                src = dev[off:off + nc].long()
+                dst = dev[off + nc:].long()
+                kp_all[:, :, dst] = kp_all[:, :, src]
+                vp_all[:, :, dst] = vp_all[:, :, src]
+            page_i, slot_i = page_d.long(), slot_d.long()
         fused_chunk = B > nS and cfg.mixed_step_kernel == "fused"
+        ssm_lanes = mc.uses_ssm and B > nS
+        if ssm_lanes:
+            # all lanes run as ONE batched scan: the packer only emits
+            # uniform lane tuples, and the lane axis is the batch axis
+            assert len(set(lane_buckets)) == 1, lane_buckets
+            new_conv, new_ssd = [], []
 
         x = embed_tokens(mc, p["embed"], tok_d[:, None])      # [B, 1, D]
         for layer, lp in enumerate(self._layers):
-            kp, vp = kp_all[layer], vp_all[layer]   # [kv, P + 1, ps, hd]
             h = apply_norm(mc, lp["norm1"], x)
-            q, k, v = _project_qkv(mc, lp["attn"], h)
-            q, k = _rotate(mc, q, k, pos_d[:, None])
-            # every row's K/V lands before any row attends
-            kp[:, page_i, slot_i] = k[:, 0].transpose(0, 1)
-            vp[:, page_i, slot_i] = v[:, 0].transpose(0, 1)
-            q = q[:, 0]                                        # [B, H, hd]
-            if B > nS and not fused_chunk:
-                # the mixed_step_kernel="decode" fallback: every row
-                # through the per-token flash-decode (the tree map needs
-                # the fused path)
-                att = paged_attention(q, kp, vp, bt_d, len_d)
-            else:
-                if tree is not None:
-                    # decode rows over the fork-group map (K3)
-                    att = paged_tree_attention(q[:nS], kp, vp, rg_d, sbt_d,
-                                               sl_d, bbt_d, len_d[:nS])
+            mix = None
+            if mc.uses_attention:
+                kp, vp = kp_all[layer], vp_all[layer]  # [kv, P + 1, ps, hd]
+                q, k, v = _project_qkv(mc, lp["attn"], h)
+                q, k = _rotate(mc, q, k, pos_d[:, None])
+                # every row's K/V lands before any row attends
+                kp[:, page_i, slot_i] = k[:, 0].transpose(0, 1)
+                vp[:, page_i, slot_i] = v[:, 0].transpose(0, 1)
+                q = q[:, 0]                                    # [B, H, hd]
+                if B > nS and not fused_chunk:
+                    # the mixed_step_kernel="decode" fallback: every row
+                    # through the per-token flash-decode (the tree map
+                    # needs the fused path)
+                    att = paged_attention(q, kp, vp, bt_d, len_d)
                 else:
-                    att = paged_attention(q[:nS], kp, vp, bt_d[:nS],
-                                          len_d[:nS])
-                if fused_chunk:
-                    parts = [att]
-                    for i, bk in enumerate(lane_buckets):
-                        o = lane_off[i]
-                        parts.append(paged_flash_prefill(
-                            q[o:o + bk], kp, vp, bt_d[o], lane_pos0[i],
-                            chunk_lens[i]))
-                    att = torch.cat(parts, 0)
-            x = x + att.reshape(B, 1, -1) @ lp["attn"]["wo"]
+                    if tree is not None:
+                        # decode rows over the fork-group map (K3)
+                        att = paged_tree_attention(q[:nS], kp, vp, rg_d,
+                                                   sbt_d, sl_d, bbt_d,
+                                                   len_d[:nS])
+                    else:
+                        att = paged_attention(q[:nS], kp, vp, bt_d[:nS],
+                                              len_d[:nS])
+                    if fused_chunk:
+                        att_parts = [att]
+                        for i, bk in enumerate(lane_buckets):
+                            o = lane_off[i]
+                            att_parts.append(paged_flash_prefill(
+                                q[o:o + bk], kp, vp, bt_d[o], lane_pos0[i],
+                                chunk_lens[i]))
+                        att = torch.cat(att_parts, 0)
+                mix = att.reshape(B, 1, -1) @ lp["attn"]["wo"]
+            if mc.uses_ssm:
+                conv_l, ssd_l = self.state["conv"][layer], \
+                    self.state["ssd"][layer]
+                y, conv, ssd = mamba2_decode(mc, lp["mamba"], h[:nS], conv_l,
+                                             ssd_l, valid=valid_d)
+                conv_l.copy_(conv)
+                ssd_l.copy_(ssd)
+                if ssm_lanes:
+                    bk = lane_buckets[0]
+                    y_ch, (c_conv, c_ssd) = mamba2_forward(
+                        mc, lp["mamba"], h[nS:, 0].reshape(n_lanes, bk, -1),
+                        initial=(chunk_state[0][layer],
+                                 chunk_state[1][layer]),
+                        valid_len=lens_d)
+                    new_conv.append(c_conv.to(conv_l.dtype))
+                    new_ssd.append(c_ssd.to(ssd_l.dtype))
+                    y = torch.cat([y, y_ch.reshape(B - nS, 1, -1)], 0)
+                mix = y if mix is None else mix + y
+            if mc.arch_type == "hybrid":
+                mix = mix * 0.5
+            x = x + mix
             if mc.d_ff:
                 x = x + apply_mlp(mc, lp["mlp"], apply_norm(mc, lp["norm2"],
                                                             x))
@@ -821,7 +979,9 @@ class Engine:
         hidden = x[:, 0]
         logits = unembed(mc, p["embed"], hidden)
         next_tokens = sample(self._gen, logits, cfg.sampling)
-        return next_tokens, hidden, logits
+        chunk_out = ((torch.stack(new_conv), torch.stack(new_ssd))
+                     if ssm_lanes else None)
+        return next_tokens, hidden, logits, chunk_out
 
     def decode_step(self) -> Dict[int, int]:
         """One decode step for all active slots, piggybacking up to
@@ -830,31 +990,37 @@ class Engine:
         unset. Page accounting (boundary alloc + CoW) runs on the host
         *before* the step; the sampled token is then appended to each
         active branch. Returns {slot: new_token}."""
-        cfg = self.cfg
+        cfg, mc = self.cfg, self.model.cfg
         if not self._active.any() and not self._pending_prefills:
             return {}
         t0 = time.perf_counter()
-        cap = cfg.max_pages_per_branch * cfg.page_size
-        for h in self.slots:
-            if h is not None and h.blocks.length + 1 > cap:
-                # static block table full: surface as memory pressure so
-                # the scheduler's evict-longest path force-completes it
-                raise OutOfPagesError(
-                    "branch at block-table capacity "
-                    f"({cap} tokens)")
-        if self.pages_needed_for_step() > self.allocator.free_pages:
-            raise OutOfPagesError(
-                "decode step needs more pages than are free")
         cows = []
-        # the pages_needed_for_step pre-check above reserves this loop's
-        # worst case, so append_token cannot raise mid-way
-        for h in self.slots:
-            if h is None:
-                continue
-            cow = self.allocator.append_token(h.blocks)  # reprolint: disable=REP002
-            if cow is not None:
-                cows.append(cow)
-            self._refresh_block_table(h)
+        if mc.uses_attention:
+            cap = cfg.max_pages_per_branch * cfg.page_size
+            for h in self.slots:
+                if h is not None and h.blocks.length + 1 > cap:
+                    # static block table full: surface as memory pressure
+                    # so the scheduler's evict-longest path force-completes
+                    raise OutOfPagesError(
+                        "branch at block-table capacity "
+                        f"({cap} tokens)")
+            if self.pages_needed_for_step() > self.allocator.free_pages:
+                raise OutOfPagesError(
+                    "decode step needs more pages than are free")
+            # the pages_needed_for_step pre-check above reserves this
+            # loop's worst case, so append_token cannot raise mid-way
+            for h in self.slots:
+                if h is None:
+                    continue
+                cow = self.allocator.append_token(h.blocks)  # reprolint: disable=REP002
+                if cow is not None:
+                    cows.append(cow)
+                self._refresh_block_table(h)
+        else:
+            # pure ssm: decode writes no pages; the state is the context
+            for h in self.slots:
+                if h is not None:
+                    h.blocks.length += 1
 
         # pack only after the page accounting above: an OutOfPagesError
         # abort must not charge skipped prefills' starvation counters
@@ -868,9 +1034,9 @@ class Engine:
             next_tokens, hidden = self._advance_chunks(
                 lanes, piggyback=True, bucket=bucket, cows=cows, tree=tree)
         else:
-            next_tokens, hidden, _ = self._step(
+            next_tokens, hidden, _, _ = self._step(
                 self._tokens, self._positions, self._block_tables,
-                self._lengths, cows=cows, tree=tree)
+                self._lengths, cows=cows, tree=tree, slot_valid=self._active)
         self._last_hidden = hidden[:cfg.max_slots]
         self.decode_steps_executed += 1
 
@@ -892,7 +1058,13 @@ class Engine:
                     and h.prompt_tokens is not None
                     and h.blocks.length % cfg.page_size == 0):
                 # page-aligned decode boundary: long-running branches
-                # publish their generated full pages before completion
+                # publish their generated full pages before completion.
+                # The slot's state now covers exactly blocks.length tokens,
+                # so a copy of it can seed an ssm/hybrid resume here
+                if mc.uses_ssm and h.ssm_snaps is not None:
+                    h.ssm_snaps[h.blocks.length] = (
+                        self.state["conv"][:, slot:slot + 1].clone(),
+                        self.state["ssd"][:, slot:slot + 1].clone())
                 self._insert_generated(h)
         self.tokens_generated += len(out)
         self.step_seconds.append(time.perf_counter() - t0)

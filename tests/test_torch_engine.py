@@ -50,8 +50,8 @@ def _np(x):
 
 
 def _fork_and_decode(eng, prompt, n_branches, steps):
-    blocks, logits, _ = eng.prefill(prompt)
-    hs = [eng.spawn_branch(0, blocks, logits, None, len(prompt))
+    blocks, logits, ssm = eng.prefill(prompt)
+    hs = [eng.spawn_branch(0, blocks, logits, ssm, len(prompt))
           for _ in range(n_branches)]
     for _ in range(steps):
         eng.decode_step()
@@ -97,8 +97,8 @@ def test_long_prompt_chunks_match_jax():
 def _drive_lanes(eng, prompts, steps):
     """One decoding request plus queued prefills riding its steps as
     chunk lanes; each finished prefill spawns a branch."""
-    blocks, logits, _ = eng.prefill(prompts[0])
-    hs = [eng.spawn_branch(0, blocks, logits, None, len(prompts[0]))]
+    blocks, logits, ssm = eng.prefill(prompts[0])
+    hs = [eng.spawn_branch(0, blocks, logits, ssm, len(prompts[0]))]
     owned = [blocks]
     states = [eng.begin_prefill(p) for p in prompts[1:]]
     first_logits = []
@@ -106,10 +106,10 @@ def _drive_lanes(eng, prompts, steps):
         eng.decode_step()
         for i, st in enumerate(states):
             if st.done and not st.harvested:
-                b, lg, _ = eng.finish_prefill(st)
+                b, lg, ssm = eng.finish_prefill(st)
                 owned.append(b)
                 first_logits.append(_np(lg))
-                hs.append(eng.spawn_branch(i + 1, b, lg, None,
+                hs.append(eng.spawn_branch(i + 1, b, lg, ssm,
                                            len(st.prompt)))
     out = ([h.tokens for h in hs], first_logits,
            (eng.mixed_steps_executed, eng.prefill_chunk_steps,
@@ -182,7 +182,7 @@ def test_abort_and_harvest_ownership():
     assert te.allocator.used_pages == 0
 
 
-@pytest.mark.parametrize("later", ["ssm", "hybrid", "moe", "vlm", "audio",
+@pytest.mark.parametrize("later", ["moe", "vlm", "audio",
                                    "chunked_prefill_off"])
 def test_later_slices_raise(later):
     """Families and options of later slices raise NotImplementedError
@@ -215,8 +215,8 @@ def _header_requests(eng, steps=6, warm_lane=True):
     live branch, the warm request's cached tokens)."""
     header = [2, 5, 9, 13, 7, 3, 11, 4]
     cold, warm = header + [8, 6, 10, 12, 3, 7, 9], header + [14, 6, 2]
-    blocks, lg_cold, _ = eng.prefill(cold)
-    hs = [eng.spawn_branch(0, blocks, lg_cold, None, len(cold),
+    blocks, lg_cold, ssm_cold = eng.prefill(cold)
+    hs = [eng.spawn_branch(0, blocks, lg_cold, ssm_cold, len(cold),
                            prompt_tokens=cold) for _ in range(3)]
     for _ in range(steps):
         eng.decode_step()
@@ -226,13 +226,14 @@ def _header_requests(eng, steps=6, warm_lane=True):
             eng.decode_step()
         else:
             eng._advance_chunks([st], piggyback=False)
-    b2, lg_warm, _ = eng.finish_prefill(st)
-    hs += [eng.spawn_branch(1, b2, lg_warm, None, len(warm),
+    b2, lg_warm, ssm_warm = eng.finish_prefill(st)
+    hs += [eng.spawn_branch(1, b2, lg_warm, ssm_warm, len(warm),
                             prompt_tokens=warm) for _ in range(2)]
     hs.append(eng.fork_branch(hs[0]))
     for _ in range(steps):
         eng.decode_step()
-    kv = [_kv_of(eng, h.blocks) for h in hs]
+    kv = ([_kv_of(eng, h.blocks) for h in hs]
+          if eng.model.cfg.uses_attention else [])
     out = ([list(h.tokens) for h in hs], [_np(lg_cold), _np(lg_warm)],
            _np(eng._last_hidden)[[h.slot for h in hs]], kv, st.cached_tokens)
     for h in hs:
@@ -414,3 +415,253 @@ def test_step_variants_with_tree_match_jax():
             assert t.args[key][0] == tuple(j.args[i].shape)
     _, plain = _pair(step_token_budget=16, prefill_buckets=(4, 8))
     assert all("row_group" not in v.args for v in plain.step_variants())
+
+
+# ------------------------------------------------ ssm and hybrid families
+
+SSM_FAMILIES = ["ssm", "hybrid"]
+
+
+def _slot_states(eng, hs):
+    """The (conv, ssd) rows of the branches' slots, [L, n, ...] each."""
+    slots = [h.slot for h in hs]
+    return [_np(eng.state[k])[:, slots] for k in ("conv", "ssd")]
+
+
+def _ssm_run(eng, prompt):
+    """Chunked admission, three forked branches, 6 greedy steps, a
+    mid-generation fork of the second branch, 4 more steps."""
+    blocks, logits, ssm = eng.prefill(prompt)
+    hs = [eng.spawn_branch(0, blocks, logits, ssm, len(prompt))
+          for _ in range(3)]
+    for _ in range(6):
+        eng.decode_step()
+    hs.append(eng.fork_branch(hs[1]))
+    for _ in range(4):
+        eng.decode_step()
+    out = ([list(h.tokens) for h in hs], _np(logits),
+           _np(eng._last_hidden)[[h.slot for h in hs]],
+           _slot_states(eng, hs))
+    for h in hs:
+        eng.free_branch(h)
+    eng.release_prefix(blocks)
+    assert eng.allocator.used_pages == 0
+    return out
+
+
+@pytest.mark.parametrize("family", SSM_FAMILIES)
+def test_ssm_forked_branches_match_jax(family):
+    """A 13-token prompt through the masked-dt chunk lane (chunks 8 + 5),
+    three branches and a mid-generation fork: the reference's greedy
+    tokens; prefill logits, hidden states and every branch's final (conv,
+    ssd) state within 1e-4."""
+    je, te = _pair(FAMILY_CONFIGS[family])
+    prompt = [2, 5, 9, 13, 7, 3, 11, 4, 8, 6, 10, 12, 14]
+    jt, jl, jh, (jc, js) = _ssm_run(je, prompt)
+    tt, tl, th, (tc, ts) = _ssm_run(te, prompt)
+    assert tt == jt
+    np.testing.assert_allclose(tl, jl, **TOL)
+    np.testing.assert_allclose(th, jh, **TOL)
+    np.testing.assert_allclose(tc, jc, **TOL)
+    np.testing.assert_allclose(ts, js, **TOL)
+    assert te.mixed_steps_executed == je.mixed_steps_executed == 2
+
+
+@pytest.mark.parametrize("family", SSM_FAMILIES)
+def test_ssm_token_budget_lanes_match_jax(family):
+    """Up to three concurrent SSM chunk lanes in one batched masked-dt
+    scan, riding decode steps: the reference's tokens, first-token logits
+    and lane counters."""
+    je, te = _pair(FAMILY_CONFIGS[family], step_token_budget=24, max_slots=6)
+    rng = np.random.default_rng(7)
+    prompts = [[int(x) for x in rng.integers(2, 97, n)]
+               for n in (6, 11, 19, 5, 9)]
+    jt, jl, jc = _drive_lanes(je, prompts, 12)
+    tt, tl, tc = _drive_lanes(te, prompts, 12)
+    assert tt == jt
+    assert tc == jc
+    for a, b in zip(tl, jl):
+        np.testing.assert_allclose(a, b, **TOL)
+    assert te.allocator.used_pages == 0
+
+
+@pytest.mark.parametrize("family", SSM_FAMILIES)
+def test_ssm_cache_and_tree_match_jax(family):
+    """Prefix cache and tree decode on: the warm request is seeded from
+    the cold one's page-aligned ``ssm_snaps`` boundary (8 tokens) in both
+    packages; equal tokens and cache counters, logits and hidden states
+    within 1e-4."""
+    je, te = _pair(FAMILY_CONFIGS[family], max_slots=8, prefix_cache=True,
+                   decode_kernel="tree")
+    jt, jl, jh, _, jc = _header_requests(je)
+    tt, tl, th, _, tc = _header_requests(te)
+    assert tt == jt
+    assert tc == jc == 8
+    assert te.prefix_cache_stats() == je.prefix_cache_stats()
+    for a, b in zip(tl, jl):
+        np.testing.assert_allclose(a, b, **TOL)
+    np.testing.assert_allclose(th, jh, **TOL)
+
+
+def test_ssm_step_variants_match_jax():
+    """The declared step shapes carry the reference's chunk-state shapes
+    (per-layer conv and ssd stacked along the lane axis)."""
+    je, te = _pair(FAMILY_CONFIGS["hybrid"], step_token_budget=16,
+                   prefill_buckets=(4, 8))
+    jv, tv = je.step_variants(), te.step_variants()
+    assert [(v.name, v.lane_buckets) for v in tv] == \
+        [(v.name, v.lane_buckets) for v in jv]
+    for j, t in zip(jv, tv):
+        chunk_state = j.args[5]
+        assert ("chunk_conv" in t.args) == bool(chunk_state)
+        for key in chunk_state:
+            assert t.args[f"chunk_{key}"] == (
+                tuple(chunk_state[key].shape), str(chunk_state[key].dtype))
+        assert t.args["slot_valid"] == ((te.cfg.max_slots,), "bool")
+        assert t.args["chunk_lens"][0] == tuple(j.args[6].shape)
+
+
+def _port(family, **ecfg):
+    cfg = tiny_config(**FAMILY_CONFIGS[family])
+    tm = Model(ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
+    tp = tm.init_params(torch.Generator().manual_seed(5))
+    base = dict(page_size=4, num_pages=128, max_slots=4,
+                max_pages_per_branch=24, eos_id=1, prefill_chunk=8, seed=0,
+                sampling=SamplingParams(temperature=0.0))
+    base.update(ecfg)
+    return Engine(tm, tp, EngineConfig(**base))
+
+
+def _equal_states(a, b):
+    assert (a is None) == (b is None)
+    if a is not None:
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("family", SSM_FAMILIES)
+def test_ssm_multi_lane_matches_single_lane(family):
+    """Two lanes per mixed step (one batched scan) give each prompt the
+    single-lane FIFO's logits, SSM state and K/V pages bit for bit, though
+    the lanes run at another bucket and row count than the single lane."""
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(2, 97, size=s)]
+               for s in (13, 9, 17)]
+    single = _port(family)
+    want = [single.prefill(p) for p in prompts]
+    multi = _port(family, step_token_budget=16)
+    assert multi.admission_capacity == 2
+    sts = [multi.begin_prefill(p) for p in prompts]
+    steps = 0
+    while any(not st.done for st in sts):
+        multi.decode_step()
+        steps += 1
+    assert steps < sum(-(-len(p) // 8) for p in prompts)
+    for st, p, (b_w, lg_w, ssm_w) in zip(sts, prompts, want):
+        b_m, lg_m, ssm_m = multi.finish_prefill(st)
+        assert torch.equal(lg_m, lg_w)
+        _equal_states(ssm_m, ssm_w)
+        if multi.model.cfg.uses_attention:
+            for got, exp in zip(_kv_of(multi, b_m), _kv_of(single, b_w)):
+                np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("family", SSM_FAMILIES)
+def test_ssm_suspend_resume_roundtrip_bit_exact(family):
+    """suspend_branch keeps a copy of the slot's (conv, ssd); resume
+    restores it bit for bit after another branch dirtied the slot, and
+    the branch then decodes what it would have decoded unsuspended."""
+    eng = _port(family, max_slots=2)
+    prompt = [2, 5, 9, 13]
+    blocks, lg, ssm = eng.prefill(prompt)
+    h = eng.spawn_branch(0, blocks, lg, ssm, 4)
+    for _ in range(3):
+        eng.decode_step()
+    before = [torch.clone(eng.state[k][:, h.slot]) for k in ("conv", "ssd")]
+    eng.suspend_branch(h)
+    other = eng.spawn_branch(1, blocks, lg, ssm, 4)   # dirty the slot rows
+    for _ in range(2):
+        eng.decode_step()
+    eng.free_branch(other)
+    assert eng.resume_branch(h)
+    for key, b in zip(("conv", "ssd"), before):
+        assert torch.equal(eng.state[key][:, h.slot], b)
+    for _ in range(3):
+        eng.decode_step()
+
+    ref = _port(family, max_slots=2)
+    rb, rlg, rssm = ref.prefill(prompt)
+    rh = ref.spawn_branch(0, rb, rlg, rssm, 4)
+    for _ in range(6):
+        ref.decode_step()
+    assert h.tokens == rh.tokens
+    for key in ("conv", "ssd"):
+        assert torch.equal(eng.state[key][:, h.slot],
+                           ref.state[key][:, rh.slot])
+    eng.free_branch(h)
+    eng.release_prefix(blocks)
+    assert eng.allocator.used_pages == 0
+
+
+@pytest.mark.parametrize("family", SSM_FAMILIES)
+def test_ssm_cache_on_vs_off_bit_exact(family):
+    """Cache on reproduces cache off bit for bit — harvested logits, SSM
+    state and K/V pages — while the second prompt resumes from the first
+    one's 8-token boundary snapshot (fewer chunk steps, hit tokens)."""
+    rng = np.random.default_rng(3)
+    header = [int(t) for t in rng.integers(2, 97, size=10)]
+    prompts = [header + [3, 7, 2, 9], header + [5, 2, 8, 4, 6]]
+
+    def run(cache):
+        eng = _port(family, prefix_cache=cache)
+        outs, steps = [], 0
+        for p in prompts:
+            st = eng.begin_prefill(p)
+            while not st.done:
+                eng.decode_step()
+                steps += 1
+            eng.finish_prefill(st)
+            kv = (_kv_of(eng, st.blocks) if eng.model.cfg.uses_attention
+                  else None)
+            outs.append((st.last_logits, st.ssm_state, kv))
+        return eng, outs, steps
+
+    _, off, steps_off = run(False)
+    eng_on, on, steps_on = run(True)
+    assert steps_on < steps_off
+    assert eng_on.prefix_cache_stats()["hit_tokens"] == 8
+    for (lg_a, ssm_a, kv_a), (lg_b, ssm_b, kv_b) in zip(off, on):
+        assert torch.equal(lg_a, lg_b)
+        _equal_states(ssm_a, ssm_b)
+        if kv_a is not None:
+            for x, y in zip(kv_a, kv_b):
+                np.testing.assert_array_equal(x, y)
+
+
+def test_ssm_snapshots_survive_later_steps():
+    """Boundary snapshots (prefill chunks and decode steps) are copies:
+    steps that update the per-slot pools in place leave them unchanged."""
+    eng = _port("hybrid", prefix_cache=True)
+    prompt = list(range(2, 14))                  # 12 tokens: chunks 8 + 4
+    st = eng.begin_prefill(prompt)
+    while not st.done:
+        eng.decode_step()
+    blocks, lg, ssm = eng.finish_prefill(st)
+    assert sorted(st.ssm_snaps) == [8, 12]
+    h = eng.spawn_branch(0, blocks, lg, ssm, len(prompt),
+                         prompt_tokens=prompt)
+    for _ in range(4):                           # a decode boundary at 16
+        eng.decode_step()
+    assert sorted(h.ssm_snaps) == [16]
+    kept = {k: [t.clone() for t in v]
+            for k, v in list(st.ssm_snaps.items()) + list(
+                h.ssm_snaps.items())}
+    for _ in range(5):
+        eng.decode_step()
+    snaps = {**st.ssm_snaps, **h.ssm_snaps}
+    assert sorted(snaps) == [8, 12, 16, 20]
+    for k, want in kept.items():
+        for got, exp in zip(snaps[k], want):
+            assert torch.equal(got, exp)
+    eng.free_branch(h)
+    eng.release_prefix(blocks)

@@ -133,3 +133,86 @@ def test_run_serving_with_prefix_cache_on_cpu():
     assert out["faults"]["step_faults"] == 0
     assert out["prefix_cache"]["lookups"] == 3
     assert engine.allocator.used_pages == 0
+
+
+def _ssm_pair(family, **ecfg):
+    from conftest import FAMILY_CONFIGS
+    cfg = tiny_config(vocab_size=jtk.VOCAB_SIZE, **FAMILY_CONFIGS[family])
+    jm = JModel(cfg)
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    tm = Model(ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
+    tp = params_from_numpy(_flatten(jp), device="cpu")
+    e = dict(ECFG, prefill_chunk=8, **ecfg)
+    return (JEngine(jm, jp, JConfig(sampling=JSampling(temperature=0.0), **e)),
+            Engine(tm, tp, EngineConfig(
+                sampling=SamplingParams(temperature=0.0), **e)))
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_ssm_scheduler_matches_jax(family):
+    """The SART scheduler over ssm and hybrid engines: ``req.ssm_state``
+    flows from ``finish_prefill`` to every ``spawn_branch``, and the
+    per-request records, clock and decode steps equal the reference's."""
+    je, te = _ssm_pair(family)
+    jm_, je = _run(JScheduler, JSchedulerConfig, JOraclePRM, jtasks, je,
+                   "sart")
+    tm_, te = _run(Scheduler, SchedulerConfig, OraclePRM, tasks, te, "sart")
+    assert _summary(tm_) == _summary(jm_)
+    assert tm_["completed_requests"] == 3
+    assert te.allocator.used_pages == 0 == je.allocator.used_pages
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+def test_ssm_preemption_matches_jax(family):
+    """Preemption with 3 slots for 4 branches per request: the scheduler
+    suspends and resumes SSM branches through the port's
+    ``suspend_branch``/``resume_branch`` as often as the reference does,
+    with the same records; every request completes, no page leaks."""
+    counts = []
+
+    def run(sch_cls, cfg_cls, prm_cls, task_mod, engine):
+        n = {"suspend": 0, "resume": 0}
+        for name in n:
+            orig = getattr(engine, f"{name}_branch")
+
+            def spy(h, _orig=orig, _name=name):
+                n[_name] += 1
+                return _orig(h)
+            setattr(engine, f"{name}_branch", spy)
+        prm = prm_cls(task_mod.oracle_grader, noise=0.0, seed=2)
+        sch = sch_cls(engine, prm, cfg_cls(policy="sart", n=4, window=8,
+                                           max_tokens=24, preempt=True),
+                      answer_fn=task_mod.extract_answer)
+        rng = np.random.default_rng(3)
+        for i in range(3):
+            prob = task_mod.gen_problem(rng)
+            sch.submit(prob.prompt_tokens(), payload=prob, arrival=i * 5)
+        counts.append(n)
+        return sch.run(max_steps=5000)
+
+    je, te = _ssm_pair(family, max_slots=3)
+    jm_ = run(JScheduler, JSchedulerConfig, JOraclePRM, jtasks, je)
+    tm_ = run(Scheduler, SchedulerConfig, OraclePRM, tasks, te)
+    assert counts[1] == counts[0] and counts[1]["suspend"] > 0
+    assert _summary(tm_) == _summary(jm_)
+    assert tm_["completed_requests"] == 3
+    assert te.allocator.used_pages == 0
+
+
+@pytest.mark.parametrize("arch", ["ssm", "hybrid"])
+def test_run_serving_ssm_fallback_on_cpu(arch):
+    """``load_reasoner(arch=...)`` builds the reference's fallback trunk
+    of the family; the launcher's run serves every request with no fault
+    and returns every page."""
+    model, params, prm = load_reasoner(None, device="cpu", arch=arch)
+    assert model.cfg.arch_type == arch and model.cfg.name == \
+        f"untrained-{arch}"
+    out, engine = run_serving(
+        model, params, prm, policy="sart", n=4, num_requests=3, rate_gap=4,
+        prm_kind="oracle", window=8, max_tokens=32, max_slots=8, seed=0,
+        temperature=0.9)
+    assert out["completed_requests"] == 3
+    assert out["unfinished_requests"] == 0
+    assert out["faults"]["step_faults"] == 0
+    assert engine.allocator.used_pages == 0
+    assert engine.mixed_steps_executed > 0
