@@ -11,16 +11,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
   2. build   — nvcc builds the CUDA kernels from ``src/repro_torch/csrc``;
   3. kernels — K1 (paged flash-decode), K2 (paged flash-prefill), both
-               passes of K3 (tree decode) and K4 (the SSD chunked scan, y
-               and final state, with and without an initial state) against
-               their plain PyTorch versions on the card, bf16 and fp32, at
-               the serving shapes of r1-distill-14b and mamba2-130m, one
-               qwen2-0.5b and one hymba-1.5b shape, and the edge cases
-               (K3's topologies; K4's non-divisible S, masked dt and
-               all-invalid rows); then each timed with CUDA events (L2
-               flushed before every launch) beside its plain version, a
-               bound from bytes and operations, and one library call as a
-               yardstick where one exists (none for K4);
+               passes of K3 (tree decode), K4 (the SSD chunked scan, y
+               and final state, with and without an initial state) and K5
+               (the dense flash prefill) against their plain PyTorch
+               versions on the card, bf16 and fp32, at the serving shapes
+               of r1-distill-14b and mamba2-130m, one qwen2-0.5b and one
+               hymba-1.5b shape, head_dim 32 (the launcher's fallback
+               trunks) for K1-K3 and K5, and the edge cases (K3's
+               topologies; K4's non-divisible S, masked dt and all-invalid
+               rows; K5's non-divisible S, non-causal, GQA groups 1 and 8,
+               true_len); then each timed with CUDA events (L2 flushed
+               before every launch) beside its plain version, a bound from
+               bytes and operations, and one library call as a yardstick
+               where one exists (none for K4); K5 at S = 272 and 4096;
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -28,7 +31,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                decode on (a warm request sharing the cold one's header);
                ssm and hybrid (K4 in the chunk lanes), the hybrid again
                with the cache and tree on, its warm request seeded from a
-               page-aligned SSM boundary snapshot;
+               page-aligned SSM boundary snapshot; dense, ssm and hybrid
+               with ``chunked_prefill=False`` (K5 in every exact
+               admission); ``Model.prefill`` + ``decode_step`` (dense and
+               sliding-window); the launcher's dense and hybrid fallback
+               trunks (head_dim 32) serving on the card;
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
@@ -38,7 +45,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``prefix_cache=True, decode_kernel="tree"``: 4 requests whose
                prompts share a 256-token few-shot header. The cache must
                hit, K3 must carry every decode row and K1 must not launch;
-  7. ssm     — mamba2-130m at full width and depth (24 layers, d_model
+  7. exact   — the same model and weights, phase 6's traffic with
+               ``chunked_prefill=False`` (cache off, per-branch decode):
+               every admission is one exact-length pass, K5 48 times; K5
+               must launch 192 times, K2 never, K1 on every step; then
+               ``Model.prefill`` of a 4,096-token prompt (48 K5 launches)
+               and 8 ``decode_step``s over its dense cache, and exact
+               against chunked first-token logits of one prompt (printed);
+  8. ssm     — mamba2-130m at full width and depth (24 layers, d_model
                768, 24 SSD heads, state 128, bf16, random weights from a
                seed) through ``run_serving``: 4 requests, n=8. K4 must
                launch once per layer per mixed step, K1-K3 never; every
@@ -264,12 +278,16 @@ def phase_kernels(torch):
               pool_pages=4097)
     qw = dict(q_heads=14, kv_heads=2, hd=64, ps=16, width=32,
               pool_pages=4097)
+    # the serve launcher's untrained fallback trunks: 4/2 heads of 32
+    t32 = dict(q_heads=4, kv_heads=2, hd=32, ps=16, width=32,
+               pool_pages=4097)
     errs = {"paged_decode": [], "paged_prefill": []}
 
     ragged = [0, 512, 1, 15, 16, 17, 33, 100, 255, 256, 257, 300, 400, 450,
               500, 511]
     for shape_name, shape, lengths in (("r1", r1, ragged),
-                                       ("qwen2", qw, ragged)):
+                                       ("qwen2", qw, ragged),
+                                       ("hd32", t32, ragged)):
         for dn, dt in dtypes.items():
             args = k1_inputs(torch, gen, dev, lengths=lengths, dtype=dt,
                              **shape)
@@ -281,7 +299,9 @@ def phase_kernels(torch):
                 torch, f"K1 {shape_name} {dn} B={len(lengths)}", out, ref,
                 dn))
     k2_cases = [(r1, t, pos0, valid) for t in (32, 64) for pos0 in (0, 37, 448)
-                for valid in (t - 5, 1)] + [(qw, 64, 37, 60)]
+                for valid in (t - 5, 1)] + [(qw, 64, 37, 60),
+                                            (t32, 64, 37, 60),
+                                            (t32, 32, 0, 17)]
     for shape, t, pos0, valid in k2_cases:
         for dn, dt in dtypes.items():
             args = k2_inputs(torch, gen, dev, t=t, pos0=pos0, valid_len=valid,
@@ -375,6 +395,7 @@ def phase_tree_kernels(torch):
     r1 = dict(q_heads=40, kv_heads=8, hd=128, ps=16, width=32,
               pool_pages=4097)
     qw = dict(r1, q_heads=14, kv_heads=2, hd=64)
+    t32 = dict(r1, q_heads=4, kv_heads=2, hd=32)
     errs = {"paged_tree_shared": [], "paged_tree_branch": []}
 
     def serve_topology():
@@ -389,7 +410,10 @@ def phase_tree_kernels(torch):
              ("r1 edges", r1, [(4, [4 * 16 + 5, 2 * 16 + 3, 0, 4 * 16]),
                                (2, [2 * 16 + 9])], [37, 0, 1]),
              ("qwen2 edges", qw, [(3, [3 * 16 + 1, 16 + 7]), (1, [20])],
-              [0, 300])]
+              [0, 300]),
+             ("hd32 serve", t32, *serve_topology()),
+             ("hd32 edges", t32, [(2, [2 * 16 + 3, 0, 5 * 16]), (1, [16])],
+              [9, 0])]
     for name, shape, groups, singles in cases:
         for dn, dt in dtypes.items():
             args = k3_inputs(torch, gen, dev, groups=groups, singles=singles,
@@ -527,7 +551,7 @@ def phase_ssd_kernels(torch):
     Q·N = 16,384 products in another order; bf16 to 2e-2, the rounding of
     K4's bf16 outputs. The plain version run in bf16 (rounding gate and
     chunk states as the reference does) is printed beside, ungated.
-    Returns the results for the JSON line, timed at phase 7's lane
+    Returns the results for the JSON line, timed at phase 8's lane
     shape."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
@@ -553,7 +577,7 @@ def phase_ssd_kernels(torch):
         return ssd_chunked(x.float(), dt, a, b.float(), c.float(), chunk,
                            init.float() if init is not None else None, valid)
 
-    # (name, batch, S, H, P, N, chunk): phase 7's lanes (mamba2-130m, S in
+    # (name, batch, S, H, P, N, chunk): phase 8's lanes (mamba2-130m, S in
     # a 32- or 64-row bucket under chunk 128), a hymba-1.5b-width lane
     # (50 heads of 64, N=16), the reference kernel tests' shapes
     cases = [("mamba2 1 lane", 1, 64, 24, 64, 128, 128),
@@ -620,7 +644,7 @@ def phase_ssd_kernels(torch):
     compare("K4 lane 3 of 4 vs alone bf16 final state", fin[2:3], fin1,
             "bf16", exact=True)
 
-    # timing at phase 7's lane shape: one lane of a 32-row bucket (an
+    # timing at phase 8's lane shape: one lane of a 32-row bucket (an
     # 11-17-token prompt), mamba2-130m's widths, a zero start, bf16
     b, s, h, p, n, q = 1, 32, 24, 64, 128, 128
     x, dt, a, bb, cc, _ = ssd_inputs(torch, gen, dev, b=b, s=s, h=h, p=p,
@@ -643,6 +667,88 @@ def phase_ssd_kernels(torch):
         "shape": f"B=1 S={s} (17 valid) H={h} P={p} N={n} chunk {q} bf16",
     }
     return {"ssd_scan": errs}, {"ssd_scan": timing}
+
+
+def flash_flops(seqlen: int, heads: int, head_dim: int, causal: bool,
+                true_len=None) -> int:
+    """Operations K5 needs: 4 hd per (query row, visible key) pair and
+    head (Q·Kᵀ and P·V, 2 per multiply-add), over the rows before
+    ``true_len``: S(S+1)/2 pairs causal, S·S not."""
+    n = seqlen if true_len is None else true_len
+    pairs = n * (n + 1) // 2 if causal else n * n
+    return 4 * head_dim * heads * pairs
+
+
+def phase_flash_kernels(torch):
+    """Hold K5 (the dense flash prefill) against its plain version on the
+    same inputs, bf16 and fp32: r1-distill-14b's exact-prefill shape at S
+    = 272 and 4096, a qwen2-0.5b shape (14/2 heads of 64), head_dim 32,
+    GQA groups 1 and 8, non-divisible S, non-causal, and ``true_len``
+    (rows past it bit-exact zeros; K and V past it NaN, which must not
+    change one bit of the output). Then time it at S = 272 and 4096 beside
+    its plain version and ``scaled_dot_product_attention`` (a yardstick
+    the port never calls). Returns (errors, timings, the S = 4096
+    timing)."""
+    from repro_torch.kernels.flash_prefill.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(5)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    errs = []
+
+    def inputs(b, s, h, kv, hd, dtype):
+        return [torch.randn((b, s, n, hd), generator=gen, device=dev).to(dtype)
+                for n in (h, kv, kv)]
+
+    # (name, B, S, H, Hkv, hd, causal, true_len)
+    cases = [("r1 S=272", 1, 272, 40, 8, 128, True, None),
+             ("r1 S=4096", 1, 4096, 40, 8, 128, True, None),
+             ("qwen2 S=272", 1, 272, 14, 2, 64, True, None),
+             ("hd32 S=100", 2, 100, 4, 2, 32, True, None),
+             ("group1 S=37", 2, 37, 4, 4, 64, True, None),
+             ("group8 S=130", 1, 130, 64, 8, 128, True, None),
+             ("r1 non-causal S=272", 1, 272, 40, 8, 128, False, None),
+             ("hd32 non-causal S=37", 2, 37, 4, 2, 32, False, None),
+             ("r1 true_len=200 S=272", 1, 272, 40, 8, 128, True, 200),
+             ("non-causal true_len=13 S=48", 2, 48, 6, 3, 64, False, 13)]
+    for name, b, s, h, kv, hd, causal, tl in cases:
+        for dn, dt in dtypes.items():
+            q, k, v = inputs(b, s, h, kv, hd, dt)
+            out = flash_prefill(q, k, v, causal, tl)
+            ref = flash_prefill_ref(q, k, v, causal, tl)
+            torch.cuda.synchronize()
+            errs.append(_compare(torch, f"K5 {name} {dn}", out, ref, dn))
+            if tl is not None:
+                check(bool((out[:, tl:] == 0).all()),
+                      "K5 rows past true_len are not exact zeros")
+                kp, vp = k.clone(), v.clone()
+                kp[:, tl:] = float("nan")
+                vp[:, tl:] = float("nan")
+                check(torch.equal(flash_prefill(q, kp, vp, causal, tl), out),
+                      "K5 read K/V past true_len")
+            del q, k, v, out, ref
+
+    timing = {}
+    for s in (272, 4096):
+        h, kv, hd = 40, 8, 128
+        q, k, v = inputs(1, s, h, kv, hd, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, hd]
+        timing[s] = {
+            "ms": time_ms(torch, lambda: flash_prefill(q, k, v)),
+            "plain_ms": time_ms(torch, lambda: flash_prefill_ref(q, k, v),
+                                n=10 if s > 1024 else 50),
+            "library_ms": time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+            # q, k, v in once, o out once
+            "bytes": 2 * (2 * h + 2 * kv) * s * hd,
+            "ops": flash_flops(s, h, hd, True),
+            "shape": f"B=1 S={s} H=40 kv=8 hd=128 causal bf16",
+        }
+        del q, k, v, qt, kt, vt
+    return {"flash_prefill": errs}, {"flash_prefill": timing[272]}, \
+        timing[4096]
 
 
 def _parity_scenario(torch, eng, vocab: int):
@@ -713,14 +819,16 @@ def phase_parity(torch):
     with the cache (the warm request seeded from a page-aligned boundary
     snapshot) and the tree on, K1-K4 in one engine."""
     from repro_torch.configs import smoke
+    from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import tree_decode
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models import Model
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
     cache_tree = {"prefix_cache": True, "decode_kernel": "tree"}
-    for cfg, extras in ((smoke("r1-distill-14b"), ({}, cache_tree)),
-                        (_tiny_family("ssm"), ({},)),
-                        (_tiny_family("hybrid"), ({}, cache_tree))):
+    exact = {"chunked_prefill": False}
+    for cfg, extras in ((smoke("r1-distill-14b"), ({}, cache_tree, exact)),
+                        (_tiny_family("ssm"), ({}, exact)),
+                        (_tiny_family("hybrid"), ({}, cache_tree, exact))):
         cpu_model = Model(cfg, device="cpu")
         params = cpu_model.init_params(torch.Generator().manual_seed(0))
         gpu_model = Model(cfg, device=DEVICE)
@@ -736,6 +844,7 @@ def phase_parity(torch):
                 eng = Engine(model, p, ecfg)
                 tree_decode.branch_launches = 0
                 ssd_scan.launches = 0
+                flash_prefill.launches = 0
                 runs.append(_parity_scenario(torch, eng, cfg.vocab_size))
                 stats = eng.prefix_cache_stats()
             (t_cpu, l_cpu, h_cpu, c_cpu, s_cpu), \
@@ -751,17 +860,90 @@ def phase_parity(torch):
                   f"max abs err of prefill logits / hidden"
                   f"{' / (conv, ssd) state' if s_cpu else ''} {err:.3e} "
                   f"(atol 1e-4); warm request cached tokens {c_gpu}; K4 "
-                  f"launches {ssd_scan.launches}; {'ok' if ok else 'FAIL'}")
+                  f"launches {ssd_scan.launches}; K5 launches "
+                  f"{flash_prefill.launches}; {'ok' if ok else 'FAIL'}")
             check(ok, f"engine on the card disagrees with the CPU engine "
                       f"({name})")
             if cfg.uses_ssm:
                 check(ssd_scan.launches > 0,
                       f"the {name} parity run never launched K4")
-            if extra:
+            if extra is cache_tree:
                 check(c_gpu > 0 and stats["hit_tokens"] > 0,
                       "the warm request missed the prefix cache")
                 check(tree_decode.branch_launches > 0,
                       "the tree parity run never launched K3")
+            if extra is exact:
+                # two exact admissions, one K5 launch per attention layer
+                check(flash_prefill.launches == 2 * cfg.num_layers
+                      if cfg.uses_attention else flash_prefill.launches == 0,
+                      f"the exact parity run launched K5 "
+                      f"{flash_prefill.launches} times")
+    _model_parity(torch)
+    _fallback_trunks(torch)
+
+
+def _model_parity(torch):
+    """``Model.prefill`` + ``decode_step`` over the dense cache on the card
+    against the CPU, fp32, greedy: r1-distill-14b's smoke widths (K5 in
+    every layer of the prefill) and the same with an 8-token sliding
+    window (a ring cache, the ported ``_attend``), a 20-token prompt and
+    8 steps."""
+    from repro_torch.configs import smoke
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.models import Model
+    base = smoke("r1-distill-14b")
+    prompt = [int(x) for x in (np.arange(20) * 7 + 3) % base.vocab_size]
+    for name, cfg in (("dense", base),
+                      ("swa", base.replace(sliding_window=8))):
+        runs = []
+        for dev in ("cpu", DEVICE):
+            model = Model(cfg, device=dev)
+            params = model.init_params(torch.Generator().manual_seed(0)) \
+                if dev == "cpu" else _to(runs[0][2], dev)
+            model.load_params(params)
+            flash_prefill.launches = 0
+            lg, cache = model.prefill(
+                params, tokens=torch.tensor([prompt], device=dev),
+                max_len=len(prompt) + 8)
+            first, toks, pos = lg.float().cpu(), [], len(prompt)
+            cur = int(torch.argmax(lg[0]))
+            for _ in range(8):
+                toks.append(cur)
+                lg, cache, _ = model.decode_step(
+                    params, torch.tensor([cur], device=dev), cache,
+                    torch.tensor([pos], device=dev))
+                cur, pos = int(torch.argmax(lg[0])), pos + 1
+            runs.append((toks, first, params, flash_prefill.launches))
+        (t_cpu, l_cpu, _, _), (t_gpu, l_gpu, _, k5) = runs
+        err = float((l_cpu - l_gpu).abs().max())
+        want_k5 = 0 if cfg.sliding_window else cfg.num_layers
+        ok = t_cpu == t_gpu and err <= 1e-4 and k5 == want_k5
+        print(f"[parity] Model {name}: greedy tokens equal: "
+              f"{t_cpu == t_gpu}; max abs err of prefill logits {err:.3e} "
+              f"(atol 1e-4); K5 launches {k5}; {'ok' if ok else 'FAIL'}")
+        check(ok, f"Model.prefill/decode_step on the card disagree with "
+                  f"the CPU ({name})")
+
+
+def _fallback_trunks(torch):
+    """The serve launcher's untrained dense and hybrid fallback trunks
+    (32-wide attention heads, K1/K2 at head_dim 32) serve on the card."""
+    from repro_torch.launch.serve import load_reasoner, run_serving
+    for arch in ("dense", "hybrid"):
+        model, params, prm = load_reasoner(None, device=DEVICE, arch=arch)
+        out, engine = run_serving(
+            model, params, prm, policy="sart", n=4, num_requests=3,
+            rate_gap=4, prm_kind="oracle", window=8, max_tokens=32,
+            max_slots=8, seed=0, temperature=0.9)
+        ok = (out["completed_requests"] == 3
+              and out["faults"]["step_faults"] == 0
+              and engine.allocator.used_pages == 0)
+        print(f"[parity] serve fallback --arch {arch} (head_dim "
+              f"{model.cfg.resolved_head_dim}) on the card: "
+              f"{out['completed_requests']}/3 requests, "
+              f"{engine.decode_steps_executed} steps; "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"the {arch} fallback trunk failed to serve on the card")
 
 
 def _to(tree, dev):
@@ -866,7 +1048,7 @@ def _serve_shared_header(torch, model, params, decode_kernel: str):
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 1e9
     seed = 0
-    header = few_shot_header(256, seed=seed + 3)
+    prompts, probs = _shared_header_prompts(seed)
     torch.cuda.reset_peak_memory_stats()
     engine = Engine(model, params, EngineConfig(
         page_size=16, num_pages=4096, max_slots=16, max_pages_per_branch=32,
@@ -876,11 +1058,8 @@ def _serve_shared_header(torch, model, params, decode_kernel: str):
     sch = Scheduler(engine, prm, SchedulerConfig(policy="sart", n=8,
                                                  window=8, max_tokens=96),
                     answer_fn=tasks.extract_answer)
-    rng = np.random.default_rng(seed + 2)
-    for i in range(4):
-        prob = tasks.gen_problem(rng)
-        sch.submit(header + prob.prompt_tokens(), payload=prob,
-                   arrival=i * 8)
+    for i, (prompt, prob) in enumerate(zip(prompts, probs)):
+        sch.submit(prompt, payload=prob, arrival=i * 8)
 
     paged_attention.launches = 0
     paged_prefill.launches = 0
@@ -949,11 +1128,179 @@ def phase_tree_serve(torch, model, params):
     print(f"[serve-tree] step p50 tree {line['step_ms_p50']} ms vs paged "
           f"{paged['step_ms_p50']} ms on the same traffic "
           f"({line['step_ms_p50'] / paged['step_ms_p50'] - 1:+.1%})")
-    return launches
+    return launches, paged["step_ms_p50"]
+
+
+def _shared_header_prompts(seed: int = 0):
+    """Phase 6's 4 prompts: the 256-token few-shot header, then each
+    request's own problem (267-273 tokens in all), with the problems."""
+    from repro_torch.data import tasks
+    header = few_shot_header(256, seed=seed + 3)
+    rng = np.random.default_rng(seed + 2)
+    probs = [tasks.gen_problem(rng) for _ in range(4)]
+    return [header + p.prompt_tokens() for p in probs], probs
+
+
+def phase_exact_serve(torch, model, params, paged_p50: float):
+    """Phase 7: phase 6's traffic (4 requests every 8 steps, 256-token
+    shared header + problem) on the same weights with
+    ``chunked_prefill=False``: the cache off, per-branch decode, phase 5's
+    config otherwise. Every admission is one synchronous exact-length pass
+    (K5 in each of the 48 layers), every decode row K1, no chunk lane (K2
+    0). Then ``Model.prefill`` of one seeded 4,096-token prompt (K5 48
+    times) and 8 ``decode_step``s over its dense cache, and the first
+    token's logits of one prompt by exact against chunked admission
+    (printed, not gated in bf16). Returns the K5 launches of the serve."""
+    from repro_torch.core import OraclePRM, Scheduler, SchedulerConfig
+    from repro_torch.core.scheduler import percentile_latency
+    from repro_torch.data import tasks
+    from repro_torch.data import tokenizer as tk
+    from repro_torch.kernels.flash_prefill import flash_prefill, paged_prefill
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     tree_decode)
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    gc.collect()                 # phase 6's engines and their KV pools
+    torch.cuda.empty_cache()
+    L = model.cfg.num_layers
+    seed = 0
+    prompts, probs = _shared_header_prompts(seed)
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, params, EngineConfig(
+        page_size=16, num_pages=4096, max_slots=16, max_pages_per_branch=32,
+        eos_id=tk.EOS, sampling=SamplingParams(temperature=0.9, top_p=0.95),
+        seed=seed, chunked_prefill=False))
+    prefill_s = []
+    begin = engine.begin_prefill
+
+    def timed_begin(prompt):     # the synchronous admission, device-synced
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = begin(prompt)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        return st
+    engine.begin_prefill = timed_begin
+    prm = OraclePRM(tasks.oracle_grader, noise=0.05, seed=seed + 1)
+    sch = Scheduler(engine, prm, SchedulerConfig(policy="sart", n=8,
+                                                 window=8, max_tokens=96),
+                    answer_fn=tasks.extract_answer)
+    for i, (prompt, prob) in enumerate(zip(prompts, probs)):
+        sch.submit(prompt, payload=prob, arrival=i * 8)
+
+    paged_attention.launches = 0
+    paged_prefill.launches = 0
+    tree_decode.shared_launches = tree_decode.branch_launches = 0
+    flash_prefill.launches = 0
+    t0 = time.perf_counter()
+    metrics = sch.run(max_steps=2_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": paged_attention.launches,
+                "paged_prefill": paged_prefill.launches,
+                "paged_tree_shared": tree_decode.shared_launches,
+                "paged_tree_branch": tree_decode.branch_launches,
+                "flash_prefill": flash_prefill.launches}
+    steps = sorted(engine.step_seconds)
+    faults = metrics["faults"]
+    line = {
+        "completed_requests": metrics["completed_requests"],
+        "unfinished_requests": metrics["unfinished_requests"],
+        "prompt_tokens": [len(p) for p in prompts],
+        "decode_steps": engine.decode_steps_executed,
+        "mixed_steps": engine.mixed_steps_executed,
+        "exact_prefills": engine.exact_prefills,
+        "clock": metrics["clock"],
+        "wall_s": round(wall, 3),
+        "generated_tokens": engine.tokens_generated,
+        "tokens_per_s": round(engine.tokens_generated / wall, 2),
+        "step_ms_p50": round(steps[len(steps) // 2] * 1e3, 3),
+        "step_ms_mean": round(sum(steps) / len(steps) * 1e3, 3),
+        "paged_step_ms_p50_phase6": paged_p50,
+        "prefill_ms": [round(t * 1e3, 3) for t in prefill_s],
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        "launches": launches,
+        "e2e_p50_steps": percentile_latency(metrics, 50),
+        "ttfb50_steps": percentile_latency(metrics, 50, "ttfb"),
+        "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
+                                          "quarantined")},
+        "used_pages": engine.allocator.used_pages,
+    }
+    check(metrics["completed_requests"] == 4
+          and metrics["unfinished_requests"] == 0,
+          "not every request completed")
+    check(faults["step_faults"] == faults["engine_restarts"]
+          == faults["quarantined"] == 0, f"faults in the run: {faults}")
+    check(engine.allocator.used_pages == 0, "pages leaked after serving")
+    check(bool(torch.isfinite(engine._last_hidden.float()).all()),
+          "non-finite hidden state")
+    check(launches["flash_prefill"] == L * 4 and launches["paged_prefill"]
+          == 0 and launches["paged_decode"] > 0
+          and engine.mixed_steps_executed == 0,
+          f"the exact path's kernels: {launches}")
+    del engine, sch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # exact against chunked admission of the first prompt: first-token
+    # logits (bf16, different kernels and sums: printed, not gated)
+    small = dict(page_size=16, num_pages=64, max_slots=2,
+                 max_pages_per_branch=32,
+                 sampling=SamplingParams(temperature=0.0))
+    logits = []
+    for chunked in (False, True):
+        eng = Engine(model, params, EngineConfig(chunked_prefill=chunked,
+                                                 **small))
+        blocks, lg, _ = eng.prefill(prompts[0])
+        logits.append(lg.float())
+        eng.release_prefix(blocks)
+        del eng
+    line["exact_vs_chunked_logits_max_abs"] = float(
+        (logits[0] - logits[1]).abs().max())
+    line["exact_vs_chunked_argmax_equal"] = bool(
+        int(logits[0].argmax()) == int(logits[1].argmax()))
+
+    # Model.prefill of a 4,096-token prompt, then 8 decode steps
+    gen = torch.Generator().manual_seed(seed + 5)
+    toks = torch.randint(2, model.cfg.vocab_size, (1, 4096), generator=gen)
+    toks = toks.to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    flash_prefill.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(params, tokens=toks, max_len=4104)
+    torch.cuda.synchronize()
+    prefill_4096 = time.perf_counter() - t0
+    k5_4096 = flash_prefill.launches
+    finite = bool(torch.isfinite(lg.float()).all())
+    cur, dec = lg.argmax(-1), []
+    for pos in range(4096, 4104):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache, _ = model.decode_step(
+            params, cur, cache, torch.tensor([pos], device=DEVICE))
+        cur = lg.argmax(-1)
+        torch.cuda.synchronize()
+        dec.append(time.perf_counter() - t0)
+        finite &= bool(torch.isfinite(lg.float()).all())
+    line["model_prefill_4096"] = {
+        "prefill_ms": round(prefill_4096 * 1e3, 3),
+        "decode_step_ms_p50": round(sorted(dec)[len(dec) // 2] * 1e3, 3),
+        "k5_launches": k5_4096,
+        "cache_gb": round(sum(t.numel() * t.element_size()
+                              for t in cache.values()) / 1e9, 3),
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2)}
+    print("[serve-exact] " + json.dumps(line))
+    print(f"[serve-exact] step p50 exact {line['step_ms_p50']} ms vs phase "
+          f"6 paged {paged_p50} ms "
+          f"({line['step_ms_p50'] / paged_p50 - 1:+.1%})")
+    check(k5_4096 == L, f"Model.prefill launched K5 {k5_4096} times")
+    check(finite, "non-finite logits from Model.prefill/decode_step")
+    del cache, lg
+    return launches["flash_prefill"]
 
 
 def phase_ssm_serve(torch):
-    """Phase 7: mamba2-130m at full width and depth (24 layers, d_model
+    """Phase 8: mamba2-130m at full width and depth (24 layers, d_model
     768, 24 SSD heads of 64, state 128, chunk 128, vocab 50280), bf16,
     random weights from a seed, behind the SART scheduler through
     ``run_serving`` (4 requests, n=8). Every chunk lane's scan is K4, one
@@ -1066,7 +1413,7 @@ def _step_stats(engine, wall: float) -> dict:
 
 def phase_profile(torch, out_dir: Path) -> None:
     """The serve phases' traffic (4 requests, n=8, 96 tokens) on
-    r1-distill-14b (phase 5) and on mamba2-130m (phase 7), each served
+    r1-distill-14b (phase 5) and on mamba2-130m (phase 8), each served
     twice: once plain, for step times, then under torch.profiler tracing
     device activity only (no host ops, so the trace adds little to the
     host side), for device time by kernel and the device's busy share of
@@ -1149,15 +1496,21 @@ def main() -> int:
     ssd_errs, ssd_timing = phase_ssd_kernels(torch)
     errs.update(ssd_errs)
     timing.update(ssd_timing)
+    flash_errs, flash_timing, flash_4096 = phase_flash_kernels(torch)
+    errs.update(flash_errs)
+    timing.update(flash_timing)
+    print("[kernels] K5 at S=4096: " + json.dumps(flash_4096))
     if args.skip_serve:
         print(json.dumps(timing))
         return 0
     phase_parity(torch)
     model, params, launches = phase_serve(torch)
-    # K1 and K2 count phase 5's run, the K3 passes phase 6's
-    tree_run = phase_tree_serve(torch, model, params)
+    # K1 and K2 count phase 5's run, the K3 passes phase 6's, K5 phase 7's
+    tree_run, paged_p50 = phase_tree_serve(torch, model, params)
     for name in ("paged_tree_shared", "paged_tree_branch"):
         launches[name] = tree_run[name]
+    launches["flash_prefill"] = phase_exact_serve(torch, model, params,
+                                                  paged_p50)
     del model, params
     launches["ssd_scan"] = phase_ssm_serve(torch)["ssd_scan"]
 
@@ -1182,6 +1535,13 @@ def main() -> int:
                      "atol=rtol=2e-2 bf16, 1e-4 fp32 (against the plain "
                      "version in fp32); all-invalid rows bit-exact",
                      "none: no single PyTorch call computes the SSD scan"),
+        "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                          "src/repro/kernels/flash_prefill/"
+                          "flash_prefill.py:144", attn_tol + "; rows past "
+                          "true_len bit-exact zeros",
+                          "scaled_dot_product_attention(is_causal=True, "
+                          "enable_gqa=True) on the same q, k, v (a "
+                          "yardstick; the port never calls it)"),
     }
     kernels = []
     for name, (source, replaces, tol, library) in meta.items():

@@ -24,6 +24,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace paged {
 
 constexpr int kThreads = 128;       // one CTA is four warps
@@ -154,6 +156,25 @@ __device__ __forceinline__ void stream_pages(
     }
   }
   __syncthreads();  // l is final before any thread reads another row's
+}
+
+// Calls f(T{}, std::integral_constant<int, HD>{}) for the storage type
+// (dtype 0 = fp32, 1 = bf16) and head_dim (32, 64 or 128) the paged kernels
+// are built for; returns false for any other.
+template <typename F>
+static bool dispatch(int dtype, int head_dim, F&& f) {
+  using bf16 = __nv_bfloat16;
+  using hd128 = std::integral_constant<int, 128>;
+  using hd64 = std::integral_constant<int, 64>;
+  using hd32 = std::integral_constant<int, 32>;
+  if (dtype == 1 && head_dim == 128) f(bf16{}, hd128{});
+  else if (dtype == 1 && head_dim == 64) f(bf16{}, hd64{});
+  else if (dtype == 1 && head_dim == 32) f(bf16{}, hd32{});
+  else if (dtype == 0 && head_dim == 128) f(float{}, hd128{});
+  else if (dtype == 0 && head_dim == 64) f(float{}, hd64{});
+  else if (dtype == 0 && head_dim == 32) f(float{}, hd32{});
+  else return false;
+  return true;
 }
 
 }  // namespace paged

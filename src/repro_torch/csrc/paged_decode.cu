@@ -57,18 +57,6 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   }
 }
 
-template <typename T, int HD>
-static void launch(const void* q, const void* k, const void* v,
-                   const void* bt, const void* lens, void* out, int batch,
-                   int q_heads, int kv_heads, int num_pages, int page_size,
-                   int pages_per_seq, float scale, cudaStream_t stream) {
-  dim3 grid(batch, kv_heads);
-  paged_decode_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)bt,
-      (const int*)lens, (T*)out, q_heads, kv_heads, num_pages, page_size,
-      pages_per_seq, scale);
-}
-
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = fp32,
 // 1 = bf16. The caller has checked shapes, dtypes and contiguity.
 extern "C" int paged_decode_launch(int dtype, int head_dim, const void* q,
@@ -80,23 +68,15 @@ extern "C" int paged_decode_launch(int dtype, int head_dim, const void* q,
                                    float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (q_heads / kv_heads > kMaxRows) return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 128)
-    launch<__nv_bfloat16, 128>(q, k_pages, v_pages, block_tables, lengths,
-                               out, batch, q_heads, kv_heads, num_pages,
-                               page_size, pages_per_seq, scale, s);
-  else if (dtype == 1 && head_dim == 64)
-    launch<__nv_bfloat16, 64>(q, k_pages, v_pages, block_tables, lengths,
-                              out, batch, q_heads, kv_heads, num_pages,
-                              page_size, pages_per_seq, scale, s);
-  else if (dtype == 0 && head_dim == 128)
-    launch<float, 128>(q, k_pages, v_pages, block_tables, lengths, out,
-                       batch, q_heads, kv_heads, num_pages, page_size,
-                       pages_per_seq, scale, s);
-  else if (dtype == 0 && head_dim == 64)
-    launch<float, 64>(q, k_pages, v_pages, block_tables, lengths, out, batch,
-                      q_heads, kv_heads, num_pages, page_size, pages_per_seq,
-                      scale, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  const dim3 grid(batch, kv_heads);
+  const bool ok = dispatch(dtype, head_dim, [&](auto t, auto hd) {
+    using T = decltype(t);
+    constexpr int HD = decltype(hd)::value;
+    paged_decode_kernel<T, HD><<<grid, kThreads, 0, s>>>(
+        (const T*)q, (const T*)k_pages, (const T*)v_pages,
+        (const int*)block_tables, (const int*)lengths, (T*)out, q_heads,
+        kv_heads, num_pages, page_size, pages_per_seq, scale);
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -76,19 +76,6 @@ __global__ void __launch_bounds__(kThreads) paged_prefill_kernel(
   }
 }
 
-template <typename T, int HD>
-static void launch(const void* q, const void* k, const void* v,
-                   const void* bt, void* out, int t_rows, int q_heads,
-                   int kv_heads, int num_pages, int page_size,
-                   int pages_per_seq, int pos0, int valid_len, int block_q,
-                   float scale, cudaStream_t stream) {
-  dim3 grid((t_rows + block_q - 1) / block_q, kv_heads);
-  paged_prefill_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)bt, (T*)out, t_rows,
-      q_heads, kv_heads, num_pages, page_size, pages_per_seq, pos0,
-      valid_len, block_q, scale);
-}
-
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = fp32,
 // 1 = bf16. block_q * (q_heads / kv_heads) must not exceed 32.
 extern "C" int paged_prefill_launch(int dtype, int head_dim, const void* q,
@@ -102,25 +89,16 @@ extern "C" int paged_prefill_launch(int dtype, int head_dim, const void* q,
   cudaStream_t s = (cudaStream_t)stream;
   if (block_q < 1 || block_q * (q_heads / kv_heads) > kMaxRows)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && head_dim == 128)
-    launch<__nv_bfloat16, 128>(q, k_pages, v_pages, block_table, out, t_rows,
-                               q_heads, kv_heads, num_pages, page_size,
-                               pages_per_seq, pos0, valid_len, block_q,
-                               scale, s);
-  else if (dtype == 1 && head_dim == 64)
-    launch<__nv_bfloat16, 64>(q, k_pages, v_pages, block_table, out, t_rows,
-                              q_heads, kv_heads, num_pages, page_size,
-                              pages_per_seq, pos0, valid_len, block_q, scale,
-                              s);
-  else if (dtype == 0 && head_dim == 128)
-    launch<float, 128>(q, k_pages, v_pages, block_table, out, t_rows,
-                       q_heads, kv_heads, num_pages, page_size,
-                       pages_per_seq, pos0, valid_len, block_q, scale, s);
-  else if (dtype == 0 && head_dim == 64)
-    launch<float, 64>(q, k_pages, v_pages, block_table, out, t_rows, q_heads,
-                      kv_heads, num_pages, page_size, pages_per_seq, pos0,
-                      valid_len, block_q, scale, s);
-  else
-    return (int)cudaErrorInvalidValue;
+  const dim3 grid((t_rows + block_q - 1) / block_q, kv_heads);
+  const bool ok = dispatch(dtype, head_dim, [&](auto t, auto hd) {
+    using T = decltype(t);
+    constexpr int HD = decltype(hd)::value;
+    paged_prefill_kernel<T, HD><<<grid, kThreads, 0, s>>>(
+        (const T*)q, (const T*)k_pages, (const T*)v_pages,
+        (const int*)block_table, (T*)out, t_rows, q_heads, kv_heads,
+        num_pages, page_size, pages_per_seq, pos0, valid_len, block_q,
+        scale);
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -40,8 +40,6 @@
 //     empty partials at exp(0) * 0 = 0, never inf - inf.
 // Table entries are clamped into the pool and loops stop at lengths (see
 // paged_common.cuh), so NaN in a stale page cannot reach a sum.
-#include <type_traits>
-
 #include "paged_common.cuh"
 
 using namespace paged;
@@ -175,21 +173,6 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
       store(out + q_row + (size_t)r * HD + d, o / fmaxf(l, 1e-30f));
     }
   }
-}
-
-// Calls f(T{}, std::integral_constant<int, HD>{}) for the storage type
-// and head_dim the kernels are built for; false for any other.
-template <typename F>
-static bool dispatch(int dtype, int head_dim, F&& f) {
-  using bf16 = __nv_bfloat16;
-  using hd128 = std::integral_constant<int, 128>;
-  using hd64 = std::integral_constant<int, 64>;
-  if (dtype == 1 && head_dim == 128) f(bf16{}, hd128{});
-  else if (dtype == 1 && head_dim == 64) f(bf16{}, hd64{});
-  else if (dtype == 0 && head_dim == 128) f(float{}, hd128{});
-  else if (dtype == 0 && head_dim == 64) f(float{}, hd64{});
-  else return false;
-  return true;
 }
 
 // Launchers: each returns the cudaError_t of its launch (0 on success).

@@ -7,7 +7,10 @@
 #                     csrc/paged_tree_decode.cu, wrapper tree_decode.py);
 #   flash_prefill   — the fused paged flash-prefill of a prefill chunk's
 #                     rows in the mixed decode+prefill step (K2,
-#                     csrc/paged_prefill.cu, wrapper paged_prefill.py);
+#                     csrc/paged_prefill.cu, wrapper paged_prefill.py)
+#                     and the dense flash prefill of a whole prompt on the
+#                     exact-length path and in Model.forward/prefill (K5,
+#                     csrc/flash_prefill.cu, wrapper flash_prefill.py);
 #   ssd_scan        — the Mamba-2 SSD chunked scan with state in and out of
 #                     the ssm/hybrid chunk lanes (K4, csrc/ssd_scan.cu,
 #                     wrapper ssd_scan.py; plain versions in ref.py).

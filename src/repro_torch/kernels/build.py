@@ -24,9 +24,13 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("paged_decode", "paged_prefill", "paged_tree_decode", "ssd_scan")
+SOURCES = ("paged_decode", "paged_prefill", "paged_tree_decode", "ssd_scan",
+           "flash_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the head widths every attention kernel (K1, K2, K3, K5) is built for
+HEAD_DIMS = (32, 64, 128)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 #: nvcc's report per source (ptxas registers, shared memory, spills)
@@ -112,7 +116,7 @@ def check_operands(kernel: str, *tensors) -> None:
 def check_paged_operands(kernel: str, q, k_pages, v_pages,
                          max_group: int) -> None:
     """q [..., H, hd] against K/V pools [kv, P, ps, hd] of q's dtype, with
-    head_dim 64 or 128 and at most ``max_group`` query heads per KV head
+    head_dim 32, 64 or 128 and at most ``max_group`` query heads per KV head
     (what the paged attention launchers are built for), or raise."""
     q_heads, head_dim = q.shape[-2:]
     kv_heads, hd = k_pages.shape[0], k_pages.shape[-1]
@@ -122,8 +126,8 @@ def check_paged_operands(kernel: str, q, k_pages, v_pages,
                          f"{tuple(q.shape)}")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"{kernel}: q and the pages must share a dtype")
-    if head_dim not in (64, 128):
-        raise ValueError(f"{kernel}: head_dim {head_dim} not in (64, 128)")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head_dim {head_dim} not in {HEAD_DIMS}")
     if q_heads % kv_heads or q_heads // kv_heads > max_group:
         raise ValueError(f"{kernel}: {q_heads} query heads over "
                          f"{kv_heads} KV heads")

@@ -1,1 +1,2 @@
-"""Paged flash-prefill (K2): ``ops.paged_flash_prefill`` dispatches."""
+"""Dense flash prefill (K5) and paged flash-prefill (K2); ``ops``
+dispatches."""

@@ -1,13 +1,28 @@
-"""Public paged flash-prefill (kernel K2): the CUDA kernel for CUDA
-tensors, the plain PyTorch version for CPU tensors."""
+"""Public dense flash prefill (kernel K5) and paged flash-prefill (kernel
+K2): the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
+tensors."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
+from .flash_prefill import flash_prefill
 from .paged_prefill import paged_flash_prefill_fwd
-from .ref import paged_flash_prefill_ref
+from .ref import flash_prefill_ref, paged_flash_prefill_ref
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    true_len: Optional[int] = None) -> torch.Tensor:
+    """Dense flash prefill attention, [B, S, H, hd] (see ``ref.py`` for
+    the contract): q [B, S, H, hd], k and v [B, S, Hkv, hd] with Hkv | H,
+    never pre-repeated. ``true_len`` is a host int or None. Dispatches on
+    the device of ``q``."""
+    if q.device.type == "cpu":
+        return flash_prefill_ref(q, k, v, causal, true_len)
+    return flash_prefill(q, k, v, causal, true_len)
 
 
 def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,

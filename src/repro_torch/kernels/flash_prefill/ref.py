@@ -1,14 +1,43 @@
-"""Plain PyTorch version of the paged flash-prefill (kernel K2).
+"""Plain PyTorch versions of the dense flash prefill (kernel K5) and the
+paged flash-prefill (kernel K2).
 
-Counterpart of ``repro.kernels.flash_prefill.ref.paged_flash_prefill_ref``.
-It is what the CPU runs and the yardstick the CUDA kernel is held to on
-the card.
+Counterparts of ``repro.kernels.flash_prefill.ref.flash_prefill_ref`` (with
+the ``true_len`` of the Pallas ``flash_prefill``) and
+``paged_flash_prefill_ref``. They are what the CPU runs and the yardsticks
+the CUDA kernels are held to on the card.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from ..paged_attention.ref import NEG_INF, gather_pages
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True,
+                      true_len: Optional[int] = None) -> torch.Tensor:
+    """q [B, S, H, hd]; k, v [B, S, Hkv, hd] with Hkv | H (GQA: each KV
+    head serves H / Hkv query heads). Full softmax attention in fp32,
+    causal on positions or not; with ``true_len`` (a host int, 0 <
+    true_len <= S) keys at or past it are never attended and rows at or
+    past it are exact zeros. Returns [B, S, H, hd] in q's dtype.
+    O(S^2) memory, correctness only."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    n = s if true_len is None else int(true_len)
+    qg = q.reshape(b, s, hkv, h // hkv, hd).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / (hd ** 0.5)
+    pos = torch.arange(s, device=q.device)
+    mask = (pos < n)[None, :].expand(s, s)               # [Sq, Sk]
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None])
+    scores = scores.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    out = out.masked_fill((pos >= n)[None, :, None, None, None], 0.0)
+    return out.reshape(b, s, h, hd).to(q.dtype)
 
 
 def paged_flash_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -11,11 +11,10 @@ the Algorithm-1 scheduler and prints accuracy and latency percentiles.
 The model build (``load_reasoner``) is separate from the run
 (``run_serving``: engine, scheduler, request loop), so a caller with its
 own model — ``chip_smoke.py`` serves r1-distill-14b and mamba2-130m —
-drives the same run. Runs on the CUDA card unless ``--device cpu``. The
-fallback trunks keep the reference's widths, whose 32-wide attention heads
-K1-K3 (head_dim 64 or 128) refuse: on the card only the ssm fallback runs;
-the dense and hybrid ones need ``--device cpu``. Fault plans are not ported
-yet.
+drives the same run. Runs on the CUDA card unless ``--device cpu``; the
+fallback trunks keep the reference's widths (32-wide attention heads,
+which K1-K3 take), so every ``--arch`` runs on the card as on the CPU.
+Fault plans are not ported yet.
 """
 from __future__ import annotations
 

@@ -7,26 +7,40 @@ key paths and layout: per-layer tensors are stacked along a leading
 Mamba2 mixer's ``a_log``/``dt_bias`` are fp32. ``Model`` holds them as
 non-trainable parameters under those paths (``weights.embed.lm_head``,
 ``weights.layers.attn.wq``, ``weights.layers.mamba.in_proj``, ...); the
-functional layer code and the engine take the nested dict itself. The
-serving engine loops over layers in Python where the reference scans.
-``forward``, ``prefill`` and ``decode_step`` over the dense cache are not
-ported yet.
+functional layer code and the engine take the nested dict itself.
+
+Entry points, as the reference's: ``forward`` (full-sequence logits),
+``prefill`` (the prompt, seeding the dense decode cache) and
+``decode_step`` (one token against it). A Python loop over the stacked
+layers takes the place of ``jax.lax.scan``. The cache (``init_cache``:
+``k``/``v`` ``[L, B, S_max, KV, hd]``, a ring buffer of the window with
+a sliding window; ``conv``/``ssd`` for ssm/hybrid) is written IN PLACE by
+``prefill`` and ``decode_step``, which return the same dict: at full
+width a second copy would cost as much memory as the cache itself. The
+full-sequence attention of ``forward`` and ``prefill`` is kernel K5 on the
+card where it applies (``attention.py``), the ssm mixer's scan kernel K4.
+Families: dense, swa, ssm and hybrid; MoE layers, M-RoPE and sinusoidal
+positions raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..device import resolve_device
-from .attention import init_attention
+from .attention import (attention_decode, attention_prefill, attention_train,
+                        init_attention)
 from .config import ModelConfig
-from .layers import init_embedding, init_mlp, init_norm
-from .mamba2 import init_mamba2
+from .layers import (apply_mlp, apply_norm, embed_tokens, init_embedding,
+                     init_mlp, init_norm, unembed)
+from .mamba2 import (init_mamba2, init_mamba2_state, mamba2_decode,
+                     mamba2_forward)
 
 Params = Dict[str, Any]
+Cache = Dict[str, torch.Tensor]
 
 
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -54,6 +68,14 @@ def _stack_into(dst: Params, layer: Params, i: int, num_layers: int) -> None:
             dst[k] = torch.empty((num_layers,) + tuple(v.shape),
                                  dtype=v.dtype, device=v.device)
         dst[k][i] = v
+
+
+def layer_slices(layers: Params, num_layers: int) -> List[Params]:
+    """Per-layer views of the stacked ``[L, ...]`` params (no copies)."""
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+    return [pick(layers, i) for i in range(num_layers)]
 
 
 def _module_tree(tree: Params) -> nn.Module:
@@ -105,6 +127,163 @@ class Model(nn.Module):
         """Bind a params tree (same tensors, no copy) as this module's
         non-trainable parameters under the JAX key paths."""
         self.weights = _module_tree(params)
+
+    def _check_ported(self) -> None:
+        cfg = self.cfg
+        if cfg.uses_moe:
+            raise NotImplementedError("moe layers are not ported yet")
+        if cfg.pos_embedding in ("mrope", "sinusoidal"):
+            raise NotImplementedError(
+                f"{cfg.pos_embedding} positions are not ported yet")
+
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        """Zero decode cache for ``max_len`` tokens of context on this
+        model's device. With a sliding window the attention cache is a
+        ring buffer of ``min(max_len, window)`` slots. At full width the
+        default ``cfg.max_seq_len`` is large (32,768 tokens of the 14B are
+        6.4 GB), so callers on the card pass ``max_len``."""
+        cfg = self.cfg
+        cache: Cache = {}
+        if cfg.uses_attention:
+            klen = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                    else max_len)
+            shape = (cfg.num_layers, batch, klen, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            for key in ("k", "v"):
+                cache[key] = torch.zeros(shape, dtype=self.dtype,
+                                         device=self.device)
+        if cfg.uses_ssm:
+            conv, ssd = init_mamba2_state(cfg, batch, self.dtype, self.device)
+            cache["conv"] = conv.new_zeros((cfg.num_layers,) + conv.shape)
+            cache["ssd"] = ssd.new_zeros((cfg.num_layers,) + ssd.shape)
+        return cache
+
+    def _embed_inputs(self, params: Params, tokens, embeds) -> torch.Tensor:
+        if embeds is not None:
+            return embeds.to(self.dtype)
+        return embed_tokens(self.cfg, params["embed"], tokens)
+
+    def _run_layers(self, params: Params, step, x, cache: Optional[Cache]):
+        """x through every layer: ``step(layer params, layer cache, x)``
+        with the layer's views of the stacked cache."""
+        for i, lp in enumerate(layer_slices(params["layers"],
+                                            self.cfg.num_layers)):
+            layer_cache = ({k: v[i] for k, v in cache.items()}
+                           if cache is not None else None)
+            x = step(lp, layer_cache, x)
+        return x
+
+    def forward(self, params: Params, tokens=None, embeds=None,
+                positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward. Returns (logits [B,S,V], aux_loss), the
+        aux loss 0 (it sums MoE balance losses, and MoE is not ported)."""
+        self._check_ported()
+        cfg = self.cfg
+        x = self._embed_inputs(params, tokens, embeds)
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        x = self._run_layers(
+            params, lambda lp, _, x: self._layer_train(lp, x, positions),
+            x, None)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return unembed(cfg, params["embed"], x), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+
+    def _layer_train(self, p: Params, x, positions):
+        cfg = self.cfg
+        h = apply_norm(cfg, p["norm1"], x)
+        mix = None
+        if cfg.uses_attention:
+            mix = attention_train(cfg, p["attn"], h, positions)
+        if cfg.uses_ssm:
+            y, _ = mamba2_forward(cfg, p["mamba"], h)
+            mix = y if mix is None else mix + y
+        return self._finish_layer(p, x, mix)
+
+    def _finish_layer(self, p: Params, x, mix):
+        """Residual of the mixer (hybrids average their two heads, as
+        Hymba), then the MLP block."""
+        cfg = self.cfg
+        if cfg.arch_type == "hybrid":
+            mix = mix * 0.5
+        x = x + mix
+        if cfg.d_ff:
+            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        return x
+
+    def prefill(self, params: Params, tokens=None, embeds=None,
+                positions=None, cache: Optional[Cache] = None,
+                max_len: Optional[int] = None):
+        """Process the prompt and seed the cache (``init_cache(B, max_len
+        or cfg.max_seq_len)`` unless one is passed; written in place).
+        Returns (logits of the last position [B,V], cache)."""
+        self._check_ported()
+        cfg = self.cfg
+        x = self._embed_inputs(params, tokens, embeds)
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        if cache is None:
+            cache = self.init_cache(b, max_len or cfg.max_seq_len)
+        x = self._run_layers(
+            params, lambda lp, lc, x: self._layer_prefill(lp, lc, x,
+                                                          positions, s),
+            x, cache)
+        x = apply_norm(cfg, params["final_norm"], x[:, -1:])
+        return unembed(cfg, params["embed"], x)[:, 0], cache
+
+    def _layer_prefill(self, p: Params, layer_cache: Cache, x, positions,
+                       s: int):
+        cfg = self.cfg
+        h = apply_norm(cfg, p["norm1"], x)
+        mix = None
+        if cfg.uses_attention:
+            mix, (k, v) = attention_prefill(cfg, p["attn"], h, positions)
+            for key, new in (("k", k), ("v", v)):
+                dst = layer_cache[key]
+                klen = dst.shape[1]
+                if s <= klen:
+                    dst[:, :s] = new
+                else:  # a ring smaller than the prompt: the tail at p % klen
+                    dst.copy_(torch.roll(new[:, -klen:], s % klen, dims=1))
+        if cfg.uses_ssm:
+            y, (conv, ssd) = mamba2_forward(cfg, p["mamba"], h)
+            mix = y if mix is None else mix + y
+            layer_cache["conv"].copy_(conv)
+            layer_cache["ssd"].copy_(ssd)
+        return self._finish_layer(p, x, mix)
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Cache, positions: torch.Tensor):
+        """tokens [B] int, positions [B] absolute positions; the cache is
+        updated in place. Returns (logits [B,V], cache, hidden [B,D]) —
+        ``hidden`` feeds the PRM reward head."""
+        self._check_ported()
+        cfg = self.cfg
+        x = embed_tokens(cfg, params["embed"], tokens[:, None])
+        x = self._run_layers(
+            params, lambda lp, lc, x: self._layer_decode(lp, lc, x,
+                                                         positions),
+            x, cache)
+        hidden = apply_norm(cfg, params["final_norm"], x)[:, 0]
+        return unembed(cfg, params["embed"], hidden), cache, hidden
+
+    def _layer_decode(self, p: Params, layer_cache: Cache, x, positions):
+        cfg = self.cfg
+        h = apply_norm(cfg, p["norm1"], x)
+        mix = None
+        if cfg.uses_attention:
+            mix, _, _ = attention_decode(cfg, p["attn"], h, layer_cache["k"],
+                                         layer_cache["v"], positions)
+        if cfg.uses_ssm:
+            y, conv, ssd = mamba2_decode(cfg, p["mamba"], h,
+                                         layer_cache["conv"],
+                                         layer_cache["ssd"])
+            layer_cache["conv"].copy_(conv)
+            layer_cache["ssd"].copy_(ssd)
+            mix = y if mix is None else mix + y
+        return self._finish_layer(p, x, mix)
 
 
 #: leaves the reference keeps in fp32 whatever the model dtype

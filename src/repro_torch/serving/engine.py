@@ -10,6 +10,10 @@ paged flash-decode (kernel K1) for every decode row — or, with
 ``decode_kernel="tree"``, the tree-decode pair (kernel K3) over the
 slots' fork-group map — and the paged flash-prefill (kernel K2) once per
 chunk lane, as the reference's ``mixed_step_kernel="fused"`` default.
+With ``chunked_prefill=False`` each admitted prompt instead runs one
+synchronous exact-length pass, ``Model.prefill`` (the dense flash
+prefill, kernel K5, in every attention layer; K4 for the ssm mixer),
+whose K/V are then scattered into the prompt's pages.
 The ssm and hybrid families carry a per-slot Mamba2 state (conv tail and
 SSD state per layer): decode rows step it with ``mamba2_decode`` in plain
 torch ops, and all chunk lanes of a step run one batched masked-dt
@@ -37,8 +41,15 @@ Differences from the reference that a reader must know:
     ``ssm_snaps`` boundary snapshots, a suspended branch's state) is a
     copy that later in-place updates of the per-slot pools cannot reach.
     A suspended branch's state stays on the device, not on the host.
-  * **Families and options of later slices raise** in ``__init__``:
-    MoE, M-RoPE and sinusoidal positions and ``chunked_prefill=False``.
+  * **Families of later slices raise** in ``__init__``: MoE, M-RoPE
+    and sinusoidal positions.
+  * **No per-length program.** The reference jit-compiles one exact
+    prefill per prompt length (``_make_prefill``, cached in
+    ``_prefill_cache``); the port runs eagerly, and ``exact_prefills``
+    counts the exact passes run in its place. The exact pass allocates
+    the prompt's pages before it computes (the reference after), so a
+    full pool fails before any work; and it unembeds only the last
+    position, the one the engine reads.
   * **Randomness** comes from one ``torch.Generator`` on the device,
     seeded from ``EngineConfig.seed``; greedy sampling matches the
     reference token for token, stochastic sampling only in distribution.
@@ -64,9 +75,9 @@ from ..kernels.paged_attention.ops import (paged_attention,
 from ..kv import (BranchBlocks, OutOfPagesError, PageAllocator, PrefixCache,
                   tree_decode_map)
 from ..models.attention import _project_qkv, _rotate
-from ..models.layers import apply_mlp, apply_norm, embed_tokens, unembed
+from ..models.layers import apply_norm, embed_tokens, unembed
 from ..models.mamba2 import init_mamba2_state, mamba2_decode, mamba2_forward
-from ..models.model import Model
+from ..models.model import Model, layer_slices
 from .sampling import SamplingParams, sample
 
 
@@ -83,7 +94,7 @@ class EngineConfig:
     # Chunked prefill: prompts are split into ``prefill_chunk``-token
     # chunks, each padded up to one of ``prefill_buckets`` and run as extra
     # rows of the decode step. () derives buckets as (chunk // 2, chunk).
-    # ``False`` (the exact-length path) is not ported yet and raises.
+    # ``False`` admits each prompt synchronously in one exact-length pass.
     chunked_prefill: bool = True
     prefill_chunk: int = 64
     prefill_buckets: tuple = ()
@@ -264,14 +275,6 @@ class StepVariant:
         default_factory=dict)
 
 
-def _layer_slices(layers: dict, num_layers: int) -> List[dict]:
-    """Per-layer views of the stacked ``[L, ...]`` params (no copies)."""
-    def pick(tree, i):
-        return {k: pick(v, i) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
-    return [pick(layers, i) for i in range(num_layers)]
-
-
 class Engine:
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  prm_params: Optional[dict] = None):
@@ -296,11 +299,15 @@ class Engine:
                 "prefix_cache requires chunked_prefill=True — the exact-"
                 "length path writes every page via the dense scatter and "
                 "has no chunk-start offset to resume from")
+        if cfg.step_token_budget > 0 and not cfg.chunked_prefill:
+            raise ValueError(
+                "step_token_budget requires chunked_prefill=True — "
+                "synchronous exact-length admission has no chunk lanes to "
+                "budget (and a capacity > 1 would let the scheduler drain "
+                "its whole arrival queue in one tick)")
         for later, what in ((mc.uses_moe, "MoE layers"),
                             (mc.pos_embedding in ("mrope", "sinusoidal"),
-                             f"{mc.pos_embedding} positions"),
-                            (not cfg.chunked_prefill,
-                             "exact-length prefill (chunked_prefill=False)")):
+                             f"{mc.pos_embedding} positions")):
             if later:
                 raise NotImplementedError(f"{what}: not ported yet")
         if mc.uses_attention:
@@ -326,7 +333,7 @@ class Engine:
             conv, ssd = init_mamba2_state(mc, B, model.dtype, self.device)
             self.state["conv"] = conv.new_zeros((L,) + conv.shape)
             self.state["ssd"] = ssd.new_zeros((L,) + ssd.shape)
-        self._layers = _layer_slices(params["layers"], L)
+        self._layers = layer_slices(params["layers"], L)
 
         # host-side per-slot bookkeeping
         self.slots: List[Optional[BranchHandle]] = [None] * B
@@ -343,6 +350,7 @@ class Engine:
         self.decode_steps_executed = 0
         self.prefill_chunk_steps = 0
         self.mixed_steps_executed = 0     # decode steps carrying >= 1 lane
+        self.exact_prefills = 0           # exact-length passes run
         self.tokens_generated = 0         # decode-row tokens sampled
         self.step_seconds: List[float] = []  # host wall time per decode_step
 
@@ -377,15 +385,54 @@ class Engine:
     # --------------------------------------------------------------- prefill
     def prefill(self, prompt: List[int], exact: Optional[bool] = None):
         """Run prefill for one request to completion (synchronous
-        convenience API) through the chunked path. Returns (prefix_blocks,
-        last_logits, ssm_state or None). The prefix pages are NOT yet
-        shared — call ``spawn_branch`` N times to fork branches off them."""
-        if exact:
-            raise NotImplementedError("exact-length prefill: not ported yet")
-        st = self._new_chunked_state(prompt)
-        while not st.done:
-            self._advance_chunks([st], piggyback=False)
-        return st.blocks, st.last_logits, st.ssm_state
+        convenience API). Returns (prefix_blocks, last_logits, ssm_state
+        or None). The prefix pages are NOT yet shared — call
+        ``spawn_branch`` N times to fork branches off them.
+
+        The chunked path by default (the mixed step's kernels);
+        ``exact=True``, or ``chunked_prefill=False``, runs one exact-length
+        pass over the whole prompt and scatters its K/V into the prompt's
+        pages. Raises OutOfPagesError, computing and
+        allocating nothing, when the pool cannot hold the prompt."""
+        if not self.cfg.chunked_prefill:
+            exact = True     # chunked admission disabled by config
+        if not exact:
+            st = self._new_chunked_state(prompt)
+            while not st.done:
+                self._advance_chunks([st], piggyback=False)
+            return st.blocks, st.last_logits, st.ssm_state
+        mc = self.model.cfg
+        s = len(prompt)
+        self._check_prompt_width(s)
+        blocks = self.allocator.alloc_prefix(s)
+        tokens = torch.tensor([prompt], dtype=torch.long, device=self.device)
+        # the reference's _prefill_all: the port unembeds only the last
+        # position, so it is Model.prefill into a cache of the prompt's size
+        logits, cache = self.model.prefill(self.params, tokens=tokens,
+                                           max_len=s)
+        self.exact_prefills += 1
+        ssm_state = None
+        if mc.uses_attention:
+            self._write_prefix_pages(cache, blocks)
+        if mc.uses_ssm:
+            ssm_state = (cache["conv"], cache["ssd"])  # [L, 1, ...]
+        return blocks, logits[0], ssm_state
+
+    def _write_prefix_pages(self, cache, blocks: BranchBlocks) -> None:
+        """Scatter the dense prefill K/V into the allocated pages, in
+        place (padded up to the page boundary; the pad is never attended
+        because block lengths mask it). The spare page is not written."""
+        ps = self.cfg.page_size
+        k = cache["k"][:, 0]                  # [L, s, kv, hd]
+        v = cache["v"][:, 0]
+        pad = len(blocks.pages) * ps - k.shape[1]
+        if pad > 0:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        page_ids = torch.tensor(blocks.pages, dtype=torch.long,
+                                device=self.device)
+        _scatter_pages(self.state["k_pages"], self.state["v_pages"], k, v,
+                       page_ids, ps)
 
     def _check_prompt_width(self, s: int) -> None:
         assert self.allocator.pages_for(max(s, 1)) <= \
@@ -436,7 +483,14 @@ class Engine:
         queued and its prompt chunks piggyback on subsequent
         ``decode_step`` calls; poll ``state.done`` and harvest with
         ``finish_prefill``. Raises OutOfPagesError (allocating nothing)
-        when the KV pool cannot hold the prompt."""
+        when the KV pool cannot hold the prompt. With
+        ``chunked_prefill=False`` the prompt prefills synchronously (one
+        exact-length pass) and the state returns already done."""
+        if not self.cfg.chunked_prefill:
+            blocks, logits, ssm = self.prefill(prompt, exact=True)
+            return ChunkedPrefillState(
+                prompt=list(prompt), blocks=blocks, next_pos=len(prompt),
+                last_logits=logits, ssm_state=ssm, done=True)
         st = self._new_chunked_state(prompt)
         self._pending_prefills.append(st)
         return st
@@ -969,12 +1023,7 @@ class Engine:
                     new_ssd.append(c_ssd.to(ssd_l.dtype))
                     y = torch.cat([y, y_ch.reshape(B - nS, 1, -1)], 0)
                 mix = y if mix is None else mix + y
-            if mc.arch_type == "hybrid":
-                mix = mix * 0.5
-            x = x + mix
-            if mc.d_ff:
-                x = x + apply_mlp(mc, lp["mlp"], apply_norm(mc, lp["norm2"],
-                                                            x))
+            x = self.model._finish_layer(lp, x, mix)
         x = apply_norm(mc, p["final_norm"], x)
         hidden = x[:, 0]
         logits = unembed(mc, p["embed"], hidden)
@@ -1078,3 +1127,18 @@ class Engine:
         from ..core.prm import reward_from_hidden
         r = reward_from_hidden(self.prm_params, self._last_hidden)
         return r.float().cpu().numpy()
+
+
+# --------------------------------------------------------------------- helpers
+
+
+def _scatter_pages(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                   k: torch.Tensor, v: torch.Tensor, page_ids: torch.Tensor,
+                   page_size: int) -> None:
+    """k, v [L, n_pages * ps, kv, hd] -> pages ``page_ids`` of the pools
+    [L, kv, P + 1, ps, hd], in place."""
+    l, s, kvh, hd = k.shape
+    n = s // page_size
+    for pages, new in ((k_pages, k), (v_pages, v)):
+        pages[:, :, page_ids] = new.reshape(l, n, page_size, kvh, hd).permute(
+            0, 3, 1, 2, 4).to(pages.dtype)

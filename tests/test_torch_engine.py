@@ -182,20 +182,15 @@ def test_abort_and_harvest_ownership():
     assert te.allocator.used_pages == 0
 
 
-@pytest.mark.parametrize("later", ["moe", "vlm", "audio",
-                                   "chunked_prefill_off"])
+@pytest.mark.parametrize("later", ["moe", "vlm", "audio"])
 def test_later_slices_raise(later):
-    """Families and options of later slices raise NotImplementedError
-    instead of running a half-ported path."""
-    kw, ecfg = {}, {}
-    if later in FAMILY_CONFIGS:
-        kw = FAMILY_CONFIGS[later]
-    else:
-        ecfg = dict(chunked_prefill=False)
-    cfg = ModelConfig(**dataclasses.asdict(tiny_config(**kw)))
+    """Families of later slices raise NotImplementedError instead of
+    running a half-ported path."""
+    cfg = ModelConfig(**dataclasses.asdict(tiny_config(
+        **FAMILY_CONFIGS[later])))
     model = Model(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
-        Engine(model, {"layers": {}}, EngineConfig(**ecfg))
+        Engine(model, {"layers": {}}, EngineConfig())
 
 
 # ------------------------------------------ prefix cache and tree decode
@@ -383,11 +378,11 @@ def test_generated_prefix_resample_admits_warm():
     (dict(decode_kernel="tree", mixed_step_kernel="decode"),
      "decode_kernel='tree' requires"),
     (dict(prefix_cache=True, chunked_prefill=False),
-     "prefix_cache requires chunked_prefill")])
+     "prefix_cache requires chunked_prefill"),
+    (dict(step_token_budget=16, chunked_prefill=False),
+     "step_token_budget requires chunked_prefill")])
 def test_config_errors_match_jax(ecfg, match):
-    """The reference's two configuration errors, raised before the port's
-    not-ported check (chunked_prefill=False alone raises
-    NotImplementedError)."""
+    """The reference's configuration errors, raised by the port too."""
     cfg = tiny_config()
     with pytest.raises(ValueError, match=match):
         JEngine(JModel(cfg), {}, JConfig(**ecfg))
@@ -665,3 +660,176 @@ def test_ssm_snapshots_survive_later_steps():
             assert torch.equal(got, exp)
     eng.free_branch(h)
     eng.release_prefix(blocks)
+
+
+# ------------------------------------------------ exact-length prefill
+
+
+def _gather_prefix(eng, blocks, s):
+    """Dense [L, s, kv, hd] view of the first s tokens of a prefix's
+    pages (the reference test's helper, for either package)."""
+    k = _np(eng.state["k_pages"])[:, :, blocks.pages]  # [L,kv,n,ps,hd]
+    v = _np(eng.state["v_pages"])[:, :, blocks.pages]
+    k = np.moveaxis(k, 1, 3).reshape(k.shape[0], -1, k.shape[1], k.shape[-1])
+    v = np.moveaxis(v, 1, 3).reshape(v.shape[0], -1, v.shape[1], v.shape[-1])
+    return k[:, :s], v[:, :s]
+
+
+def _ssm_close(a, b, **tol):
+    assert (a is None) == (b is None)
+    for x, y in zip(a or (), b or ()):
+        np.testing.assert_allclose(_np(x), _np(y), **tol)
+
+
+EXACT_FAMILIES = ["dense", "ssm", "hybrid"]
+
+
+@pytest.mark.parametrize("family", EXACT_FAMILIES)
+@pytest.mark.parametrize("s", [5, 13])
+def test_exact_prefill_matches_jax(family, s):
+    """``prefill(exact=True)``: the reference's last logits, pages, page
+    contents (K/V of every prompt token) and final (conv, ssd) state; one
+    exact pass each, no mixed step."""
+    je, te = _pair(FAMILY_CONFIGS[family])
+    prompt = [int(x) for x in np.random.default_rng(s).integers(2, 97, s)]
+    jb, jl, js = je.prefill(prompt, exact=True)
+    tb, tl, ts = te.prefill(prompt, exact=True)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    assert tb.pages == jb.pages and tb.length == jb.length == s
+    if te.model.cfg.uses_attention:
+        for a, b in zip(_gather_prefix(te, tb, s), _gather_prefix(je, jb, s)):
+            np.testing.assert_allclose(a, b, **TOL)
+    _ssm_close(ts, js, **TOL)
+    assert te.exact_prefills == 1 == len(je._prefill_cache)
+    assert te.mixed_steps_executed == 0 == te.prefill_chunk_steps
+    te.release_prefix(tb)
+    assert te.allocator.used_pages == 0
+
+
+@pytest.mark.parametrize("s", [1, 3, 4, 5, 8, 9, 13, 23])
+def test_chunked_matches_exact_within_the_port(s):
+    """The chunked-bucketed path reproduces the exact pass's last logits
+    and K/V page contents across page (4), chunk (8) and bucket (4/8)
+    boundaries (``tests/test_chunked_prefill.py:54``)."""
+    _, exact = _pair()
+    _, chunk = _pair()
+    prompt = [int(x) for x in np.random.default_rng(s).integers(2, 97, s)]
+    be, le, _ = exact.prefill(prompt, exact=True)
+    bc, lc, _ = chunk.prefill(prompt)
+    np.testing.assert_allclose(_np(le), _np(lc), atol=1e-4, rtol=1e-4)
+    for a, b in zip(_gather_prefix(exact, be, s), _gather_prefix(chunk, bc,
+                                                                 s)):
+        np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+    assert chunk.exact_prefills == 0 and exact.exact_prefills == 1
+
+
+@pytest.mark.parametrize("family", ["ssm", "hybrid"])
+@pytest.mark.parametrize("s", [1, 5, 8, 17])
+def test_chunked_matches_exact_ssm_within_the_port(family, s):
+    """ssm/hybrid: the masked-dt chunk lanes reproduce the exact pass's
+    last logits, final (conv, ssd) state and K/V pages
+    (``tests/test_chunked_prefill.py:80``)."""
+    _, exact = _pair(FAMILY_CONFIGS[family])
+    _, chunk = _pair(FAMILY_CONFIGS[family])
+    prompt = [int(x) for x in np.random.default_rng(s).integers(2, 97, s)]
+    be, le, se = exact.prefill(prompt, exact=True)
+    bc, lc, sc = chunk.prefill(prompt)
+    np.testing.assert_allclose(_np(le), _np(lc), atol=1e-4, rtol=1e-4)
+    _ssm_close(se, sc, atol=1e-5, rtol=1e-4)
+    if exact.model.cfg.uses_attention:
+        for a, b in zip(_gather_prefix(exact, be, s),
+                        _gather_prefix(chunk, bc, s)):
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("family", EXACT_FAMILIES)
+def test_exact_then_decode_matches_chunked_then_decode(family):
+    """Greedy generation after an exact prefill equals generation after
+    a chunked one (``tests/test_chunked_prefill.py:109``), and both equal
+    the reference's after its exact prefill."""
+    prompt = [2, 5, 9, 13, 7, 3, 11, 4, 8, 6, 10]   # 11 tokens: 2 chunks
+
+    def gen(eng, exact):
+        blocks, lg, ssm = eng.prefill(prompt, exact=exact)
+        h = eng.spawn_branch(0, blocks, lg, ssm, len(prompt))
+        for _ in range(8):
+            eng.decode_step()
+        toks = list(h.tokens)
+        eng.free_branch(h)
+        eng.release_prefix(blocks)
+        assert eng.allocator.used_pages == 0
+        return toks
+
+    je, te = _pair(FAMILY_CONFIGS[family])
+    _, tc = _pair(FAMILY_CONFIGS[family])
+    assert gen(te, True) == gen(tc, False) == gen(je, True)
+
+
+@pytest.mark.parametrize("family", EXACT_FAMILIES)
+def test_chunked_prefill_disabled_is_synchronous(family):
+    """``chunked_prefill=False``: ``begin_prefill`` runs the exact pass
+    and returns a done state (logits, pages and SSM state), queueing
+    nothing (``tests/test_chunked_prefill.py:624``); forked branches then
+    decode the reference's tokens."""
+    je, te = _pair(FAMILY_CONFIGS[family], chunked_prefill=False)
+    out = []
+    for eng in (je, te):
+        st = eng.begin_prefill([2, 5, 9, 13, 7])
+        assert st.done and not eng.has_pending_prefill
+        assert (st.ssm_state is not None) == eng.model.cfg.uses_ssm
+        out.append(_fork_and_decode_state(eng, st))
+    assert out[1][0] == out[0][0]
+    np.testing.assert_allclose(out[1][1], out[0][1], **TOL)
+    assert te.exact_prefills == 1 and te.mixed_steps_executed == 0
+    assert te.allocator.used_pages == 0 == je.allocator.used_pages
+
+
+def _fork_and_decode_state(eng, st):
+    """Harvest a done state, fork two branches, 6 greedy steps."""
+    blocks, logits, ssm = eng.finish_prefill(st)
+    hs = [eng.spawn_branch(0, blocks, logits, ssm, len(st.prompt))
+          for _ in range(2)]
+    for _ in range(6):
+        eng.decode_step()
+    out = ([h.tokens for h in hs], _np(logits))
+    for h in hs:
+        eng.free_branch(h)
+    eng.release_prefix(blocks)
+    return out
+
+
+def test_exact_prefill_out_of_pages_allocates_nothing():
+    """A prompt the pool cannot hold raises OutOfPagesError before the
+    exact pass runs, holding no page."""
+    from repro_torch.kv import OutOfPagesError
+    _, te = _pair(num_pages=3, chunked_prefill=False)
+    with pytest.raises(OutOfPagesError):
+        te.begin_prefill(list(range(2, 19)))            # 17 tokens, 5 pages
+    assert te.allocator.used_pages == 0 and te.exact_prefills == 0
+
+
+@pytest.mark.parametrize("family", EXACT_FAMILIES)
+def test_paged_decode_matches_dense_cache_model_greedy(family):
+    """The engine's paged greedy decode (after an exact prefill) gives
+    the tokens of the port's dense-cache ``Model.prefill`` +
+    ``decode_step`` loop (``tests/test_engine.py:47``)."""
+    _, te = _pair(FAMILY_CONFIGS[family], chunked_prefill=False)
+    model, params = te.model, te.params
+    prompt = [2, 5, 9, 13, 7, 3, 11]        # crosses a page boundary (ps=4)
+    steps = 10
+    lg, cache = model.prefill(params, tokens=torch.tensor([prompt]),
+                              max_len=len(prompt) + steps)
+    ref, cur, pos = [], int(torch.argmax(lg[0])), len(prompt)
+    for _ in range(steps):
+        ref.append(cur)
+        lg, cache, _ = model.decode_step(params, torch.tensor([cur]), cache,
+                                         torch.tensor([pos]))
+        cur, pos = int(torch.argmax(lg[0])), pos + 1
+    blocks, logits, ssm = te.prefill(prompt)
+    h = te.spawn_branch(0, blocks, logits, ssm, len(prompt))
+    for _ in range(steps - 1):
+        te.decode_step()
+    assert h.tokens[:steps] == ref
+    te.free_branch(h)
+    te.release_prefix(blocks)
+    assert te.allocator.used_pages == 0

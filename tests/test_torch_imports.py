@@ -41,7 +41,12 @@ def test_every_module_imports_without_jax_or_repro():
     assert len(names) >= 25
     assert {"repro_torch.models.mamba2", "repro_torch.kernels.ssd_scan.ops",
             "repro_torch.kernels.ssd_scan.ref",
-            "repro_torch.kernels.ssd_scan.ssd_scan"} <= names
+            "repro_torch.kernels.ssd_scan.ssd_scan",
+            "repro_torch.kernels.flash_prefill.flash_prefill",
+            "repro_torch.kernels.flash_prefill.ops",
+            "repro_torch.kernels.flash_prefill.ref",
+            "repro_torch.models.attention", "repro_torch.models.model",
+            "repro_torch.serving.engine"} <= names
 
 
 def test_no_source_mentions_jax_or_the_reference_package():

@@ -270,3 +270,17 @@ def test_prefill_kernel_matches_plain_on_card(cuda, case, dtype, tol, rng):
     ref = paged_flash_prefill_ref(*args, pos0, valid)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     assert (out[valid:] == 0).all()
+
+
+@pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),
+                                   (16, False), (256, False)])
+def test_paged_operands_head_dims(hd, ok):
+    """K1-K3 take head_dim 32 (the serve launcher's fallback trunks), 64
+    and 128; any other width raises before a launch."""
+    q = torch.zeros((2, 4, hd))
+    pages = torch.zeros((2, 3, 4, hd))
+    if ok:
+        build.check_paged_operands("k", q, pages, pages, 32)
+    else:
+        with pytest.raises(ValueError, match=f"head_dim {hd}"):
+            build.check_paged_operands("k", q, pages, pages, 32)

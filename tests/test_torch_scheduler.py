@@ -136,6 +136,8 @@ def test_run_serving_with_prefix_cache_on_cpu():
 
 
 def _ssm_pair(family, **ecfg):
+    """(jax engine, port engine) of a FAMILY_CONFIGS family, equal
+    weights, greedy, chunk 8."""
     from conftest import FAMILY_CONFIGS
     cfg = tiny_config(vocab_size=jtk.VOCAB_SIZE, **FAMILY_CONFIGS[family])
     jm = JModel(cfg)
@@ -216,3 +218,20 @@ def test_run_serving_ssm_fallback_on_cpu(arch):
     assert out["faults"]["step_faults"] == 0
     assert engine.allocator.used_pages == 0
     assert engine.mixed_steps_executed > 0
+
+
+@pytest.mark.parametrize("family", ["dense", "ssm", "hybrid"])
+def test_exact_prefill_scheduler_matches_jax(family):
+    """``chunked_prefill=False``: every admission is one synchronous exact
+    pass and one scheduler tick, so the clock runs ahead of the decode
+    steps by the number of admissions; the per-request records, clock,
+    decode steps and faults equal the reference's, with no mixed step."""
+    je, te = _ssm_pair(family, chunked_prefill=False)
+    jm_, je = _run(JScheduler, JSchedulerConfig, JOraclePRM, jtasks, je,
+                   "sart")
+    tm_, te = _run(Scheduler, SchedulerConfig, OraclePRM, tasks, te, "sart")
+    assert _summary(tm_) == _summary(jm_)
+    assert tm_["completed_requests"] == 3
+    assert tm_["clock"] == tm_["decode_steps"] + 3
+    assert te.exact_prefills == 3 and te.mixed_steps_executed == 0
+    assert te.allocator.used_pages == 0 == je.allocator.used_pages
