@@ -9,19 +9,29 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
-  2. build   — nvcc builds the CUDA kernels from ``src/repro_torch/csrc``;
+  2. build   — nvcc builds the CUDA kernels from ``src/repro_torch/csrc``
+               (the time of each source, ptxas's registers and spills,
+               and the tensor-core instructions in the SASS);
   3. kernels — K1 (paged flash-decode), K2 (paged flash-prefill), both
-               passes of K3 (tree decode), K4 (the SSD chunked scan, y
+               passes of K3 (tree decode; the shared pass's split partials
+               folded by the plain merge), K4 (the SSD chunked scan, y
                and final state, with and without an initial state) and K5
-               (the dense flash prefill) against their plain PyTorch
-               versions on the card, bf16 and fp32, at the serving shapes
+               (the dense flash prefill: wgmma in bf16, CUDA cores in
+               fp32) against their plain PyTorch versions on the card,
+               bf16 and fp32, at the serving shapes
                of r1-distill-14b and mamba2-130m, one qwen2-0.5b and one
                hymba-1.5b shape, head_dim 32 (the launcher's fallback
                trunks) for K1-K3 and K5, and the edge cases (K3's
-               topologies; K4's non-divisible S, masked dt and all-invalid
-               rows; K5's non-divisible S, non-causal, GQA groups 1 and 8,
-               true_len); then each timed with CUDA events (L2 flushed
-               before every launch) beside its plain version, a bound from
+               topologies, a span that is not a whole number of splits and
+               a 13-member group; K4's non-divisible S, masked dt and
+               all-invalid rows; K5's non-divisible S, non-causal, GQA
+               groups 1 and 8, true_len, a key loop wrapping the TMA ring);
+               then each timed with CUDA events (L2 flushed
+               before every launch; ``ms`` holds the wrapper's host time
+               where it outlasts the flush, ``queued_ms`` queues the
+               launches ahead and is the device's alone; ``host_us`` is
+               the wrapper's host time per call) beside its plain
+               version, a bound from
                bytes and operations, and one library call as a yardstick
                where one exists (none for K4); K5 at S = 272 and 4096;
   4. parity  — the engine on the card (kernels) against the engine on the
@@ -195,16 +205,25 @@ def k3_inputs(torch, gen, dev, *, groups, singles, q_heads, kv_heads, hd,
             bbt.to(dev), lengths.to(dev))
 
 
-def time_ms(torch, fn, n: int = 50, warmup: int = 5) -> float:
+def time_ms(torch, fn, n: int = 50, warmup: int = 5,
+            head_start: bool = False) -> float:
     """Mean device time of ``fn`` over ``n`` launches (CUDA events around
     each launch), with a 64 MiB write before each to push the inputs out
-    of the 50 MB L2, as a layer of the serving step finds them."""
+    of the 50 MB L2, as a layer of the serving step finds them. Where the
+    host takes longer to issue ``fn``'s launches than the card takes for
+    the write, the card idles inside the measurement: the time then
+    holds the wrapper's host time, which a host-bound step also pays.
+    ``head_start`` adds a ~0.3 ms spin of the card after the write, so
+    the launches are queued before the card reaches the start event and
+    the time is the device's alone (reported as ``queued_ms``)."""
     flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=DEVICE)
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(n):
         flush.zero_()
+        if head_start:
+            torch.cuda._sleep(500_000)   # cycles; touches no memory
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -213,6 +232,29 @@ def time_ms(torch, fn, n: int = 50, warmup: int = 5) -> float:
         pairs.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / n
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Mean host time of one call of ``fn`` in microseconds: ``n`` calls
+    issued back to back (the card's queue absorbs them), no sync inside."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def kernel_ms(torch, fn) -> dict:
+    """A kernel wrapper's ``ms`` (host time included where the host is
+    slower than the flush), ``queued_ms`` (launches queued ahead: the
+    device's time alone), both from ``time_ms``, and ``host_us``, the
+    wrapper's host time per call."""
+    return {"ms": time_ms(torch, fn),
+            "queued_ms": time_ms(torch, fn, head_start=True),
+            "host_us": host_us(torch, fn)}
 
 
 def bound(bytes_moved: float, ops: float, dtype_name: str):
@@ -241,10 +283,27 @@ def phase_build():
     secs = build.build_all()
     print(f"[build] {len(build.SOURCES)} sources in {secs:.1f} s -> "
           f"{build.build_dir()}")
+    for name, t in sorted(build.build_seconds.items()):
+        print(f"[build] {name}: nvcc done after {t:.1f} s")
     for name, log in sorted(build.build_log.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    # the tensor-core instructions in the built code: warpgroup MMAs
+    # (HGMMA, wgmma) in K5's bf16 kernel, warp MMAs (HMMA, mma.sync) in
+    # K3's bf16 shared pass
+    dump = Path(build._nvcc()).with_name("cuobjdump")
+    if not dump.exists():
+        print("[build] no cuobjdump beside nvcc: SASS not counted")
+        return
+    for name, op in (("flash_prefill_sm90", "HGMMA"),
+                     ("paged_tree_decode", "HMMA")):
+        sass = subprocess.run(
+            [str(dump), "-sass", str(build.build_dir() / f"lib{name}.so")],
+            capture_output=True, text=True, timeout=120).stdout
+        n = sum(op in line for line in sass.splitlines())
+        print(f"[build] {name}: {n} {op} instructions in its SASS")
+        check(n > 0, f"{name} has no {op} instruction")
 
 
 def _compare(torch, name, out, ref, dtype_name):
@@ -329,8 +388,8 @@ def phase_kernels(torch):
     tok = sum(lengths)
     followed = sum(-(-n // ps) for n in lengths)   # table entries read
     k1 = {
-        "ms": time_ms(torch, lambda: paged_attention_decode(q, kp, vp, bt,
-                                                            ln)),
+        **kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, bt,
+                                                          ln)),
         "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
             q, kp, vp, bt, ln)),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -353,7 +412,7 @@ def phase_kernels(torch):
     qt = q.transpose(0, 1)[None]                       # [1, H, T, hd]
     seen = sum(pos0 + i + 1 for i in range(valid))
     k2 = {
-        "ms": time_ms(torch, lambda: paged_flash_prefill_fwd(
+        **kernel_ms(torch, lambda: paged_flash_prefill_fwd(
             q, kp, vp, bt, pos0, valid)),
         "plain_ms": time_ms(torch, lambda: paged_flash_prefill_ref(
             q, kp, vp, bt, pos0, valid)),
@@ -384,9 +443,9 @@ def phase_tree_kernels(torch):
         paged_attention_decode
     from repro_torch.kernels.paged_attention.ref import (
         gather_pages, paged_tree_attention_ref, tree_branch_merge_ref,
-        tree_full_tables, tree_shared_partials_ref)
+        tree_full_tables, tree_merge_splits_ref, tree_shared_partials_ref)
     from repro_torch.kernels.paged_attention.tree_decode import (
-        paged_tree_branch_fwd, paged_tree_shared_fwd)
+        paged_tree_branch_fwd, paged_tree_shared_fwd, unpack_partials)
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(2)
@@ -413,30 +472,48 @@ def phase_tree_kernels(torch):
               [0, 300]),
              ("hd32 serve", t32, *serve_topology()),
              ("hd32 edges", t32, [(2, [2 * 16 + 3, 0, 5 * 16]), (1, [16])],
-              [9, 0])]
+              [9, 0]),
+             # a span of 5 pages, not a whole number of 32-key splits
+             ("r1 span 80", r1, [(5, [5 * 16 + 3, 3 * 16 + 2, 5 * 16 + 40])],
+              [11]),
+             # 13 members: more than one CTA's 12 (64 // 5), a second slice
+             ("r1 13 members", r1, [(3, [3 * 16 + 1 + i for i in range(13)])],
+              [5])]
     for name, shape, groups, singles in cases:
         for dn, dt in dtypes.items():
             args = k3_inputs(torch, gen, dev, groups=groups, singles=singles,
                              dtype=dt, **shape)
             q, kp, vp, rg, sbt, sl, bbt, ln = args
-            m, l, acc = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
-            out = paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln, m, l, acc)
             m_r, l_r, acc_r = tree_shared_partials_ref(q, kp, vp, rg, sbt, sl,
                                                        ln)
             ref = paged_tree_attention_ref(*args)
-            torch.cuda.synchronize()
             grouped = rg < rg.shape[0]
-            check(bool((out[ln == 0] == 0).all()),
-                  "K3 length-0 row is not zero")
-            errs["paged_tree_shared"].append(_compare(
-                torch, f"K3 shared {name} {dn} B={q.shape[0]}",
-                torch.cat([m[grouped, :, None], l[grouped, :, None],
-                           acc[grouped]], -1),
-                torch.cat([m_r[grouped, :, None], l_r[grouped, :, None],
-                           acc_r[grouped]], -1), dn))
-            errs["paged_tree_branch"].append(_compare(
-                torch, f"K3 branch (output) {name} {dn} B={q.shape[0]}",
-                out, ref, dn))
+            # splits over a span of the whole table, over the longest
+            # group span (as the engine passes it), and over a span
+            # understated to one page (the last split takes the rest)
+            longest = int(sl.max())
+            table = shape["ps"] * sbt.shape[1]
+            for span in (table, longest, shape["ps"]):
+                part, keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl,
+                                                   ln, span)
+                out = paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln, part,
+                                            keys)
+                m, l, acc = unpack_partials(part)
+                torch.cuda.synchronize()
+                check(bool((out[ln == 0] == 0).all()),
+                      "K3 length-0 row is not zero")
+                # the kernel's split partials of the grouped rows, folded
+                m_k, l_k, acc_k = tree_merge_splits_ref(
+                    m[:, grouped], l[:, grouped], acc[:, grouped])
+                tag = f"{name} {dn} B={q.shape[0]} span={span} " \
+                    f"n_split={m.shape[0]}"
+                errs["paged_tree_shared"].append(_compare(
+                    torch, f"K3 shared {tag}",
+                    torch.cat([m_k[..., None], l_k[..., None], acc_k], -1),
+                    torch.cat([m_r[grouped, :, None], l_r[grouped, :, None],
+                               acc_r[grouped]], -1), dn))
+                errs["paged_tree_branch"].append(_compare(
+                    torch, f"K3 branch (output) {tag}", out, ref, dn))
 
     # timing at the tree serve's shape (bf16)
     groups, _ = serve_topology()
@@ -448,21 +525,26 @@ def phase_tree_kernels(torch):
     lens = ln.tolist()
     span = 256
     suffix = [n - span for n in lens]
-    m, l, acc = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
+    # the K3 calls as the engine makes them: the longest span as a host int
+    part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln,
+                                             span)
+    n_split = part.shape[0]
     full = tree_full_tables(rg, sbt, sl, bbt, ps)
-    k1_ms = time_ms(torch, lambda: paged_attention_decode(q, kp, vp, full,
-                                                          ln))
-    k3_ms = time_ms(torch, lambda: paged_tree_branch_fwd(
+    k1_ms = kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, full,
+                                                            ln))
+    k3_ms = kernel_ms(torch, lambda: paged_tree_branch_fwd(
         q, kp, vp, rg, sl, bbt, ln, *paged_tree_shared_fwd(
-            q, kp, vp, rg, sbt, sl, ln)))
+            q, kp, vp, rg, sbt, sl, ln, span)))
     # the reference's byte model at token granularity, per fork group
     kv_bytes = {path: sum(tree_decode_bytes_read(
         span, suffix[g * 8:(g + 1) * 8], 1, kv, hd, path=path, itemsize=2)
         for g in range(2)) for path in ("branch", "tree")}
     print(f"[kernels] tree serve shape (B=16, 2 groups of 8, span 256, "
           f"suffixes {min(suffix)}..{max(suffix)} tokens, bf16): K1 over "
-          f"the rebuilt full tables {k1_ms:.4f} ms; K3 both passes "
-          f"{k3_ms:.4f} ms; K/V bytes per-branch {kv_bytes['branch']} "
+          f"the rebuilt full tables {k1_ms['ms']:.4f} ms (queued "
+          f"{k1_ms['queued_ms']:.4f} ms); K3 both passes "
+          f"{k3_ms['ms']:.4f} ms (queued {k3_ms['queued_ms']:.4f} ms); "
+          f"K/V bytes per-branch {kv_bytes['branch']} "
           f"({kv_bytes['branch'] / HBM_BYTES_PER_S * 1e6:.2f} us), tree "
           f"{kv_bytes['tree']} "
           f"({kv_bytes['tree'] / HBM_BYTES_PER_S * 1e6:.2f} us)")
@@ -476,36 +558,46 @@ def phase_tree_kernels(torch):
     mask = (torch.arange(kb.shape[2], device=dev)[None, :]
             < torch.tensor(suffix, device=dev)[:, None])[:, None, None, :]
     common = 4 * B + B * 4 + 2 * 4     # lengths, row_group, shared_lens
+    one_set = B * H * (hd + 2) * 4     # one set of fp32 (m, l, acc)
+    sdpa = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, enable_gqa=True))
     shared = {
-        "ms": time_ms(torch, lambda: paged_tree_shared_fwd(
-            q, kp, vp, rg, sbt, sl, ln)),
+        **kernel_ms(torch, lambda: paged_tree_shared_fwd(
+            q, kp, vp, rg, sbt, sl, ln, span)),
         "plain_ms": time_ms(torch, lambda: tree_shared_partials_ref(
             q, kp, vp, rg, sbt, sl, ln)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, enable_gqa=True)),
-        # the two spans' K/V once, q in, fp32 (m, l, acc) out, the span's
-        # table entries of each group
+        "library_ms": sdpa["ms"],
+        # what the function needs: the two spans' K/V once, q in, one set
+        # of fp32 (m, l, acc) out, the span's table entries of each group
+        # (the other splits' partials are traffic of this design, in
+        # "shape", not in the bound)
         "bytes": tree_decode_bytes_read(2 * span, [], 1, kv, hd,
                                         path="tree", itemsize=2)
-        + B * H * hd * 2 + B * H * (hd + 2) * 4 + 2 * (span // ps) * 4
-        + common,
+        + B * H * hd * 2 + one_set + 2 * (span // ps) * 4 + common,
         "ops": 4 * B * span * H * hd,
         "shape": "B=16 in 2 groups of 8, shared span 256 tokens (16 pages),"
-                 " H=40 kv=8 hd=128 ps=16 W=32 bf16",
+                 f" H=40 kv=8 hd=128 ps=16 W=32 bf16, n_split={n_split} "
+                 f"of {split_keys} keys (the engine's host span; the splits "
+                 f"write {n_split * one_set} bytes of fp32 partials)",
     }
+    print(f"[kernels] K3 shared pass at the tree serve shape: ms "
+          f"{shared['ms']:.4f} (SDPA {sdpa['ms']:.4f}), queued_ms "
+          f"{shared['queued_ms']:.4f} (SDPA {sdpa['queued_ms']:.4f}), "
+          f"host_us {shared['host_us']:.1f} (SDPA {sdpa['host_us']:.1f})")
     followed = sum(-(-n // ps) for n in suffix)
     branch = {
-        "ms": time_ms(torch, lambda: paged_tree_branch_fwd(
-            q, kp, vp, rg, sl, bbt, ln, m, l, acc)),
+        **kernel_ms(torch, lambda: paged_tree_branch_fwd(
+            q, kp, vp, rg, sl, bbt, ln, part, split_keys)),
         "plain_ms": time_ms(torch, lambda: tree_branch_merge_ref(
-            q, kp, vp, rg, sl, bbt, ln, m, l, acc)),
+            q, kp, vp, rg, sl, bbt, ln,
+            *tree_merge_splits_ref(*unpack_partials(part)))),
         "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
             q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True)),
-        # the suffixes' K/V once, q and the shared partials in, the output
-        # out, the suffix table entries followed
+        # the suffixes' K/V once, q and one set of shared partials in, the
+        # output out, the suffix table entries followed
         "bytes": tree_decode_bytes_read(0, suffix, 1, kv, hd, path="tree",
                                         itemsize=2)
-        + B * H * hd * 2 + B * H * (hd + 2) * 4 + B * H * hd * 2
+        + B * H * hd * 2 + one_set + B * H * hd * 2
         + followed * 4 + common,
         "ops": 4 * sum(suffix) * H * hd,
         "shape": f"B=16, suffixes {min(suffix)}..{max(suffix)} tokens (sum "
@@ -653,7 +745,7 @@ def phase_ssd_kernels(torch):
     dtm = dt * valid[..., None]
     state_bytes = b * h * p * n * 2
     timing = {
-        "ms": time_ms(torch, lambda: ssd_scan(x, dtm, a, bb, cc, chunk=q)),
+        **kernel_ms(torch, lambda: ssd_scan(x, dtm, a, bb, cc, chunk=q)),
         "plain_ms": time_ms(torch, lambda: ssd_chunked(x, dt, a, bb, cc, q,
                                                        valid=valid)),
         "library_ms": None,
@@ -681,14 +773,15 @@ def flash_flops(seqlen: int, heads: int, head_dim: int, causal: bool,
 
 def phase_flash_kernels(torch):
     """Hold K5 (the dense flash prefill) against its plain version on the
-    same inputs, bf16 and fp32: r1-distill-14b's exact-prefill shape at S
-    = 272 and 4096, a qwen2-0.5b shape (14/2 heads of 64), head_dim 32,
-    GQA groups 1 and 8, non-divisible S, non-causal, and ``true_len``
-    (rows past it bit-exact zeros; K and V past it NaN, which must not
-    change one bit of the output). Then time it at S = 272 and 4096 beside
-    its plain version and ``scaled_dot_product_attention`` (a yardstick
-    the port never calls). Returns (errors, timings, the S = 4096
-    timing)."""
+    same inputs, bf16 (the wgmma kernel) and fp32 (the CUDA-core kernel):
+    r1-distill-14b's exact-prefill shape at S = 272 and 4096, a qwen2-0.5b
+    shape (14/2 heads of 64), head_dim 32, GQA groups 1 and 8,
+    non-divisible S, non-causal, and ``true_len`` (rows past it bit-exact
+    zeros; K and V past it NaN, which must not change one bit of the
+    output), once at S = 1000 so the key loop wraps the TMA ring. Then
+    time it at S = 272 and 4096 beside its plain version and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls).
+    Returns (errors, timings, the S = 4096 timing)."""
     from repro_torch.kernels.flash_prefill.flash_prefill import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
     F = torch.nn.functional
@@ -711,7 +804,9 @@ def phase_flash_kernels(torch):
              ("r1 non-causal S=272", 1, 272, 40, 8, 128, False, None),
              ("hd32 non-causal S=37", 2, 37, 4, 2, 32, False, None),
              ("r1 true_len=200 S=272", 1, 272, 40, 8, 128, True, 200),
-             ("non-causal true_len=13 S=48", 2, 48, 6, 3, 64, False, 13)]
+             ("non-causal true_len=13 S=48", 2, 48, 6, 3, 64, False, 13),
+             # 16 key tiles through the TMA ring, the last one partial
+             ("r1 true_len=997 S=1000", 1, 1000, 40, 8, 128, True, 997)]
     for name, b, s, h, kv, hd, causal, tl in cases:
         for dn, dt in dtypes.items():
             q, k, v = inputs(b, s, h, kv, hd, dt)
@@ -735,7 +830,7 @@ def phase_flash_kernels(torch):
         q, k, v = inputs(1, s, h, kv, hd, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, hd]
         timing[s] = {
-            "ms": time_ms(torch, lambda: flash_prefill(q, k, v)),
+            **kernel_ms(torch, lambda: flash_prefill(q, k, v)),
             "plain_ms": time_ms(torch, lambda: flash_prefill_ref(q, k, v),
                                 n=10 if s > 1024 else 50),
             "library_ms": time_ms(
@@ -1535,10 +1630,12 @@ def main() -> int:
                      "atol=rtol=2e-2 bf16, 1e-4 fp32 (against the plain "
                      "version in fp32); all-invalid rows bit-exact",
                      "none: no single PyTorch call computes the SSD scan"),
-        "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+        "flash_prefill": ("src/repro_torch/csrc/flash_prefill_sm90.cu",
                           "src/repro/kernels/flash_prefill/"
-                          "flash_prefill.py:144", attn_tol + "; rows past "
-                          "true_len bit-exact zeros",
+                          "flash_prefill.py:144", attn_tol + " (bf16: the "
+                          "wgmma kernel, timed; fp32: the CUDA-core kernel "
+                          "of flash_prefill.cu); rows past true_len "
+                          "bit-exact zeros",
                           "scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True) on the same q, k, v (a "
                           "yardstick; the port never calls it)"),
@@ -1551,7 +1648,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(errs[name]), "tolerance": tol,
-            "ms": tm["ms"], "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
+            "ms": tm["ms"], "queued_ms": tm["queued_ms"],
+            "host_us": tm["host_us"],
+            "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": tm["library_ms"],
             "library": library, "timed_shape": tm["shape"], "card": smi,
         })

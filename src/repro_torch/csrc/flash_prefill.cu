@@ -1,6 +1,8 @@
-// Dense flash prefill for Hopper (sm_90a): causal or non-causal GQA
-// attention over a whole prompt, q [B, S, H, hd] against k, v [B, S, Hkv,
-// hd], with Hkv dividing H.
+// Dense flash prefill in fp32 for Hopper (sm_90a), on the CUDA cores:
+// causal or non-causal GQA attention over a whole prompt, q [B, S, H, hd]
+// against k, v [B, S, Hkv, hd], with Hkv dividing H. bf16 inputs go to the
+// tensor-core kernel of flash_prefill_sm90.cu instead; this one serves
+// fp32, whose tolerance (1e-5) bf16 tensor-core products cannot meet.
 //
 // Replaces the TPU kernel repro/kernels/flash_prefill/flash_prefill.py
 // (flash_prefill :144, body _flash_kernel :88) and computes what it does:
@@ -22,21 +24,13 @@
 // h * group + r % group), so each K/V tile is staged in shared memory once
 // for the whole group and K/V are never repeated per query head.
 //
-// What bounds it on this card: at r1-distill-14b's exact-prefill shapes
-// (40/8 heads, hd 128, bf16), counting q, k, v and o once and S(S+1)/2 x H
-// x 4 hd operations: at S = 272 bytes (6.7 MB, 0.0020 ms at 3.35 TB/s,
-// against 0.76 GFLOP, 0.0008 ms at 989 TFLOP/s); at S = 4096 operations
-// (172 GFLOP, 0.174 ms, against 101 MB, 0.030 ms). Design: CUDA-core fp32
-// FMAs from shared memory, in register tiles: for Q K^T each of the 256
-// threads holds 4 rows x 4 keys of the 64 x 64 score tile, for P V 4 rows
-// x hd/16 output columns, every operand read as a float4 (K rows padded by
-// 4 words so the 16 key rows a warp reads fall in distinct bank groups).
-// It stays far above the tensor-core bound at long S; mma/wgmma tiles, TMA
-// loads and a pipelined key loop are later work.
-#include <cuda_bf16.h>
+// What bounds it on this card: the fp32 FMA rate (67 TFLOP/s) at long S;
+// 4 hd operations per (row, visible key). Design: CUDA-core fp32 FMAs from
+// shared memory, in register tiles: for Q K^T each of the 256 threads
+// holds 4 rows x 4 keys of the 64 x 64 score tile, for P V 4 rows x hd/16
+// output columns, every operand read as a float4 (K rows padded by 4
+// words so the 16 key rows a warp reads fall in distinct bank groups).
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -47,33 +41,12 @@ constexpr int kPStride = kKeys + 1;
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
 constexpr int kMaxSmem = 232448;    // what a block may take on the H100
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// Elements of T in one 16-byte load.
-template <typename T>
-__host__ __device__ constexpr int vec_len() {
-  return std::is_same<T, float>::value ? 4 : 8;
-}
-
 __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   out[0] = v.x;
   out[1] = v.y;
   out[2] = v.z;
   out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
 }
 
 // Shared memory, fp32 throughout: Q [kRows][HD], K [kKeys][HD + 4],
@@ -87,20 +60,17 @@ struct Layout {
   static constexpr int bytes = (p_off + kRows * kPStride) * 4;
 };
 
-// Stores n = vec_len<T>() fp32 values at dst (16-byte aligned) as float4s.
-template <int N>
+// Stores 4 fp32 values at dst (16-byte aligned) as a float4.
 __device__ __forceinline__ void put(float* dst, const float* f) {
-#pragma unroll
-  for (int e = 0; e < N; e += 4)
-    *reinterpret_cast<float4*>(dst + e) =
-        make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+  *reinterpret_cast<float4*>(dst) = make_float4(f[0], f[1], f[2], f[3]);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int seqlen, int q_heads,
-    int kv_heads, int true_len, int block_q, int causal, float scale) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ out, int seqlen,
+    int q_heads, int kv_heads, int true_len, int block_q, int causal,
+    float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   using L = Layout<HD>;
@@ -108,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   float* sk = smem + L::k_off;
   float* sv = smem + L::v_off;
   float* sp = smem + L::p_off;
-  constexpr int kVec = vec_len<T>();
+  constexpr int kVec = 4;                       // floats per 16-byte load
   constexpr int kVecs = HD / kVec;              // 16-byte loads per row
   constexpr int kCols = HD / 16;                // output columns per thread
   constexpr int kColVec = kCols < 4 ? kCols : 4;
@@ -135,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 #pragma unroll
       for (int e = 0; e < kVec; ++e) f[e] = 0.f;
     }
-    put<kVec>(sq + r * HD + c, f);
+    put(sq + r * HD + c, f);
   }
 
   // this thread's rows are ty + 16 i; row i sees keys < lim[i]
@@ -155,8 +125,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   const int last = min(q0 + nq, true_len);
   const int kv_end = last <= q0 ? 0 : (causal ? last : true_len);
   const size_t kv_stride = (size_t)kv_heads * HD;           // per position
-  const T* k_head = k + (size_t)b * seqlen * kv_stride + (size_t)h * HD;
-  const T* v_head = v + (size_t)b * seqlen * kv_stride + (size_t)h * HD;
+  const float* k_head = k + (size_t)b * seqlen * kv_stride + (size_t)h * HD;
+  const float* v_head = v + (size_t)b * seqlen * kv_stride + (size_t)h * HD;
 
   for (int k0 = 0; k0 < kv_end; k0 += kKeys) {
     const int nk = min(kKeys, kv_end - k0);
@@ -172,8 +142,8 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 #pragma unroll
         for (int e = 0; e < kVec; ++e) fk[e] = fv[e] = 0.f;
       }
-      put<kVec>(sk + j * L::kKStride + c, fk);
-      put<kVec>(sv + j * HD + c, fv);
+      put(sk + j * L::kKStride + c, fk);
+      put(sv + j * HD + c, fv);
     }
     __syncthreads();
 
@@ -278,20 +248,20 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const int pos = q0 + r / group;
     const bool valid = pos < true_len;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* dst = out + (((size_t)b * seqlen + pos) * q_heads + (size_t)h * group +
-                    r % group) * HD;
+    float* dst = out + (((size_t)b * seqlen + pos) * q_heads +
+                        (size_t)h * group + r % group) * HD;
 #pragma unroll
     for (int u = 0; u < kCols / kColVec; ++u)
 #pragma unroll
       for (int e = 0; e < kColVec; ++e) {
         const int c = u * kColVec + e;
-        store(dst + u * 16 * kColVec + tx * kColVec + e,
-              valid ? acc[i][c] / denom : 0.f);
+        dst[u * 16 * kColVec + tx * kColVec + e] =
+            valid ? acc[i][c] / denom : 0.f;
       }
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int seqlen, int q_heads, int kv_heads, int true_len, int block_q,
            int causal, float scale, cudaStream_t stream) {
@@ -300,46 +270,27 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   static bool opted_in = false;       // once per instantiation
   if (!opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<T, HD>,
+        flash_prefill_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     opted_in = true;
   }
   const dim3 grid((seqlen + block_q - 1) / block_q, kv_heads, batch);
-  flash_prefill_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, seqlen, q_heads,
-      kv_heads, true_len, block_q, causal, scale);
+  flash_prefill_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, seqlen,
+      q_heads, kv_heads, true_len, block_q, causal, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_hd(int head_dim, const void* q, const void* k, const void* v,
-              void* out, int batch, int seqlen, int q_heads, int kv_heads,
-              int true_len, int block_q, int causal, float scale,
-              cudaStream_t s) {
-  switch (head_dim) {
-    case 128:
-      return launch<T, 128>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
-                            true_len, block_q, causal, scale, s);
-    case 64:
-      return launch<T, 64>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
-                           true_len, block_q, causal, scale, s);
-    case 32:
-      return launch<T, 32>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
-                           true_len, block_q, causal, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). dtype: 0 = fp32,
-// 1 = bf16 for q, k, v and out. q and out [batch, seqlen, q_heads,
-// head_dim], k and v [batch, seqlen, kv_heads, head_dim], contiguous and
-// 16-byte aligned; block_q * (q_heads / kv_heads) <= 64; 0 < true_len <=
-// seqlen. The caller has checked shapes, dtypes and alignment.
-extern "C" int flash_prefill_launch(int dtype, int head_dim, const void* q,
+// Returns the cudaError_t of the launch (0 on success). q, k, v and out
+// are fp32 (bf16 is flash_prefill_sm90.cu's). q and out
+// [batch, seqlen, q_heads, head_dim], k and v [batch, seqlen, kv_heads,
+// head_dim], contiguous and 16-byte aligned; block_q * (q_heads /
+// kv_heads) <= 64; 0 < true_len <= seqlen. The caller has checked shapes,
+// dtypes and alignment.
+extern "C" int flash_prefill_launch(int head_dim, const void* q,
                                     const void* k, const void* v, void* out,
                                     int batch, int seqlen, int q_heads,
                                     int kv_heads, int true_len, int block_q,
@@ -349,12 +300,17 @@ extern "C" int flash_prefill_launch(int dtype, int head_dim, const void* q,
       block_q * (q_heads / kv_heads) > kRows || true_len < 1 ||
       true_len > seqlen)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(head_dim, q, k, v, out, batch, seqlen,
-                                    q_heads, kv_heads, true_len, block_q,
-                                    causal, scale, s);
-  if (dtype == 0)
-    return launch_hd<float>(head_dim, q, k, v, out, batch, seqlen, q_heads,
-                            kv_heads, true_len, block_q, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 128:
+      return launch<128>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+                         true_len, block_q, causal, scale, s);
+    case 64:
+      return launch<64>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+                        true_len, block_q, causal, scale, s);
+    case 32:
+      return launch<32>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+                        true_len, block_q, causal, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -4,10 +4,14 @@
 //
 // Replaces the TPU kernel pair of
 // repro/kernels/paged_attention/tree_decode.py (paged_tree_attention_fwd):
-//   * tree_shared_kernel  <- _tree_shared_kernel (:170): each group's
-//     shared pages, once for the group's member rows, as raw fp32
-//     online-softmax partials (m, l, acc);
-//   * tree_branch_kernel  <- _tree_branch_kernel (:229) plus the plain jnp
+//   * the shared pass <- _tree_shared_kernel (:170): each group's shared
+//     pages, once for the group's member rows, as raw fp32 online-softmax
+//     partials (m, l, acc) — per key split in bf16
+//     (tree_shared_mma_kernel), over the whole span in fp32
+//     (tree_shared_kernel) — packed in one tensor, a row of head_dim + 2
+//     floats (acc, m, l) per split, row and head, so the wrapper makes one
+//     allocation for them;
+//   * tree_branch_kernel <- _tree_branch_kernel (:229) plus the plain jnp
 //     merge (:368-382): each row's post-fork suffix pages, then, in the
 //     epilogue, the merge with the row's shared partials and the division.
 // Same output contract as paged_decode.cu over the full tables the map
@@ -19,27 +23,38 @@
 // shared_lens[g] tokens (whole pages); branch_bt[b] is row b's suffix
 // table, zero-based, covering max(lengths[b] - span(b), 0) tokens.
 //
-// What bounds it on this card: bytes, as K1 (4 * group * head_dim flops
-// per key read). Design:
-//   * Shared pass: one CTA per (KV head, group, slice of members). The
-//     CTA finds its group's member rows itself (a scan of row_group; the
-//     Pallas grid instead computed every row and masked non-members) and
-//     streams the shared pages once through shared memory for
-//     floor(32 / group) members x group query heads. A group with more
-//     members than that is split over several CTAs, which read the same
-//     pages again, from L2 when they run together: kept over one CTA
-//     holding up to 16 x 7 = 112 query rows in dynamic shared memory,
-//     because the step is latency-bound and more CTAs finish sooner.
-//     A member row attends keys < min(length, span).
+// What bounds it on this card: bytes in principle (4 * group * head_dim
+// flops per key read, as K1), but at the serving shapes (16 rows, a
+// 256-token span, 2 MB of K/V) latency: the time is the depth of the
+// dependent chain each CTA walks, not the bytes. Design:
+//   * Shared pass, bf16: one CTA per (key split, KV head, group). The span
+//     is cut into n_split runs of split_keys keys (whole pages, at least
+//     32; the wrapper's rule), so a group's span is walked by many CTAs at
+//     once instead of one CTA walking it all. A CTA finds its group's
+//     members itself (a ballot over row_group), holds up to 64 rows
+//     (floor(64 / group) members x group heads; a larger group is walked
+//     slice by slice), gathers 32-key tiles through the table with
+//     cp.async and runs both products on tensor cores (mma.sync m16n8k16,
+//     bf16 in, fp32 accumulators; P split into bf16 hi and lo so that the
+//     probabilities keep fp32's precision). Keys past the CTA's last
+//     visible key are zero-filled in shared memory, never loaded: a tensor
+//     core computes 0 * NaN = NaN, so a stale page must not reach a tile.
+//     Every split of every member row is written, (NEG_INF, 0, 0) where it
+//     holds no visible key, so the epilogue never reads torch.empty bytes.
+//   * Shared pass, fp32: the CUDA-core loop of paged_common.cuh over the
+//     whole span as a single split: bf16 tensor-core products cannot meet
+//     fp32's tolerance.
 //   * Branch pass: one CTA per (row, KV head), K1's loop over the suffix
-//     table; the merge runs in its epilogue, so the step pays no eager
-//     merge ops. Partials of rows in no group are never written, and the
-//     epilogue does not read them (it tests row_group, it does not rely on
-//     a memset).
+//     table; its epilogue merges the shared splits in split order, 0 ..
+//     n_split - 1, then the suffix (a fixed order: the result does not
+//     change from run to run, no atomics), and divides. Partials of rows in
+//     no group are never written, and the epilogue does not read them (it
+//     tests row_group, it does not rely on a memset).
 //   * The finite NEG_INF = -1e30 of the TPU kernels keeps the merge of two
 //     empty partials at exp(0) * 0 = 0, never inf - inf.
 // Table entries are clamped into the pool and loops stop at lengths (see
 // paged_common.cuh), so NaN in a stale page cannot reach a sum.
+#include "hopper_ptx.cuh"
 #include "paged_common.cuh"
 
 using namespace paged;
@@ -53,8 +68,7 @@ __global__ void __launch_bounds__(kThreads) tree_shared_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ row_group,
     const int* __restrict__ shared_bt, const int* __restrict__ shared_lens,
-    const int* __restrict__ lengths, float* __restrict__ m_out,
-    float* __restrict__ l_out, float* __restrict__ acc_out, int batch,
+    const int* __restrict__ lengths, float* __restrict__ part, int batch,
     int q_heads, int kv_heads, int num_pages, int page_size,
     int pages_per_seq, int members_per_cta, float scale) {
   __shared__ Shared<HD> sm;
@@ -111,10 +125,278 @@ __global__ void __launch_bounds__(kThreads) tree_shared_kernel(
     if (r < rows) {
       const size_t dst =
           (size_t)member[r / group] * q_heads + (size_t)h * group + r % group;
-      acc_out[dst * HD + d] = acc[i];
+      float* out = part + dst * (HD + 2);
+      out[d] = acc[i];
       if (d == 0) {
-        m_out[dst] = sm.m[r];
-        l_out[dst] = sm.l[r];
+        out[HD] = sm.m[r];
+        out[HD + 1] = sm.l[r];
+      }
+    }
+  }
+}
+
+// The bf16 shared pass on tensor-core tiles: one CTA per (key split, KV
+// head, group). It holds up to 64 member rows (floor(64 / group) members
+// x group query heads; a larger group is walked slice by slice) and
+// attends keys [split * split_keys, (split + 1) * split_keys) of the span
+// in 32-key tiles gathered through the group's table with cp.async. Each
+// warp owns 16 rows: S = Q K^T and O += P V are mma.sync m16n8k16 (bf16
+// in, fp32 accumulators) on fragments loaded with ldmatrix (V
+// transposed), P is split hi/lo as in flash_prefill_sm90.cu, and the
+// split's raw partials (m, l, acc) are written for every member row,
+// (NEG_INF, 0, 0) where the split holds no visible key.
+namespace split {
+constexpr int kRows = 64;         // member rows of one CTA: 4 warps x 16
+constexpr int kKeys = 32;         // keys per shared-memory tile
+
+template <int HD>
+struct Tiles {
+  // rows padded by 16 bytes so ldmatrix's 8 row reads hit 8 bank groups
+  static constexpr int kStride = HD + 8;
+  __nv_bfloat16 q[kRows][kStride];
+  __nv_bfloat16 k[kKeys][kStride];
+  __nv_bfloat16 v[kKeys][kStride];
+  int member[kRows];       // the slice's member rows, in rank order
+  int member_end[kRows];   // each one's end in the span: min(length, span)
+  int tile_page[kKeys];    // the split's first tile: each key's page
+  int n_members, ctx_end;
+};
+}  // namespace split
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
+    const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k_pages,
+    const __nv_bfloat16* __restrict__ v_pages,
+    const int* __restrict__ row_group, const int* __restrict__ shared_bt,
+    const int* __restrict__ shared_lens, const int* __restrict__ lengths,
+    float* __restrict__ part, int batch, int q_heads, int kv_heads,
+    int num_pages, int page_size, int pages_per_seq, int split_keys,
+    float scale) {
+  __shared__ __align__(16) split::Tiles<HD> sm;
+  static_assert(split::kKeys == 32, "warp 1 reads a tile's pages by lane");
+  constexpr int kChunks = HD / 8;      // 16-byte chunks per row
+  const int z = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int group = q_heads / kv_heads;
+  const int per_cta = split::kRows / group;
+  const int cap = pages_per_seq * page_size;
+  const int span = clamp_to(shared_lens[g], cap);
+  const int lo = z * split_keys;
+  // the last split takes every key from its start
+  const int hi =
+      z == (int)gridDim.x - 1 ? span : min(lo + split_keys, span);
+  const int* table = shared_bt + (size_t)g * pages_per_seq;
+  const size_t head = (size_t)h * num_pages * page_size * HD;
+  const size_t split_off = (size_t)z * batch * q_heads;
+
+  // the first tile's pages, read while warp 0 finds the members (a tile is
+  // 32 keys, one per lane; a padding group's CTA reads none)
+  if (warp == 1) {
+    const int pos = lo + lane;
+    int page = pos < hi ? table[pos / page_size] : 0;
+    sm.tile_page[lane] =
+        page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+  }
+  // stages keys [k0, k0 + 32) of K and V; keys at or past kv_hi are zeros,
+  // never stale bytes: 0 * NaN would poison P V
+  const auto load_tile = [&](int k0, int kv_hi, bool first_tile) {
+    for (int i = tid; i < split::kKeys * kChunks; i += kThreads) {
+      const int j = i / kChunks, c = (i % kChunks) * 8;
+      const int pos = k0 + j;
+      if (pos < kv_hi) {
+        int page = first_tile ? sm.tile_page[j] : table[pos / page_size];
+        page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+        const size_t off =
+            head + ((size_t)page * page_size + pos % page_size) * HD + c;
+        ptx::cp_async_16(&sm.k[j][c], k_pages + off);
+        ptx::cp_async_16(&sm.v[j][c], v_pages + off);
+      } else {
+        *reinterpret_cast<uint4*>(&sm.k[j][c]) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(&sm.v[j][c]) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+
+  for (int first = 0;; first += per_cta) {
+    __syncthreads();  // the previous slice is consumed
+    if (warp == 0) {
+      // the members of group g ranked first .. first + per_cta - 1, and
+      // where each one's view of the span ends
+      int seen = 0, end = 0;
+      for (int b0 = 0; b0 < batch; b0 += 32) {
+        const int bb = b0 + lane;
+        const int rgb = bb < batch ? row_group[bb] : -1;
+        const int len = bb < batch ? lengths[bb] : 0;
+        const bool is = rgb == g;
+        const unsigned mask = __ballot_sync(0xffffffffu, is);
+        const int rank = seen + __popc(mask & ((1u << lane) - 1));
+        if (is && rank >= first && rank < first + per_cta) {
+          const int e = min(clamp_to(len, cap), span);
+          sm.member[rank - first] = bb;
+          sm.member_end[rank - first] = e;
+          end = max(end, e);
+        }
+        seen += __popc(mask);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        end = max(end, __shfl_xor_sync(0xffffffffu, end, off));
+      if (lane == 0) {
+        sm.n_members = min(max(seen - first, 0), per_cta);
+        sm.ctx_end = end;
+      }
+    }
+    __syncthreads();
+    const int nm = sm.n_members;
+    if (nm == 0) return;  // the same for every thread of the CTA
+    const int rows = nm * group;  // row r: member r / group, head r % group
+    const int kv_hi = min(hi, sm.ctx_end);   // no key at or past it loads
+
+    // Q (unscaled; zeros past the member rows) and the first K/V tile in
+    // one batch of copies; a split with no visible key needs neither
+    for (int i = tid; lo < kv_hi && i < split::kRows * kChunks;
+         i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      if (r < rows)
+        ptx::cp_async_16(&sm.q[r][c],
+                         q + ((size_t)sm.member[r / group] * q_heads +
+                              (size_t)h * group + r % group) * HD + c);
+      else
+        *reinterpret_cast<uint4*>(&sm.q[r][c]) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (lo < kv_hi) load_tile(lo, kv_hi, true);
+    ptx::cp_async_wait_all();
+    __syncthreads();
+
+    // this thread holds rows r0 and r0 + 8 of its warp's 16; row r sees
+    // keys [lo, min(its member's end, hi))
+    const int r0 = warp * 16 + lane / 4;
+    const bool active = warp * 16 < rows;   // the same for the whole warp
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + 8 * i;
+      lim[i] = r < rows ? min(sm.member_end[r / group], kv_hi) : 0;
+    }
+    uint32_t qa[HD / 16][4];
+    if (active && lo < kv_hi) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ptx::ldmatrix_x4(qa[kk], &sm.q[warp * 16 + lane % 8 +
+                                       8 * ((lane / 8) % 2)]
+                                      [16 * kk + 8 * (lane / 16)]);
+    }
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float o[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+    for (int k0 = lo; k0 < kv_hi; k0 += split::kKeys) {
+      if (k0 != lo) {   // the first tile came with Q
+        __syncthreads();  // the previous tile is consumed
+        load_tile(k0, kv_hi, false);
+        ptx::cp_async_wait_all();
+        __syncthreads();
+      }
+      if (!active) continue;
+
+      // S = Q K^T: sc[nb] is keys 8 nb .. 8 nb + 7 of the tile
+      float sc[split::kKeys / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < split::kKeys / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
+#pragma unroll
+        for (int c32 = 0; c32 < HD / 32; ++c32) {
+          uint32_t kb[4];
+          ptx::ldmatrix_x4(kb, &sm.k[8 * nb + lane % 8]
+                                    [32 * c32 + 8 * (lane / 8)]);
+          ptx::mma_m16n8k16(sc[nb], qa[2 * c32], kb[0], kb[1]);
+          ptx::mma_m16n8k16(sc[nb], qa[2 * c32 + 1], kb[2], kb[3]);
+        }
+      }
+      // online softmax; sc[nb][2 i + e] is row r0 + 8 i, key
+      // k0 + 8 nb + 2 (lane % 4) + e; a row's keys sit in one quad
+      const int kc = k0 + 2 * (lane % 4);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int nb = 0; nb < split::kKeys / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[nb][2 * i + e];
+            x = kc + 8 * nb + e < lim[i] ? x * scale : kNegInf;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = expf(m[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < split::kKeys / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& x = sc[nb][2 * i + e];
+            x = kc + 8 * nb + e < lim[i] ? expf(x - m_new) : 0.f;
+            sum += x;
+          }
+        l[i] = l[i] * alpha + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          o[n][2 * i] *= alpha;
+          o[n][2 * i + 1] *= alpha;
+        }
+      }
+      // O += P V over 16-key steps, P split hi/lo
+#pragma unroll
+      for (int kk = 0; kk < split::kKeys / 16; ++kk) {
+        uint32_t ph[4], pl[4];
+        ptx::split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+        ptx::split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+        ptx::split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+        ptx::split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int np = 0; np < HD / 16; ++np) {
+          uint32_t vb[4];
+          ptx::ldmatrix_x4_trans(vb, &sm.v[16 * kk + lane % 8 +
+                                          8 * ((lane / 8) % 2)]
+                                         [16 * np + 8 * (lane / 16)]);
+          ptx::mma_m16n8k16(o[2 * np], ph, vb[0], vb[1]);
+          ptx::mma_m16n8k16(o[2 * np], pl, vb[0], vb[1]);
+          ptx::mma_m16n8k16(o[2 * np + 1], ph, vb[2], vb[3]);
+          ptx::mma_m16n8k16(o[2 * np + 1], pl, vb[2], vb[3]);
+        }
+      }
+    }
+
+    // this split's raw partials of every member row
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float lt = l[i];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        const int r = r0 + 8 * i;
+        if (r >= rows) continue;
+        const size_t idx = split_off +
+                           (size_t)sm.member[r / group] * q_heads +
+                           (size_t)h * group + r % group;
+        float* out = part + idx * (HD + 2);  // 8-byte aligned: HD + 2 even
+        if (lane % 4 == 0) {
+          out[HD] = m[i];
+          out[HD + 1] = lt;
+        }
+        float* dst = out + 2 * (lane % 4);
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n)
+          *reinterpret_cast<float2*>(dst + 8 * n) =
+              make_float2(o[n][2 * i], o[n][2 * i + 1]);
       }
     }
   }
@@ -125,10 +407,10 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
     const T* __restrict__ v_pages, const int* __restrict__ row_group,
     const int* __restrict__ shared_lens, const int* __restrict__ branch_bt,
-    const int* __restrict__ lengths, const float* __restrict__ m_shared,
-    const float* __restrict__ l_shared, const float* __restrict__ acc_shared,
-    T* __restrict__ out, int q_heads, int kv_heads, int num_pages,
-    int page_size, int pages_per_seq, int num_groups, float scale) {
+    const int* __restrict__ lengths, const float* __restrict__ part,
+    T* __restrict__ out, int batch, int q_heads, int kv_heads, int num_pages,
+    int page_size, int pages_per_seq, int num_groups, int split_keys,
+    int n_split, float scale) {
   __shared__ Shared<HD> sm;
   constexpr int kStep = Dims<HD>::kStep;
   constexpr int kPer = Dims<HD>::kPer;
@@ -155,20 +437,37 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
                       branch_bt + (size_t)b * pages_per_seq, pages_per_seq,
                       num_pages, page_size, suffix, group);
 
-  // merge with the shared pass's partials (disjoint key sets), then divide
+  // merge the shared pass's split partials in split order, then the
+  // suffix's (disjoint key sets), then divide. Splits at or past the row's
+  // visible end min(length, span) hold (NEG_INF, 0, 0), which the merge
+  // leaves bit for bit unchanged, so they are not read.
   const int d = tid % HD;
+  const int used =
+      grouped ? min(n_split, (min(len, span) + split_keys - 1) / split_keys)
+              : 0;   // (the last split holds every key past its start)
+  const size_t split_stride = (size_t)batch * q_heads;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int r = tid / HD + i * kStep;
     if (r < group) {
-      float l = sm.l[r], o = acc[i];
+      float m = sm.m[r], l = sm.l[r], o = acc[i];
       if (grouped) {
         const size_t idx = (size_t)b * q_heads + (size_t)h * group + r;
-        const float ms = m_shared[idx], mb = sm.m[r];
-        const float mx = fmaxf(ms, mb);
-        const float as = expf(ms - mx), ab = expf(mb - mx);
-        l = l_shared[idx] * as + l * ab;
-        o = acc_shared[idx * HD + d] * as + o * ab;
+        float ms = kNegInf, ls = 0.f, os = 0.f;
+#pragma unroll 1
+        for (int z = 0; z < used; ++z) {
+          const float* pz = part + (z * split_stride + idx) * (HD + 2);
+          const float mz = pz[HD];
+          const float mx = fmaxf(ms, mz);
+          const float a = expf(ms - mx), az = expf(mz - mx);
+          ls = ls * a + pz[HD + 1] * az;
+          os = os * a + pz[d] * az;
+          ms = mx;
+        }
+        const float mx = fmaxf(ms, m);
+        const float as = expf(ms - mx), ab = expf(m - mx);
+        l = ls * as + l * ab;
+        o = os * as + o * ab;
       }
       store(out + q_row + (size_t)r * HD + d, o / fmaxf(l, 1e-30f));
     }
@@ -177,42 +476,72 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
 
 // Launchers: each returns the cudaError_t of its launch (0 on success).
 // dtype: 0 = fp32, 1 = bf16. The caller has checked shapes, dtypes and
-// contiguity; q_heads / kv_heads must not exceed 32.
+// contiguity; q_heads / kv_heads must not exceed 32. The shared pass
+// writes fp32 partials [n_split, batch, q_heads, head_dim + 2], each row
+// acc (head_dim) then m then l: bf16 splits the span into n_split runs of
+// split_keys keys, the last run taking every key from its start; fp32
+// runs the CUDA-core loop over the whole span (n_split = 1).
 extern "C" int tree_shared_launch(
     int dtype, int head_dim, const void* q, const void* k_pages,
     const void* v_pages, const void* row_group, const void* shared_bt,
-    const void* shared_lens, const void* lengths, void* m_out, void* l_out,
-    void* acc_out, int batch, int q_heads, int kv_heads, int num_pages,
-    int page_size, int pages_per_seq, int num_groups, float scale,
-    void* stream) {
+    const void* shared_lens, const void* lengths, void* part, int batch,
+    int q_heads, int kv_heads, int num_pages,
+    int page_size, int pages_per_seq, int num_groups, int split_keys,
+    int n_split, float scale, void* stream) {
   const int group = q_heads / kv_heads;
   if (group < 1 || group > kMaxRows) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1) {
+    if (split_keys < 1 || n_split < 1) return (int)cudaErrorInvalidValue;
+    // groups slowest, so the real (low-numbered) groups start first
+    const dim3 grid(n_split, kv_heads, num_groups);
+    using bf16 = __nv_bfloat16;
+    const auto args = [&](auto kernel) {
+      kernel<<<grid, kThreads, 0, s>>>(
+          (const bf16*)q, (const bf16*)k_pages, (const bf16*)v_pages,
+          (const int*)row_group, (const int*)shared_bt,
+          (const int*)shared_lens, (const int*)lengths, (float*)part, batch,
+          q_heads, kv_heads, num_pages, page_size, pages_per_seq,
+          split_keys, scale);
+    };
+    if (head_dim == 128) args(tree_shared_mma_kernel<128>);
+    else if (head_dim == 64) args(tree_shared_mma_kernel<64>);
+    else if (head_dim == 32) args(tree_shared_mma_kernel<32>);
+    else return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+  }
+  if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
   const int per_cta = kMaxRows / group;
   const dim3 grid(kv_heads, num_groups, (batch + per_cta - 1) / per_cta);
-  cudaStream_t s = (cudaStream_t)stream;
-  const bool ok = dispatch(dtype, head_dim, [&](auto t, auto hd) {
-    using T = decltype(t);
-    constexpr int HD = decltype(hd)::value;
-    tree_shared_kernel<T, HD><<<grid, kThreads, 0, s>>>(
-        (const T*)q, (const T*)k_pages, (const T*)v_pages,
+  const auto args = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, s>>>(
+        (const float*)q, (const float*)k_pages, (const float*)v_pages,
         (const int*)row_group, (const int*)shared_bt,
-        (const int*)shared_lens, (const int*)lengths, (float*)m_out,
-        (float*)l_out, (float*)acc_out, batch, q_heads, kv_heads, num_pages,
-        page_size, pages_per_seq, per_cta, scale);
-  });
-  if (!ok) return (int)cudaErrorInvalidValue;
+        (const int*)shared_lens, (const int*)lengths, (float*)part, batch,
+        q_heads, kv_heads, num_pages, page_size, pages_per_seq, per_cta,
+        scale);
+  };
+  if (head_dim == 128) args(tree_shared_kernel<float, 128>);
+  else if (head_dim == 64) args(tree_shared_kernel<float, 64>);
+  else if (head_dim == 32) args(tree_shared_kernel<float, 32>);
+  else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
+// The branch pass merges the shared pass's split partials (in split order,
+// split z covering span keys [z * split_keys, (z + 1) * split_keys), the
+// last every key from its start) before the row's own suffix.
 extern "C" int tree_branch_launch(
     int dtype, int head_dim, const void* q, const void* k_pages,
     const void* v_pages, const void* row_group, const void* shared_lens,
-    const void* branch_bt, const void* lengths, const void* m_shared,
-    const void* l_shared, const void* acc_shared, void* out, int batch,
+    const void* branch_bt, const void* lengths, const void* part,
+    void* out, int batch,
     int q_heads, int kv_heads, int num_pages, int page_size,
-    int pages_per_seq, int num_groups, float scale, void* stream) {
+    int pages_per_seq, int num_groups, int split_keys, int n_split,
+    float scale, void* stream) {
   const int group = q_heads / kv_heads;
-  if (group < 1 || group > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (group < 1 || group > kMaxRows || n_split < 1 || split_keys < 1)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(batch, kv_heads);
   cudaStream_t s = (cudaStream_t)stream;
   const bool ok = dispatch(dtype, head_dim, [&](auto t, auto hd) {
@@ -221,9 +550,10 @@ extern "C" int tree_branch_launch(
     tree_branch_kernel<T, HD><<<grid, kThreads, 0, s>>>(
         (const T*)q, (const T*)k_pages, (const T*)v_pages,
         (const int*)row_group, (const int*)shared_lens,
-        (const int*)branch_bt, (const int*)lengths, (const float*)m_shared,
-        (const float*)l_shared, (const float*)acc_shared, (T*)out, q_heads,
-        kv_heads, num_pages, page_size, pages_per_seq, num_groups, scale);
+        (const int*)branch_bt, (const int*)lengths, (const float*)part,
+        (T*)out, batch,
+        q_heads, kv_heads, num_pages, page_size, pages_per_seq, num_groups,
+        split_keys, n_split, scale);
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

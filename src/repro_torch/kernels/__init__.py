@@ -10,7 +10,9 @@
 #                     csrc/paged_prefill.cu, wrapper paged_prefill.py)
 #                     and the dense flash prefill of a whole prompt on the
 #                     exact-length path and in Model.forward/prefill (K5,
-#                     csrc/flash_prefill.cu, wrapper flash_prefill.py);
+#                     csrc/flash_prefill_sm90.cu in bf16 and
+#                     csrc/flash_prefill.cu in fp32, wrapper
+#                     flash_prefill.py);
 #   ssd_scan        — the Mamba-2 SSD chunked scan with state in and out of
 #                     the ssm/hybrid chunk lanes (K4, csrc/ssd_scan.cu,
 #                     wrapper ssd_scan.py; plain versions in ref.py).

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Any, Dict, List, Sequence
 
 import torch
 
@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 SOURCES = ("paged_decode", "paged_prefill", "paged_tree_decode", "ssd_scan",
-           "flash_prefill")
+           "flash_prefill", "flash_prefill_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,8 +33,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HEAD_DIMS = (32, 64, 128)
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, Any] = {}
 #: nvcc's report per source (ptxas registers, shared memory, spills)
 build_log: Dict[str, str] = {}
+#: seconds from the start of build_all to each source's nvcc finishing
+build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -67,16 +70,24 @@ def build_all(names=SOURCES) -> float:
         if lib.exists():
             continue
         tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        log = out_dir / f"{name}.{os.getpid()}.log"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        with open(log, "w") as f:
+            procs.append((name, lib, tmp, log, subprocess.Popen(
+                cmd, stdout=f, stderr=subprocess.STDOUT)))
+    pending = list(procs)
+    while pending:                  # note when each one finishes
+        for item in list(pending):
+            if item[4].poll() is not None:
+                build_seconds[item[0]] = time.perf_counter() - t0
+                pending.remove(item)
+        time.sleep(0.05)
     failed = []
-    for name, lib, tmp, proc in procs:
-        log, _ = proc.communicate()
-        build_log[name] = log
+    for name, lib, tmp, log, proc in procs:
+        build_log[name] = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{name}:\n{build_log[name]}")
             continue
         os.replace(tmp, lib)
     if failed:
@@ -94,6 +105,18 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def function(name: str, fn_name: str, argtypes: Sequence) -> Any:
+    """``csrc/<name>.cu``'s launcher ``fn_name`` with its argument types
+    set (ctypes would otherwise pass pointers as 32-bit ints), loaded at
+    first use and kept, so a launch pays no lookup."""
+    key = f"{name}.{fn_name}"
+    if key not in _fns:
+        fn = getattr(load(name), fn_name)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _fns[key] = fn
+    return _fns[key]
+
+
 def dtype_code(t) -> int:
     """The launchers' dtype switch: 0 = fp32, 1 = bf16; raises otherwise."""
     codes = {torch.float32: 0, torch.bfloat16: 1}
@@ -104,13 +127,22 @@ def dtype_code(t) -> int:
 
 def check_operands(kernel: str, *tensors) -> None:
     """Every operand on one CUDA device and contiguous, or raise."""
-    dev = tensors[0].device
+    dev = tensors[0].get_device()          # -1 on the CPU
     for t in tensors:
-        if t.device.type != "cuda" or t.device != dev:
+        if dev < 0 or t.get_device() != dev:
             raise ValueError(f"{kernel}: operands must share one CUDA "
-                             f"device, got {t.device} and {dev}")
+                             f"device, got {t.device} and "
+                             f"{tensors[0].device}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: operands must be contiguous")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream of ``t``'s device, for a
+    launcher's last argument (the raw handle: building a
+    ``torch.cuda.Stream`` object costs the host several microseconds on
+    every launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_paged_operands(kernel: str, q, k_pages, v_pages,

@@ -1,14 +1,19 @@
 """Wrapper of the hand-written CUDA dense flash prefill (kernel K5).
 
-The kernel is ``csrc/flash_prefill.cu``; it replaces the TPU kernel
-``repro/kernels/flash_prefill/flash_prefill.py:flash_prefill``. It is
+Two kernels replace the TPU kernel
+``repro/kernels/flash_prefill/flash_prefill.py:flash_prefill``, chosen by
+dtype: bf16 runs on the tensor cores (``csrc/flash_prefill_sm90.cu``:
+wgmma fed by TMA, one or two consumer warpgroups of 64 rows per CTA),
+fp32 on the CUDA cores (``csrc/flash_prefill.cu``, 64 rows per CTA),
+since bf16 tensor-core products cannot meet fp32's tolerance. Both are
 forward-only, as the TPU kernel is (no gradient is defined there), so an
 input that requires grad raises. ``launches`` counts the launches this
-wrapper made.
+wrapper made, of either kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -17,24 +22,47 @@ from .. import build
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
     [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-MAX_ROWS = 64           # query positions x GQA group one CTA holds
+_SM90_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+    [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+MAX_GROUP = 64          # query heads per KV head (one position's rows)
+MAX_ROWS = 128          # query rows (positions x GQA group) one CTA holds
+WG_ROWS = 64            # rows of one consumer warpgroup (and of fp32 CTAs)
 
 
-def block_rows(group: int) -> int:
-    """Query positions per CTA: as many as keep positions x group within
-    64."""
-    return MAX_ROWS // group
+def block_rows(group: int, rows: int = WG_ROWS) -> int:
+    """Query positions per CTA of ``rows`` rows (64 or 128): as many as
+    keep positions x group within it."""
+    return rows // group
+
+
+def cta_rows(seqlen: int, group: int, kv_heads: int, batch: int,
+             dtype: torch.dtype, num_sms: int) -> int:
+    """Rows per CTA, a fixed rule: 128 (two consumer warpgroups sharing
+    each K/V tile) for bf16 where the grid still has a CTA for each of
+    the card's ``num_sms`` SMs, else 64; fp32's CUDA-core kernel always
+    takes 64. r1-distill-14b (group 5, 8 KV heads) on an H100 SXM (132
+    SMs): 88 CTAs of 128 rows at S = 272, so 184 of 64; 1,312 of 128 at
+    S = 4096."""
+    if dtype != torch.bfloat16:
+        return WG_ROWS
+    tiles = -(-seqlen // block_rows(group, MAX_ROWS))
+    return MAX_ROWS if tiles * kv_heads * batch >= num_sms else WG_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True,
                   true_len: Optional[int] = None) -> torch.Tensor:
     """q [B, S, H, hd]; k, v [B, S, Hkv, hd] with Hkv | H and at most 64
-    query heads per KV head; one dtype, fp32 or bf16; head_dim 32, 64 or
-    128. ``true_len`` is a host int in (0, S] or None (= S). Returns
-    [B, S, H, hd]."""
+    query heads per KV head; one dtype, fp32 or bf16 (which picks the
+    kernel); head_dim 32, 64 or 128. ``true_len`` is a host int in (0, S]
+    or None (= S). Returns [B, S, H, hd]."""
     global launches
     if any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_prefill: K5 is forward-only; an input "
@@ -51,7 +79,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_prefill: head_dim {head_dim} not in "
                          f"{build.HEAD_DIMS}")
     if kv_heads < 1 or q_heads % kv_heads or \
-            q_heads // kv_heads > MAX_ROWS:
+            q_heads // kv_heads > MAX_GROUP:
         raise ValueError(f"flash_prefill: {q_heads} query heads over "
                          f"{kv_heads} KV heads")
     build.check_operands("flash_prefill", q, k, v)
@@ -64,14 +92,24 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if batch == 0:
         return out
-    lib = build.load("flash_prefill")
-    fn = lib.flash_prefill_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    rc = fn(build.dtype_code(q), head_dim, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), batch, seqlen, q_heads, kv_heads,
-            n, block_rows(q_heads // kv_heads), int(causal),
-            1.0 / head_dim ** 0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    group = q_heads // kv_heads
+    stream = build.stream(q)
+    if q.dtype == torch.bfloat16:
+        rows = cta_rows(seqlen, group, kv_heads, batch, q.dtype,
+                        _num_sms(q.device))
+        fn = build.function("flash_prefill_sm90",
+                            "flash_prefill_sm90_launch", _SM90_ARGTYPES)
+        rc = fn(head_dim, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), batch, seqlen, q_heads, kv_heads, n, rows,
+                block_rows(group, rows), int(causal), 1.0 / head_dim ** 0.5,
+                stream)
+    else:
+        fn = build.function("flash_prefill", "flash_prefill_launch",
+                            _ARGTYPES)
+        rc = fn(head_dim, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), batch, seqlen, q_heads, kv_heads, n,
+                block_rows(group), int(causal), 1.0 / head_dim ** 0.5,
+                stream)
     build.raise_on_error("flash_prefill", rc)
     launches += 1
     return out

@@ -44,15 +44,13 @@ def paged_flash_prefill_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if t == 0:
         return out
-    lib = build.load("paged_prefill")
-    fn = lib.paged_prefill_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.function("paged_prefill", "paged_prefill_launch", _ARGTYPES)
     rc = fn(build.dtype_code(q), head_dim, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_table.data_ptr(), out.data_ptr(), t,
             q_heads, kv_heads, num_pages, page_size, block_table.shape[0],
             pos0, valid_len, block_rows(q_heads // kv_heads),
             1.0 / head_dim ** 0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            build.stream(q))
     build.raise_on_error("paged_prefill", rc)
     launches += 1
     return out

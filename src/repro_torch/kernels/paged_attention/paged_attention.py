@@ -38,14 +38,12 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if batch == 0:
         return out
-    lib = build.load("paged_decode")
-    fn = lib.paged_decode_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.function("paged_decode", "paged_decode_launch", _ARGTYPES)
     rc = fn(build.dtype_code(q), head_dim, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), batch, q_heads, kv_heads, num_pages, page_size,
             block_tables.shape[1], 1.0 / head_dim ** 0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            build.stream(q))
     build.raise_on_error("paged_decode", rc)
     launches += 1
     return out

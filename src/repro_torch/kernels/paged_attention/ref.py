@@ -88,14 +88,15 @@ def tree_full_tables(row_group: torch.Tensor, shared_bt: torch.Tensor,
 
 
 def _partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              end: torch.Tensor):
+              end: torch.Tensor, start: int = 0):
     """Raw fp32 online-softmax partials of q [B, H, hd] over gathered
-    k/v [B, kv, S, hd], row b seeing keys < end[b]: (m, l, acc) as
-    [B, H], [B, H], [B, H, hd]; a row with no key gets (NEG_INF, 0, 0)."""
+    k/v [B, kv, S, hd], row b seeing keys start <= key < end[b]: (m, l,
+    acc) as [B, H], [B, H], [B, H, hd]; a row with no key gets
+    (NEG_INF, 0, 0)."""
     batch, q_heads, head_dim = q.shape
     kv_heads = k.shape[1]
-    mask = (torch.arange(k.shape[2], device=q.device)[None, :]
-            < end[:, None])[:, None, None, :]         # [B, 1, 1, S]
+    key = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = ((key >= start) & (key < end[:, None]))[:, None, None, :]
     qg = q.reshape(batch, kv_heads, -1, head_dim).float()
     s = torch.einsum("bkgd,bksd->bkgs", qg, k) / (head_dim ** 0.5)
     s = s.masked_fill(~mask, NEG_INF)
@@ -107,6 +108,21 @@ def _partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc.reshape(batch, q_heads, head_dim))
 
 
+def _shared_span(q, k_pages, v_pages, row_group, shared_bt, shared_lens,
+                 lengths):
+    """Each row's group's gathered shared K/V [B, kv, S, hd] (fp32) and
+    its visible end min(length, span); 0 for a row in no group."""
+    num_groups = shared_bt.shape[0]
+    rg = row_group.long()
+    grouped = (rg >= 0) & (rg < num_groups)
+    grp = rg.clamp(0, num_groups - 1)
+    table = shared_bt[grp]
+    span = torch.where(grouped, shared_lens.long()[grp], 0)
+    end = torch.minimum(lengths.long(), span)
+    return (gather_pages(k_pages, table).float(),
+            gather_pages(v_pages, table).float(), end)
+
+
 def tree_shared_partials_ref(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, row_group: torch.Tensor,
                              shared_bt: torch.Tensor,
@@ -115,15 +131,41 @@ def tree_shared_partials_ref(q: torch.Tensor, k_pages: torch.Tensor,
     """Plain version of K3's shared pass: each grouped row's raw partials
     over its group's shared pages, keys < min(length, span). Rows in no
     group get (NEG_INF, 0, 0), which the kernel leaves unwritten."""
-    num_groups = shared_bt.shape[0]
-    rg = row_group.long()
-    grouped = (rg >= 0) & (rg < num_groups)
-    grp = rg.clamp(0, num_groups - 1)
-    table = shared_bt[grp]
-    span = torch.where(grouped, shared_lens.long()[grp], 0)
-    end = torch.minimum(lengths.long(), span)
-    return _partials(q, gather_pages(k_pages, table).float(),
-                     gather_pages(v_pages, table).float(), end)
+    k, v, end = _shared_span(q, k_pages, v_pages, row_group, shared_bt,
+                             shared_lens, lengths)
+    return _partials(q, k, v, end)
+
+
+def tree_shared_split_partials_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor,
+                                   row_group: torch.Tensor,
+                                   shared_bt: torch.Tensor,
+                                   shared_lens: torch.Tensor,
+                                   lengths: torch.Tensor, split_keys: int,
+                                   n_split: int):
+    """Plain version of the bf16 shared pass's split partials: split z
+    holds each grouped row's raw partials over span keys [z * split_keys,
+    (z + 1) * split_keys), the last split every key from its start, keys
+    < min(length, span) only; (m, l, acc) as [n_split, B, H], [n_split,
+    B, H], [n_split, B, H, hd]."""
+    k, v, end = _shared_span(q, k_pages, v_pages, row_group, shared_bt,
+                             shared_lens, lengths)
+    parts = [_partials(q, k, v, end if z == n_split - 1 else
+                       torch.clamp(end, max=(z + 1) * split_keys),
+                       z * split_keys) for z in range(n_split)]
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def tree_merge_splits_ref(m: torch.Tensor, l: torch.Tensor,
+                          acc: torch.Tensor):
+    """Folds split partials (m, l [n_split, B, H], acc [n_split, B, H,
+    hd]) into one set of raw partials [B, H], [B, H], [B, H, hd], the
+    ``tree_shared_partials_ref`` form: m the largest split max, l and acc
+    each split's rescaled to it and summed over splits. Splits without a
+    key (NEG_INF, 0, 0) add nothing."""
+    m_all = m.amax(0)
+    w = torch.exp(m - m_all)
+    return m_all, (l * w).sum(0), (acc * w[..., None]).sum(0)
 
 
 def tree_branch_merge_ref(q: torch.Tensor, k_pages: torch.Tensor,

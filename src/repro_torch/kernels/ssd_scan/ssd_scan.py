@@ -69,13 +69,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     fin = torch.empty((bs, h, p, n), dtype=x.dtype, device=x.device)
     if bs == 0 or h == 0:
         return y, fin
-    lib = build.load("ssd_scan")
-    fn = lib.ssd_scan_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
     rc = fn(build.dtype_code(x), x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             b.data_ptr(), c.data_ptr(),
             initial_state.data_ptr() if initial_state is not None else None,
-            y.data_ptr(), fin.data_ptr(), bs, s, h, p, n, chunk, torch.cuda.current_stream(x.device).cuda_stream)
+            y.data_ptr(), fin.data_ptr(), bs, s, h, p, n, chunk,
+            build.stream(x))
     build.raise_on_error("ssd_scan", rc)
     launches += 1
     return y, fin

@@ -935,6 +935,9 @@ class Engine:
         if tree is not None:
             rg, sbt, sl, bbt = tree
             parts += [rg, sl, sbt.reshape(-1), bbt.reshape(-1)]
+            # the longest group span, a host int: K3 splits its shared
+            # pass by it
+            tree_span = int(sl.max(initial=0))
         if mc.uses_ssm:
             parts += [slot_valid, np.asarray(chunk_lens, np.int32)]
         host = np.concatenate(parts + [cow_src, cow_dst]).astype(np.int32)
@@ -992,7 +995,7 @@ class Engine:
                         # decode rows over the fork-group map (K3)
                         att = paged_tree_attention(q[:nS], kp, vp, rg_d,
                                                    sbt_d, sl_d, bbt_d,
-                                                   len_d[:nS])
+                                                   len_d[:nS], tree_span)
                     else:
                         att = paged_attention(q[:nS], kp, vp, bt_d[:nS],
                                               len_d[:nS])

@@ -112,29 +112,67 @@ def test_plain_version_keeps_bf16(rng):
 
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(rng):
     """The CUDA wrapper never computes on the CPU and never falls back:
-    it raises for CPU tensors, for inputs that require grad (K5 is
-    forward-only, as the TPU kernel), for head_dim 256 (gemma-7b) and
-    for more than 64 query heads per KV head."""
+    it raises for CPU tensors (fp32 and bf16, whichever kernel they would
+    pick), for inputs that require grad (K5 is forward-only, as the TPU
+    kernel), for head_dim 256 (gemma-7b) and for more than 64 query heads
+    per KV head."""
     q, k, v = [torch.from_numpy(a) for a in _inputs(rng, 1, 8, 4, 2, 64)]
     with pytest.raises(ValueError, match="CUDA"):
         flash_prefill(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_prefill(*[t.to(torch.bfloat16) for t in (q, k, v)])
     with pytest.raises(RuntimeError, match="forward-only"):
         flash_prefill(q.clone().requires_grad_(), k, v)
     wide = [torch.zeros((1, 8, n, 256)) for n in (4, 2, 2)]
     with pytest.raises(ValueError, match="head_dim 256"):
         flash_prefill(*wide)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        flash_prefill(*[t.to(torch.bfloat16) for t in wide])
     many = [torch.zeros((1, 8, n, 32)) for n in (128, 1, 1)]
     with pytest.raises(ValueError, match="128 query heads over 1"):
         flash_prefill(*many)
     assert k5_module.launches == 0
 
 
-def test_block_rows_fill_a_cta():
-    """A CTA holds floor(64 / group) positions x group heads <= 64
-    rows (r1-distill-14b: 12 positions x 5 heads)."""
+@pytest.mark.parametrize("cta", [64, 128])
+def test_block_rows_fill_a_cta(cta):
+    """A CTA of 64 rows (one consumer warpgroup; the fp32 kernel) or 128
+    (two) holds floor(rows / group) positions x group heads, filled to
+    within one group (r1-distill-14b: 12 or 25 positions x 5 heads)."""
     for group in (1, 2, 5, 7, 8, 64):
-        rows = k5_module.block_rows(group) * group
-        assert 64 - group < rows <= 64
+        rows = k5_module.block_rows(group, cta) * group
+        assert cta - group < rows <= cta
+    assert k5_module.block_rows(5) == 12
+
+
+H100_SMS = 132      # streaming multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize("seqlen,group,kv_heads,batch,want", [
+    (272, 5, 8, 1, 64),      # r1-distill-14b's admissions: 88 CTAs of 128
+    (4096, 5, 8, 1, 128),    # its Model.prefill(4096): 1,312 CTAs of 128
+    (272, 7, 2, 1, 64),      # qwen2-0.5b: 11 x 2 = 22 CTAs of 128
+    (2000, 7, 2, 8, 128),    # 111 x 2 x 8 = 1,776
+    (100, 2, 2, 2, 64),
+    (3300, 1, 1, 1, 64),     # 26 tiles of 128 positions: still too few
+    (17000, 1, 1, 1, 128),   # 133 tiles of 128
+])
+def test_cta_rows_rule(seqlen, group, kv_heads, batch, want):
+    """The bf16 tiling rule on an H100 SXM (132 SMs): 128 rows per CTA
+    where that still gives the grid a CTA for each SM, else 64; fp32
+    always 64. Either way every query position lies in exactly one
+    CTA."""
+    rows = k5_module.cta_rows(seqlen, group, kv_heads, batch,
+                              torch.bfloat16, H100_SMS)
+    assert rows == want
+    assert k5_module.cta_rows(seqlen, group, kv_heads, batch,
+                              torch.float32, H100_SMS) == 64
+    per = k5_module.block_rows(group, rows)
+    tiles = -(-seqlen // per)
+    assert (tiles - 1) * per < seqlen <= tiles * per
+    tiles128 = -(-seqlen // k5_module.block_rows(group, 128))
+    assert (tiles128 * kv_heads * batch >= H100_SMS) == \
+        (rows == 128)
 
 
 # ------------------------------------------------------- on the card only
@@ -155,6 +193,8 @@ CARD_CASES = {
     "hd32_nondivisible": (2, 100, 4, 2, 32, True, None),
     "noncausal": (2, 37, 4, 2, 32, False, None),
     "true_len": (1, 272, 40, 8, 128, True, 200),
+    # 16 key tiles through the TMA ring, the last one partial
+    "ring_wrap": (1, 1000, 40, 8, 128, True, 997),
 }
 
 

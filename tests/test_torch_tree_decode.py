@@ -9,8 +9,10 @@ plain version (the same gather-and-softmax in two frameworks), 2e-4
 against the Pallas pair (its online softmax sums in another order; the
 reference's own tests use the same bound); 5e-2 for bf16 pages. Within
 the port, the tree plain version is bit-equal to the per-branch plain
-version (K1's) over the rebuilt tables. The CUDA pair itself runs only
-on a card (tests marked ``gpu``, skipped here).
+version (K1's) over the rebuilt tables. The bf16 shared pass's split
+partials, in their plain version, fold back to the whole-span partials
+within 1e-6 (fp32). The CUDA pair itself runs only on a card (tests
+marked ``gpu``, skipped here).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,15 +25,18 @@ from repro.kernels.paged_attention.ops import \
     tree_decode_bytes_read as j_tree_bytes
 from repro.kernels.paged_attention.ref import \
     paged_tree_attention_ref as j_tree_ref
+from repro.kernels.paged_attention.tree_decode import \
+    paged_tree_attention_fwd as j_tree_pallas
 from repro_torch.kernels.paged_attention import tree_decode
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_tree_attention,
                                                      tree_decode_bytes_read)
 from repro_torch.kernels.paged_attention.ref import (
-    NEG_INF, tree_branch_merge_ref, tree_full_tables,
-    tree_shared_partials_ref)
+    NEG_INF, tree_branch_merge_ref, tree_full_tables, tree_merge_splits_ref,
+    tree_shared_partials_ref, tree_shared_split_partials_ref)
 
 TOL_REF = dict(atol=1e-5, rtol=1e-5)
+TOL_MERGE = dict(atol=1e-6, rtol=1e-6)
 TOL_PALLAS = dict(atol=2e-4, rtol=0)
 TOL_BF16 = dict(atol=5e-2, rtol=0)
 
@@ -95,7 +100,12 @@ def _port(t, kp=None, vp=None, dtype=torch.float32):
     return paged_tree_attention(
         torch.from_numpy(t["q"]).to(dtype), torch.from_numpy(kp).to(dtype),
         torch.from_numpy(vp).to(dtype),
-        *(torch.from_numpy(t[k]) for k in _MAP))
+        *(torch.from_numpy(t[k]) for k in _MAP), _span(t))
+
+
+def _span(t):
+    """The longest group span, the host int the engine passes."""
+    return int(t["shared_lens"].max(initial=0))
 
 
 def _jax_args(t, kp=None, vp=None, dtype=jnp.float32):
@@ -179,6 +189,132 @@ def test_pass_plain_versions_compose_to_the_tree(name):
     torch.testing.assert_close(out, _port(t), **TOL_REF)
 
 
+def _split_partials(t, pages_per_split, n_split=None):
+    """The plain split partials of topology ``t`` with splits of
+    ``pages_per_split`` pages, as many as cover the table width unless
+    ``n_split`` is given (the last split takes the rest)."""
+    ps, width = t["kp"].shape[2], t["shared_bt"].shape[1]
+    n_split = n_split or -(-width // pages_per_split)
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, sbt, sl, _, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    return tree_shared_split_partials_ref(q, kp, vp, rg, sbt, sl, ln,
+                                          pages_per_split * ps, n_split)
+
+
+@pytest.mark.parametrize("pages_per_split", [1, 2, 4])
+@pytest.mark.parametrize("name", sorted(TOPOLOGIES))
+def test_merged_split_partials_equal_the_shared_partials(name,
+                                                         pages_per_split):
+    """The bf16 shared pass's contract on the CPU: split partials of 1, 2
+    or 4 pages (spans of 1-3 pages, so also spans that are not a whole
+    number of splits), folded by ``tree_merge_splits_ref``, equal the
+    whole-span partials within 1e-6 (fp32); a split past a row's end holds
+    exactly (NEG_INF, 0, 0)."""
+    shape, groups, singles = TOPOLOGIES[name]
+    t = _topology(21, groups, singles, **shape)
+    m, l, acc = _split_partials(t, pages_per_split)
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, sbt, sl, _, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    want = tree_shared_partials_ref(q, kp, vp, rg, sbt, sl, ln)
+    for got, ref in zip(tree_merge_splits_ref(m, l, acc), want):
+        torch.testing.assert_close(got, ref, **TOL_MERGE)
+    ps = t["kp"].shape[2]
+    grp = rg.long().clamp(0, sl.shape[0] - 1)
+    span = torch.where(rg < sl.shape[0], sl.long()[grp], 0)
+    end = torch.minimum(ln.long(), span)
+    for z in range(m.shape[0]):
+        empty = end <= z * pages_per_split * ps
+        assert bool((m[z][empty] == NEG_INF).all()
+                    and (l[z][empty] == 0).all()
+                    and (acc[z][empty] == 0).all())
+
+
+@pytest.mark.parametrize("n_split", [1, 2])
+@pytest.mark.parametrize("name", sorted(TOPOLOGIES))
+def test_last_split_takes_the_rest_of_the_span(name, n_split):
+    """Splits of one page but only 1 or 2 of them (a host span that
+    understates the groups' spans): the last split holds every key from
+    its start, so the fold still equals the whole-span partials."""
+    shape, groups, singles = TOPOLOGIES[name]
+    t = _topology(25, groups, singles, **shape)
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, sbt, sl, _, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    want = tree_shared_partials_ref(q, kp, vp, rg, sbt, sl, ln)
+    got = tree_merge_splits_ref(*_split_partials(t, 1, n_split))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **TOL_MERGE)
+
+
+@pytest.mark.parametrize("name", sorted(TOPOLOGIES))
+def test_merged_splits_and_branch_match_pallas(name):
+    """The plain split partials (2-page splits), folded and merged with
+    each row's suffix by ``tree_branch_merge_ref``, equal the JAX Pallas
+    pair run in interpret mode."""
+    shape, groups, singles = TOPOLOGIES[name]
+    t = _topology(22, groups, singles, **shape)
+    merged = tree_merge_splits_ref(*_split_partials(t, 2))
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, _, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    got = tree_branch_merge_ref(q, kp, vp, rg, sl, bbt, ln, *merged)
+    pallas = np.asarray(j_tree_pallas(*_jax_args(t), interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, **TOL_PALLAS)
+
+
+@pytest.mark.parametrize("span", [0, 16, 100, 256, 4096, 10 ** 6])
+@pytest.mark.parametrize("page_size,width", [(16, 32), (16, 5), (4, 3),
+                                             (4, 40), (16, 256), (64, 7),
+                                             (1, 100)])
+def test_shared_splits_cover_every_key_once(page_size, width, span):
+    """The launcher's split rule: bf16 splits are whole pages of at least
+    32 keys, at most 16 of them, covering the host span (the table when
+    None, never more than it); with the last split taking every key from
+    its start, each key of the table lies in exactly one split. fp32
+    takes one split."""
+    cap = page_size * width
+    cover = min(span, cap)
+    keys, n_split = tree_decode.shared_splits(page_size, width,
+                                              torch.bfloat16, span)
+    assert keys % page_size == 0 and keys >= 32
+    assert 1 <= n_split <= tree_decode.MAX_SPLITS
+    assert (n_split - 1) * keys < max(cover, 1) and \
+        cover <= -(-cover // page_size) * page_size <= n_split * keys
+    owner = [min(p // keys, n_split - 1) for p in range(cap)]
+    assert owner == sorted(owner) and set(owner) <= set(range(n_split))
+    assert tree_decode.shared_splits(page_size, width, torch.float32,
+                                     span) == (cap, 1)
+
+
+def test_shared_splits_give_the_serve_shape_128_working_ctas():
+    """At the tree serve's shape (16-token pages, 32-page tables, a
+    256-token span the engine passes) the bf16 split is 32 keys, 8 of
+    them, every one with keys: 2 groups x 8 KV heads x 8 = 128 CTAs.
+    A span of the whole table takes 16 splits of 512 keys."""
+    assert tree_decode.shared_splits(16, 32, torch.bfloat16, 256) == (32, 8)
+    assert tree_decode.shared_splits(16, 32, torch.bfloat16, 512) == \
+        (32, 16)
+    assert 2 * 8 * 8 == 128
+
+
+def test_unpack_partials_views_the_packed_rows():
+    """The shared pass's packed partials [n_split, B, H, hd + 2] hold each
+    row's acc, then m, then l; ``unpack_partials`` gives the three as
+    views in the ``tree_merge_splits_ref`` shapes, and the fold of packed
+    plain split partials equals the whole-span partials."""
+    t = _topology(26, [(2, [2 * 4 + 5, 2 * 4 + 1])], [6])
+    m, l, acc = _split_partials(t, 1)
+    packed = torch.cat([acc, m[..., None], l[..., None]], -1)
+    got = tree_decode.unpack_partials(packed)
+    for g, w in zip(got, (m, l, acc)):
+        assert g.shape == w.shape and torch.equal(g, w)
+        assert g.untyped_storage().data_ptr() == \
+            packed.untyped_storage().data_ptr()          # a view, no copy
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, sbt, sl, _, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    want = tree_shared_partials_ref(q, kp, vp, rg, sbt, sl, ln)
+    for g, w in zip(tree_merge_splits_ref(*got), want):
+        torch.testing.assert_close(g, w, **TOL_MERGE)
+
+
 def test_unowned_pages_never_reach_a_row():
     """Poisoning one branch's suffix pages and the pages no row owns (the
     clamp target included) leaves every other row unchanged: bitwise in
@@ -252,15 +388,59 @@ def test_tree_decode_bytes_read_is_the_reference_formula(path):
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    """The CUDA pair raises on CPU tensors instead of running anything."""
+    """The CUDA pair raises on CPU tensors instead of running anything
+    (the branch pass given split partials of the right shape)."""
     t = _topology(18, [(1, [4 + 2, 4 + 3])], [])
     q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
     rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
     with pytest.raises(ValueError, match="CUDA"):
-        tree_decode.paged_tree_attention_fwd(q, kp, vp, rg, sbt, sl, bbt, ln)
+        tree_decode.paged_tree_attention_fwd(q, kp, vp, rg, sbt, sl, bbt, ln,
+                                             _span(t))
     with pytest.raises(ValueError, match="CUDA"):
-        tree_decode.paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln,
-                                          q[..., 0], q[..., 0], q)
+        tree_decode.paged_tree_branch_fwd(
+            q, kp, vp, rg, sl, bbt, ln,
+            torch.zeros((1, *q.shape[:2], q.shape[2] + 2)), 4)
+    assert tree_decode.shared_launches == tree_decode.branch_launches == 0
+
+
+@pytest.mark.parametrize("case", ["no split axis", "wrong n_split",
+                                  "acc width", "dtype", "split width"])
+def test_branch_refuses_split_partials_of_the_wrong_shape(case):
+    """The branch pass takes only the shared pass's packed split partials
+    (fp32 [n_split, B, H, hd + 2], one split in fp32, at most 16 in bf16)
+    and a positive split width, and refuses anything else before it looks
+    at a device."""
+    t = _topology(23, [(1, [4 + 2, 4 + 3])], [])
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, _, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    keys, n = tree_decode.shared_splits(kp.shape[2], bbt.shape[1], q.dtype,
+                                        _span(t))
+    part = torch.zeros((n, *q.shape[:2], q.shape[2] + 2))
+    part, keys = {"no split axis": (part[0], keys),
+                  "wrong n_split": (part.repeat(2, 1, 1, 1), keys),
+                  "acc width": (part[..., :-1], keys),
+                  "dtype": (part.double(), keys),
+                  "split width": (part, 0)}[case]
+    with pytest.raises(ValueError, match="split partials|split_keys"):
+        tree_decode.paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln, part,
+                                          keys)
+    assert tree_decode.branch_launches == 0
+
+
+def test_cuda_pair_refuses_head_dim_256():
+    """head_dim 256 (gemma-7b) is refused by both passes, before any
+    launch."""
+    t = _topology(24, [(1, [4 + 2, 4 + 3])], [], hd=256)
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tree_decode.paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln,
+                                          _span(t))
+    with pytest.raises(ValueError, match="head_dim 256"):
+        tree_decode.paged_tree_branch_fwd(
+            q, kp, vp, rg, sl, bbt, ln,
+            torch.zeros((1, *q.shape[:2], q.shape[2] + 2)),
+            kp.shape[2] * bbt.shape[1])
     assert tree_decode.shared_launches == tree_decode.branch_launches == 0
 
 
@@ -272,20 +452,26 @@ def cuda():
     return torch.device("cuda")
 
 
+# on the card also: a group of 13 members at 5 heads per KV head, one more
+# than a CTA's 64 // 5 = 12, so its second member slice runs
+CARD_TOPOLOGIES = dict(TOPOLOGIES, thirteen_members=(
+    dict(qh=10, kvh=2), [(2, [2 * 4 + 1 + i for i in range(13)])], [5]))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("name", sorted(TOPOLOGIES))
+@pytest.mark.parametrize("name", sorted(CARD_TOPOLOGIES))
 def test_kernel_matches_plain_on_card(cuda, name, dtype, tol):
     """Both passes on the card against the plain version, with NaN in
     every page no row owns."""
-    shape, groups, singles = TOPOLOGIES[name]
+    shape, groups, singles = CARD_TOPOLOGIES[name]
     t = _topology(19, groups, singles, **shape)
     kp, vp = t["kp"].copy(), t["vp"].copy()
     kp[:, -2:], vp[:, -2:] = np.nan, np.nan
     args = [torch.from_numpy(a).to(cuda, dtype) for a in (t["q"], kp, vp)]
     args += [torch.from_numpy(t[k]).to(cuda) for k in _MAP]
-    out = tree_decode.paged_tree_attention_fwd(*args)
-    ref = paged_tree_attention(*(a.cpu() for a in args))
+    out = tree_decode.paged_tree_attention_fwd(*args, _span(t))
+    ref = paged_tree_attention(*(a.cpu() for a in args), _span(t))
     torch.cuda.synchronize()
     torch.testing.assert_close(out.cpu(), ref, atol=tol, rtol=tol)
