@@ -12,18 +12,25 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build   — nvcc builds the CUDA kernels from ``src/repro_torch/csrc``
                (the time of each source, ptxas's registers and spills,
                and the tensor-core instructions in the SASS);
-  3. kernels — K1 (paged flash-decode), K2 (paged flash-prefill), both
+  3. kernels — K1 (paged flash-decode; bf16 on the split-key mma.sync
+               decode core), K2 (paged flash-prefill), both
                passes of K3 (tree decode; the shared pass's split partials
-               folded by the plain merge), K4 (the SSD chunked scan, y
+               folded by the plain merge; the branch pass on the decode
+               core), K4 (the SSD chunked scan, y
                and final state, with and without an initial state) and K5
                (the dense flash prefill: wgmma in bf16, CUDA cores in
                fp32) against their plain PyTorch versions on the card,
                bf16 and fp32, at the serving shapes
                of r1-distill-14b and mamba2-130m, one qwen2-0.5b and one
                hymba-1.5b shape, head_dim 32 (the launcher's fallback
-               trunks) for K1-K3 and K5, and the edge cases (K3's
-               topologies, a span that is not a whole number of splits and
-               a 13-member group; K4's non-divisible S, masked dt and
+               trunks) for K1-K3 and K5, and the edge cases (K1's ragged
+               lengths 0-512, and 0-2,048 over 128-page tables cut into two
+               key splits, and a 24-head GQA group; K3's topologies, the
+               same ragged lengths in one group, suffixes across two key
+               splits, a span that is not a
+               whole number of splits and a 13-member group; K1 and K3
+               outputs bit-equal with and without the NaN in stale and
+               unowned pages; K4's non-divisible S, masked dt and
                all-invalid rows; K5's non-divisible S, non-causal, GQA
                groups 1 and 8, true_len, a key loop wrapping the TMA ring);
                then each timed with CUDA events (L2 flushed
@@ -33,7 +40,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                the wrapper's host time per call) beside its plain
                version, a bound from
                bytes and operations, and one library call as a yardstick
-               where one exists (none for K4); K5 at S = 272 and 4096;
+               where one exists (none for K4); K5 at S = 272 and 4096; K1
+               and K3's branch pass also at a long context (16 rows of 512
+               tokens; suffixes of 240-256 tokens), and K1 at 2 rows of
+               2,048 tokens, where each row spans two key splits (a
+               cluster of 2 CTAs);
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -136,6 +147,10 @@ def k1_inputs(torch, gen, dev, *, lengths, q_heads, kv_heads, hd, ps, width,
         off += n
         if n_tok % ps:
             _poison_tail(k_pages, v_pages, perm[off - 1], n_tok % ps)
+    # every page no row owns is NaN (the clamped sentinel's target too)
+    unowned = torch.tensor(perm[off:], dtype=torch.long, device=dev)
+    k_pages[:, unowned] = float("nan")
+    v_pages[:, unowned] = float("nan")
     return (q, k_pages, v_pages, bt.to(dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
@@ -278,6 +293,18 @@ def phase_device(torch):
     return smi
 
 
+def _demangle(symbol: str) -> str:
+    """A kernel's C++ name from its mangled symbol (c++filt where the
+    machine has it), shortened to the name and its template arguments."""
+    try:
+        symbol = subprocess.run(["c++filt", symbol], capture_output=True,
+                                text=True, timeout=10).stdout.strip() \
+            or symbol
+    except OSError:
+        pass
+    return symbol.split("(")[0]
+
+
 def phase_build():
     from repro_torch.kernels import build
     secs = build.build_all()
@@ -286,17 +313,21 @@ def phase_build():
     for name, t in sorted(build.build_seconds.items()):
         print(f"[build] {name}: nvcc done after {t:.1f} s")
     for name, log in sorted(build.build_log.items()):
+        fn = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = _demangle(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name}: {fn}: {line.strip()}")
     # the tensor-core instructions in the built code: warpgroup MMAs
     # (HGMMA, wgmma) in K5's bf16 kernel, warp MMAs (HMMA, mma.sync) in
-    # K3's bf16 shared pass
+    # the bf16 decode core (K1; K3's branch pass) and K3's shared pass
     dump = Path(build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         print("[build] no cuobjdump beside nvcc: SASS not counted")
         return
     for name, op in (("flash_prefill_sm90", "HGMMA"),
+                     ("paged_decode", "HMMA"),
                      ("paged_tree_decode", "HMMA")):
         sass = subprocess.run(
             [str(dump), "-sass", str(build.build_dir() / f"lib{name}.so")],
@@ -316,6 +347,24 @@ def _compare(torch, name, out, ref, dtype_name):
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{name} disagrees with its plain version")
     return err
+
+
+# ragged decode lengths over 32-page tables of 16 tokens: empty, full
+# (512), one key, and ends on and around page, tile and split edges
+RAGGED = [0, 512, 1, 15, 16, 17, 33, 100, 255, 256, 257, 300, 400, 450, 500,
+          511]
+# and over 128-page tables, around the 1,024-key split edge
+RAGGED_2K = [0, 2048, 1, 1023, 1024, 1025, 2047, 1500]
+
+
+def k1_splits(torch, page_size: int, width: int) -> str:
+    """The bf16 decode core's key splits of such tables, for a shape
+    string."""
+    from repro_torch.kernels.paged_attention.ref import decode_splits
+    keys, n = decode_splits(page_size, width, torch.bfloat16)
+    if n == 1:
+        return f"one key split of {keys} (one CTA per row and KV head)"
+    return f"{n} key splits of {keys} (a cluster of {n} CTAs per row)"
 
 
 def phase_kernels(torch):
@@ -340,20 +389,33 @@ def phase_kernels(torch):
     # the serve launcher's untrained fallback trunks: 4/2 heads of 32
     t32 = dict(q_heads=4, kv_heads=2, hd=32, ps=16, width=32,
                pool_pages=4097)
+    # 24 query heads per KV head: two 16-head slices of the bf16 kernel
+    g24 = dict(q_heads=48, kv_heads=2, hd=64, ps=16, width=32,
+               pool_pages=4097)
     errs = {"paged_decode": [], "paged_prefill": []}
 
-    ragged = [0, 512, 1, 15, 16, 17, 33, 100, 255, 256, 257, 300, 400, 450,
-              500, 511]
-    for shape_name, shape, lengths in (("r1", r1, ragged),
-                                       ("qwen2", qw, ragged),
-                                       ("hd32", t32, ragged)):
+    # 128-page tables (2,048 keys): two key splits, a cluster of 2 CTAs
+    r1_2k = dict(r1, width=128)
+    for shape_name, shape, lengths in (("r1", r1, RAGGED),
+                                       ("qwen2", qw, RAGGED),
+                                       ("hd32", t32, RAGGED),
+                                       ("group24", g24, RAGGED[:6]),
+                                       ("r1 2 splits", r1_2k, RAGGED_2K),
+                                       ("hd32 2 splits", dict(t32, width=128),
+                                        RAGGED_2K)):
         for dn, dt in dtypes.items():
             args = k1_inputs(torch, gen, dev, lengths=lengths, dtype=dt,
                              **shape)
             out = paged_attention_decode(*args)
             ref = paged_attention_decode_ref(*args)
+            # NaN in stale slots and unowned pages changes no bit
+            q, kp, vp, bt, ln = args
+            clean = paged_attention_decode(q, kp.nan_to_num(),
+                                           vp.nan_to_num(), bt, ln)
             torch.cuda.synchronize()
             check(bool((out[0] == 0).all()), "K1 length-0 row is not zero")
+            check(torch.equal(out, clean), "K1 output moved with the NaN "
+                  "in stale or unowned pages")
             errs["paged_decode"].append(_compare(
                 torch, f"K1 {shape_name} {dn} B={len(lengths)}", out, ref,
                 dn))
@@ -385,21 +447,68 @@ def phase_kernels(torch):
     mask = (torch.arange(kc.shape[2], device=dev)[None, :]
             < ln[:, None].long())[:, None, None, :]
     H, kv, hd, ps = r1["q_heads"], r1["kv_heads"], r1["hd"], r1["ps"]
-    tok = sum(lengths)
-    followed = sum(-(-n // ps) for n in lengths)   # table entries read
+
+    def k1_bytes_ops(lengths):
+        tok = sum(lengths)
+        followed = sum(-(-n // ps) for n in lengths)   # table entries read
+        return (2 * len(lengths) * H * hd * 2 + tok * kv * hd * 2 * 2
+                + followed * 4 + len(lengths) * 4, 4 * tok * H * hd)
+
+    sdpa = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
+    bytes_, ops = k1_bytes_ops(lengths)
     k1 = {
         **kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, bt,
                                                           ln)),
         "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
             q, kp, vp, bt, ln)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)),
-        "bytes": 2 * q.numel() * 2 + tok * kv * hd * 2 * 2 + followed * 4
-        + ln.numel() * 4,
-        "ops": 4 * tok * H * hd,
+        "library_ms": sdpa["ms"],
+        "bytes": bytes_, "ops": ops,
         "shape": f"B=16 H=40 kv=8 hd=128 ps=16 W=32 bf16, lengths "
-                 f"{min(lengths)}..{max(lengths)} (sum {tok})",
+                 f"{min(lengths)}..{max(lengths)} (sum {sum(lengths)}), "
+                 f"{k1_splits(torch, ps, r1['width'])}",
     }
+    print(f"[kernels] K1 at the serve shape: ms {k1['ms']:.4f} (SDPA "
+          f"{sdpa['ms']:.4f}), queued_ms {k1['queued_ms']:.4f} (SDPA "
+          f"{sdpa['queued_ms']:.4f}), host_us {k1['host_us']:.1f} (SDPA "
+          f"{sdpa['host_us']:.1f})")
+    # the long-context row: 16 rows at the table's full 512 tokens, where
+    # every row spans all the key splits (whether the split over CTAs pays)
+    long_lens = [r1["width"] * ps] * 16
+    q, kp, vp, bt, ln = k1_inputs(torch, gen, dev, lengths=long_lens,
+                                  dtype=torch.bfloat16, **r1)
+    kc = gather_pages(kp, bt).nan_to_num()
+    vc = gather_pages(vp, bt).nan_to_num()
+    bytes_, ops = k1_bytes_ops(long_lens)
+    k1["long"] = {
+        **kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, bt,
+                                                          ln)),
+        "library": kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, enable_gqa=True)),
+        "bound_ms": bound(bytes_, ops, "bf16")[0],
+        "shape": "B=16 at 512 tokens (the full table), H=40 kv=8 hd=128 "
+                 f"ps=16 W=32 bf16, {k1_splits(torch, ps, r1['width'])}",
+    }
+    print("[kernels] K1 long-context row: " + json.dumps(k1["long"]))
+    # 2 rows at 2,048 tokens over 128-page tables: 2 key splits, the
+    # case the cluster split is for (few rows, long tables)
+    long_lens = [2048] * 2
+    q, kp, vp, bt, ln = k1_inputs(torch, gen, dev, lengths=long_lens,
+                                  dtype=torch.bfloat16, **r1_2k)
+    kc = gather_pages(kp, bt).nan_to_num()
+    vc = gather_pages(vp, bt).nan_to_num()
+    bytes_, ops = k1_bytes_ops(long_lens)
+    k1["long_few_rows"] = {
+        **kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, bt,
+                                                          ln)),
+        "library": kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, enable_gqa=True)),
+        "bound_ms": bound(bytes_, ops, "bf16")[0],
+        "shape": "B=2 at 2,048 tokens (the full table), H=40 kv=8 hd=128 "
+                 f"ps=16 W=128 bf16, {k1_splits(torch, ps, 128)}",
+    }
+    print("[kernels] K1 long-context row, 2 rows: "
+          + json.dumps(k1["long_few_rows"]))
     t, pos0, valid = 32, 0, 17
     q, kp, vp, bt, _, _ = k2_inputs(torch, gen, dev, t=t, pos0=pos0,
                                     valid_len=valid, dtype=torch.bfloat16,
@@ -478,7 +587,19 @@ def phase_tree_kernels(torch):
               [11]),
              # 13 members: more than one CTA's 12 (64 // 5), a second slice
              ("r1 13 members", r1, [(3, [3 * 16 + 1 + i for i in range(13)])],
-              [5])]
+              [5]),
+             # K1's ragged lengths (0 to 512) in one group over a 2-page
+             # span: suffixes up to 480 keys, across the branch pass's key
+             # splits
+             ("r1 ragged", r1, [(2, RAGGED)], []),
+             ("qwen2 ragged", qw, [(2, RAGGED)], []),
+             ("hd32 ragged", t32, [(2, RAGGED)], []),
+             # 128-page tables: suffixes across the branch pass's two key
+             # splits (a cluster of 2 CTAs), an ungrouped row at 2,048
+             ("r1 2 splits", dict(r1, width=128),
+              [(2, [32 + 2016, 32 + 1000, 32 + 1024, 10])], [2048, 0]),
+             ("hd32 2 splits", dict(t32, width=128),
+              [(2, [32 + 1500, 32 + 992, 3])], [1025])]
     for name, shape, groups, singles in cases:
         for dn, dt in dtypes.items():
             args = k3_inputs(torch, gen, dev, groups=groups, singles=singles,
@@ -499,9 +620,15 @@ def phase_tree_kernels(torch):
                 out = paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln, part,
                                             keys)
                 m, l, acc = unpack_partials(part)
+                # NaN in unowned pages and stale slots changes no bit
+                kc, vc = kp.nan_to_num(), vp.nan_to_num()
+                clean = paged_tree_branch_fwd(q, kc, vc, rg, sl, bbt, ln, *(
+                    paged_tree_shared_fwd(q, kc, vc, rg, sbt, sl, ln, span)))
                 torch.cuda.synchronize()
                 check(bool((out[ln == 0] == 0).all()),
                       "K3 length-0 row is not zero")
+                check(torch.equal(out, clean), "K3 output moved with the "
+                      "NaN in stale or unowned pages")
                 # the kernel's split partials of the grouped rows, folded
                 m_k, l_k, acc_k = tree_merge_splits_ref(
                     m[:, grouped], l[:, grouped], acc[:, grouped])
@@ -584,25 +711,63 @@ def phase_tree_kernels(torch):
           f"{shared['ms']:.4f} (SDPA {sdpa['ms']:.4f}), queued_ms "
           f"{shared['queued_ms']:.4f} (SDPA {sdpa['queued_ms']:.4f}), "
           f"host_us {shared['host_us']:.1f} (SDPA {sdpa['host_us']:.1f})")
-    followed = sum(-(-n // ps) for n in suffix)
+    def branch_bytes_ops(suffix):
+        # the suffixes' K/V once, q and one set of shared partials in, the
+        # output out, the suffix table entries followed
+        followed = sum(-(-n // ps) for n in suffix)
+        return (tree_decode_bytes_read(0, suffix, 1, kv, hd, path="tree",
+                                       itemsize=2)
+                + B * H * hd * 2 + one_set + B * H * hd * 2
+                + followed * 4 + common, 4 * sum(suffix) * H * hd)
+
+    sdpa_b = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True))
+    bytes_, ops = branch_bytes_ops(suffix)
     branch = {
         **kernel_ms(torch, lambda: paged_tree_branch_fwd(
             q, kp, vp, rg, sl, bbt, ln, part, split_keys)),
         "plain_ms": time_ms(torch, lambda: tree_branch_merge_ref(
             q, kp, vp, rg, sl, bbt, ln,
             *tree_merge_splits_ref(*unpack_partials(part)))),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True)),
-        # the suffixes' K/V once, q and one set of shared partials in, the
-        # output out, the suffix table entries followed
-        "bytes": tree_decode_bytes_read(0, suffix, 1, kv, hd, path="tree",
-                                        itemsize=2)
-        + B * H * hd * 2 + one_set + B * H * hd * 2
-        + followed * 4 + common,
-        "ops": 4 * sum(suffix) * H * hd,
+        "library_ms": sdpa_b["ms"],
+        "bytes": bytes_, "ops": ops,
         "shape": f"B=16, suffixes {min(suffix)}..{max(suffix)} tokens (sum "
-                 f"{sum(suffix)}), H=40 kv=8 hd=128 ps=16 W=32 bf16",
+                 f"{sum(suffix)}), H=40 kv=8 hd=128 ps=16 W=32 bf16, "
+                 f"merging {n_split} shared splits; "
+                 f"{k1_splits(torch, ps, r1['width'])}",
     }
+    print(f"[kernels] K3 branch pass at the tree serve shape: ms "
+          f"{branch['ms']:.4f} (SDPA {sdpa_b['ms']:.4f}), queued_ms "
+          f"{branch['queued_ms']:.4f} (SDPA {sdpa_b['queued_ms']:.4f}), "
+          f"host_us {branch['host_us']:.1f} (SDPA {sdpa_b['host_us']:.1f})")
+    # the long-context row: the same 256-token span, suffixes of 240-256
+    # tokens (each row spans two of the branch pass's key splits)
+    long_groups = [(16, (span + torch.randint(240, 257, (8,),
+                                               generator=rng)).tolist())
+                   for _ in range(2)]
+    q, kp, vp, rg, sbt, sl, bbt, ln = k3_inputs(
+        torch, gen, dev, groups=long_groups, singles=[],
+        dtype=torch.bfloat16, **r1)
+    suffix = [n - span for n in ln.tolist()]
+    part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln,
+                                             span)
+    kb = gather_pages(kp, bbt).nan_to_num()
+    vb = gather_pages(vp, bbt).nan_to_num()
+    mask = (torch.arange(kb.shape[2], device=dev)[None, :]
+            < torch.tensor(suffix, device=dev)[:, None])[:, None, None, :]
+    bytes_, ops = branch_bytes_ops(suffix)
+    branch["long"] = {
+        **kernel_ms(torch, lambda: paged_tree_branch_fwd(
+            q, kp, vp, rg, sl, bbt, ln, part, split_keys)),
+        "library": kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True)),
+        "bound_ms": bound(bytes_, ops, "bf16")[0],
+        "shape": f"B=16 in 2 groups of 8 over a 256-token span, suffixes "
+                 f"{min(suffix)}..{max(suffix)} tokens, H=40 kv=8 hd=128 "
+                 f"ps=16 W=32 bf16, {k1_splits(torch, ps, r1['width'])}",
+    }
+    print("[kernels] K3 branch long-context row: "
+          + json.dumps(branch["long"]))
     return errs, {"paged_tree_shared": shared, "paged_tree_branch": branch}
 
 
@@ -1613,7 +1778,7 @@ def main() -> int:
             "K/V (a yardstick; the port never calls it)")
     attn_tol = "atol=rtol=2e-2 bf16, 1e-5 fp32"
     meta = {
-        "paged_decode": ("src/repro_torch/csrc/paged_decode.cu",
+        "paged_decode": ("src/repro_torch/csrc/paged_decode_mma.cuh",
                          "src/repro/kernels/paged_attention/"
                          "paged_attention.py:144", attn_tol, sdpa),
         "paged_prefill": ("src/repro_torch/csrc/paged_prefill.cu",
@@ -1622,7 +1787,7 @@ def main() -> int:
         "paged_tree_shared": ("src/repro_torch/csrc/paged_tree_decode.cu",
                               "src/repro/kernels/paged_attention/"
                               "tree_decode.py:170", attn_tol, sdpa),
-        "paged_tree_branch": ("src/repro_torch/csrc/paged_tree_decode.cu",
+        "paged_tree_branch": ("src/repro_torch/csrc/paged_decode_mma.cuh",
                               "src/repro/kernels/paged_attention/"
                               "tree_decode.py:229", attn_tol, sdpa),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
@@ -1653,6 +1818,10 @@ def main() -> int:
             "plain_ms": tm["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": tm["library_ms"],
             "library": library, "timed_shape": tm["shape"], "card": smi,
+            **{key: tm[k] for k, key in (("long", "long_context"),
+                                         ("long_few_rows",
+                                          "long_context_few_rows"))
+               if k in tm},
         })
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")

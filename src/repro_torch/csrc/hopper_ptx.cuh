@@ -1,6 +1,8 @@
 // Inline PTX for the Hopper (sm_90a) tensor-core kernels of the port:
-// mbarriers, TMA tile loads and wgmma (flash_prefill_sm90.cu), and the
-// warp-level mma.sync / ldmatrix / cp.async tiles (paged_tree_decode.cu).
+// mbarriers, TMA tile loads and wgmma (flash_prefill_sm90.cu), the
+// warp-level mma.sync / ldmatrix / cp.async tiles and the cluster barrier
+// and distributed shared memory reads (paged_decode_mma.cuh,
+// paged_tree_decode.cu).
 // Written against the PTX ISA directly so that no CUTLASS header is needed
 // and the nvcc build stays short.
 #pragma once
@@ -255,9 +257,75 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+// 4 bytes, through L1 (16 is the only size of the .cg form)
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
+}
+// Closes this thread's group of copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp_async_wait<n> for a count known only at run time (0 .. 7).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// ------------------------------------------------------------- clusters
+
+// Every thread of every CTA of the cluster arrives (release: this CTA's
+// shared-memory writes become visible to the others) and waits (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// The shared::cluster address of `p` (a shared variable of this CTA) in
+// the CTA of the cluster ranked `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+// Reads from another CTA's shared memory; ordered after cluster_sync
+// (both volatile), free to overlap each other.
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
 }
 
 // ------------------------------------------------------------- numerics

@@ -1,6 +1,10 @@
-// Shared core of the paged attention kernels (paged_decode.cu,
-// paged_prefill.cu): an online-softmax pass of a few query rows of one KV
-// head over that head's paged K/V, one shared-memory tile of keys at a time.
+// Shared core of the paged attention kernels on CUDA cores: an
+// online-softmax pass of a few query rows of one KV head over that head's
+// paged K/V, one shared-memory tile of keys at a time. K2
+// (paged_prefill.cu) runs it in both dtypes; K1 (paged_decode.cu) and both
+// K3 passes (paged_tree_decode.cu) in fp32 only, since bf16 tensor-core
+// products cannot meet fp32's tolerance (their bf16 kernels are mma.sync
+// tiles: paged_decode_mma.cuh).
 //
 // Layout (the JAX package's, consumed unchanged): K/V pools are
 // [kv_heads, num_pages, page_size, head_dim] for one layer, contiguous;
@@ -32,6 +36,10 @@ constexpr int kThreads = 128;       // one CTA is four warps
 constexpr int kTile = 16;           // keys staged in shared memory at once
 constexpr int kMaxRows = 32;        // query rows (heads x chunk rows) a CTA owns
 constexpr float kNegInf = -1e30f;   // the TPU kernels' NEG_INF
+
+__device__ __forceinline__ int clamp_to(int x, int cap) {
+  return x < 0 ? 0 : (x > cap ? cap : x);
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -160,7 +168,7 @@ __device__ __forceinline__ void stream_pages(
 
 // Calls f(T{}, std::integral_constant<int, HD>{}) for the storage type
 // (dtype 0 = fp32, 1 = bf16) and head_dim (32, 64 or 128) the paged kernels
-// are built for; returns false for any other.
+// are built for; returns false for any other (K2 takes both dtypes).
 template <typename F>
 static bool dispatch(int dtype, int head_dim, F&& f) {
   using bf16 = __nv_bfloat16;

@@ -11,9 +11,13 @@
 //     (tree_shared_kernel) — packed in one tensor, a row of head_dim + 2
 //     floats (acc, m, l) per split, row and head, so the wrapper makes one
 //     allocation for them;
-//   * tree_branch_kernel <- _tree_branch_kernel (:229) plus the plain jnp
-//     merge (:368-382): each row's post-fork suffix pages, then, in the
-//     epilogue, the merge with the row's shared partials and the division.
+//   * the branch pass <- _tree_branch_kernel (:229) plus the plain jnp
+//     merge (:368-382): each row's post-fork suffix pages, then the merge
+//     with the row's shared partials and the division. bf16: the
+//     split-key decode core of paged_decode_mma.cuh
+//     (decode_mma_kernel<HD, true>), K1's kernel over the suffix tables
+//     with the shared splits put in front of its merge; fp32:
+//     tree_branch_kernel, PR 11's CUDA-core loop.
 // Same output contract as paged_decode.cu over the full tables the map
 // decomposes, including exact zeros for a row of length 0.
 //
@@ -34,34 +38,29 @@
 //     members itself (a ballot over row_group), holds up to 64 rows
 //     (floor(64 / group) members x group heads; a larger group is walked
 //     slice by slice), gathers 32-key tiles through the table with
-//     cp.async and runs both products on tensor cores (mma.sync m16n8k16,
-//     bf16 in, fp32 accumulators; P split into bf16 hi and lo so that the
-//     probabilities keep fp32's precision). Keys past the CTA's last
-//     visible key are zero-filled in shared memory, never loaded: a tensor
-//     core computes 0 * NaN = NaN, so a stale page must not reach a tile.
-//     Every split of every member row is written, (NEG_INF, 0, 0) where it
-//     holds no visible key, so the epilogue never reads torch.empty bytes.
+//     cp.async and runs both products on the mma.sync tiles of
+//     paged_decode_mma.cuh (bf16 in, fp32 accumulators; P split into bf16
+//     hi and lo so that the probabilities keep fp32's precision). Keys past
+//     the CTA's last visible key are zero-filled in shared memory, never
+//     loaded: a tensor core computes 0 * NaN = NaN, so a stale page must
+//     not reach a tile. Every split of every member row is written,
+//     (NEG_INF, 0, 0) where it holds no visible key, so the branch pass
+//     never reads torch.empty bytes.
 //   * Shared pass, fp32: the CUDA-core loop of paged_common.cuh over the
 //     whole span as a single split: bf16 tensor-core products cannot meet
 //     fp32's tolerance.
-//   * Branch pass: one CTA per (row, KV head), K1's loop over the suffix
-//     table; its epilogue merges the shared splits in split order, 0 ..
-//     n_split - 1, then the suffix (a fixed order: the result does not
-//     change from run to run, no atomics), and divides. Partials of rows in
-//     no group are never written, and the epilogue does not read them (it
-//     tests row_group, it does not rely on a memset).
+//   * Branch pass: merges the shared splits in split order, 0 .. n_split -
+//     1, then the suffix (a fixed order: the result does not change from
+//     run to run, no atomics), and divides. Partials of rows in no group
+//     are never written, and the branch pass does not read them (it tests
+//     row_group, it does not rely on a memset).
 //   * The finite NEG_INF = -1e30 of the TPU kernels keeps the merge of two
 //     empty partials at exp(0) * 0 = 0, never inf - inf.
 // Table entries are clamped into the pool and loops stop at lengths (see
 // paged_common.cuh), so NaN in a stale page cannot reach a sum.
-#include "hopper_ptx.cuh"
-#include "paged_common.cuh"
+#include "paged_decode_mma.cuh"
 
 using namespace paged;
-
-__device__ __forceinline__ int clamp_to(int x, int cap) {
-  return x < 0 ? 0 : (x > cap ? cap : x);
-}
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) tree_shared_kernel(
@@ -140,19 +139,18 @@ __global__ void __launch_bounds__(kThreads) tree_shared_kernel(
 // x group query heads; a larger group is walked slice by slice) and
 // attends keys [split * split_keys, (split + 1) * split_keys) of the span
 // in 32-key tiles gathered through the group's table with cp.async. Each
-// warp owns 16 rows: S = Q K^T and O += P V are mma.sync m16n8k16 (bf16
-// in, fp32 accumulators) on fragments loaded with ldmatrix (V
-// transposed), P is split hi/lo as in flash_prefill_sm90.cu, and the
-// split's raw partials (m, l, acc) are written for every member row,
-// (NEG_INF, 0, 0) where the split holds no visible key.
+// warp owns 16 rows: S = Q K^T and O += P V are the mma.sync m16n8k16
+// tiles of paged_decode_mma.cuh (bf16 in, fp32 accumulators, V read
+// transposed, P split hi/lo), and the split's raw partials (m, l, acc) are
+// written for every member row, (NEG_INF, 0, 0) where the split holds no
+// visible key.
 namespace split {
 constexpr int kRows = 64;         // member rows of one CTA: 4 warps x 16
-constexpr int kKeys = 32;         // keys per shared-memory tile
+constexpr int kKeys = tile::kKeys;
 
 template <int HD>
 struct Tiles {
-  // rows padded by 16 bytes so ldmatrix's 8 row reads hit 8 bank groups
-  static constexpr int kStride = HD + 8;
+  static constexpr int kStride = tile::stride<HD>();
   __nv_bfloat16 q[kRows][kStride];
   __nv_bfloat16 k[kKeys][kStride];
   __nv_bfloat16 v[kKeys][kStride];
@@ -194,9 +192,8 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
   // 32 keys, one per lane; a padding group's CTA reads none)
   if (warp == 1) {
     const int pos = lo + lane;
-    int page = pos < hi ? table[pos / page_size] : 0;
     sm.tile_page[lane] =
-        page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+        tile::clamp_page(pos < hi ? table[pos / page_size] : 0, num_pages);
   }
   // stages keys [k0, k0 + 32) of K and V; keys at or past kv_hi are zeros,
   // never stale bytes: 0 * NaN would poison P V
@@ -204,17 +201,16 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
     for (int i = tid; i < split::kKeys * kChunks; i += kThreads) {
       const int j = i / kChunks, c = (i % kChunks) * 8;
       const int pos = k0 + j;
-      if (pos < kv_hi) {
-        int page = first_tile ? sm.tile_page[j] : table[pos / page_size];
-        page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-        const size_t off =
-            head + ((size_t)page * page_size + pos % page_size) * HD + c;
-        ptx::cp_async_16(&sm.k[j][c], k_pages + off);
-        ptx::cp_async_16(&sm.v[j][c], v_pages + off);
-      } else {
-        *reinterpret_cast<uint4*>(&sm.k[j][c]) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(&sm.v[j][c]) = make_uint4(0u, 0u, 0u, 0u);
+      const bool visible = pos < kv_hi;
+      size_t off = 0;
+      if (visible) {
+        const int page = tile::clamp_page(
+            first_tile ? sm.tile_page[j] : table[pos / page_size],
+            num_pages);
+        off = head + ((size_t)page * page_size + pos % page_size) * HD + c;
       }
+      tile::stage(&sm.k[j][c], k_pages + off, visible);
+      tile::stage(&sm.v[j][c], v_pages + off, visible);
     }
   };
 
@@ -258,12 +254,11 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
     for (int i = tid; lo < kv_hi && i < split::kRows * kChunks;
          i += kThreads) {
       const int r = i / kChunks, c = (i % kChunks) * 8;
-      if (r < rows)
-        ptx::cp_async_16(&sm.q[r][c],
-                         q + ((size_t)sm.member[r / group] * q_heads +
-                              (size_t)h * group + r % group) * HD + c);
-      else
-        *reinterpret_cast<uint4*>(&sm.q[r][c]) = make_uint4(0u, 0u, 0u, 0u);
+      tile::stage(&sm.q[r][c],
+                  q + (r < rows ? ((size_t)sm.member[r / group] * q_heads +
+                                   (size_t)h * group + r % group) * HD + c
+                                : 0),
+                  r < rows);
     }
     if (lo < kv_hi) load_tile(lo, kv_hi, true);
     ptx::cp_async_wait_all();
@@ -280,13 +275,7 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
       lim[i] = r < rows ? min(sm.member_end[r / group], kv_hi) : 0;
     }
     uint32_t qa[HD / 16][4];
-    if (active && lo < kv_hi) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ptx::ldmatrix_x4(qa[kk], &sm.q[warp * 16 + lane % 8 +
-                                       8 * ((lane / 8) % 2)]
-                                      [16 * kk + 8 * (lane / 16)]);
-    }
+    if (active && lo < kv_hi) tile::load_q<HD>(qa, &sm.q[warp * 16][0], lane);
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float o[HD / 8][4];
 #pragma unroll
@@ -303,76 +292,11 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
       }
       if (!active) continue;
 
-      // S = Q K^T: sc[nb] is keys 8 nb .. 8 nb + 7 of the tile
       float sc[split::kKeys / 8][4];
-#pragma unroll
-      for (int nb = 0; nb < split::kKeys / 8; ++nb) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
-#pragma unroll
-        for (int c32 = 0; c32 < HD / 32; ++c32) {
-          uint32_t kb[4];
-          ptx::ldmatrix_x4(kb, &sm.k[8 * nb + lane % 8]
-                                    [32 * c32 + 8 * (lane / 8)]);
-          ptx::mma_m16n8k16(sc[nb], qa[2 * c32], kb[0], kb[1]);
-          ptx::mma_m16n8k16(sc[nb], qa[2 * c32 + 1], kb[2], kb[3]);
-        }
-      }
-      // online softmax; sc[nb][2 i + e] is row r0 + 8 i, key
-      // k0 + 8 nb + 2 (lane % 4) + e; a row's keys sit in one quad
-      const int kc = k0 + 2 * (lane % 4);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = kNegInf;
-#pragma unroll
-        for (int nb = 0; nb < split::kKeys / 8; ++nb)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = sc[nb][2 * i + e];
-            x = kc + 8 * nb + e < lim[i] ? x * scale : kNegInf;
-            mx = fmaxf(mx, x);
-          }
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[i], mx);
-        const float alpha = expf(m[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int nb = 0; nb < split::kKeys / 8; ++nb)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float& x = sc[nb][2 * i + e];
-            x = kc + 8 * nb + e < lim[i] ? expf(x - m_new) : 0.f;
-            sum += x;
-          }
-        l[i] = l[i] * alpha + sum;
-        m[i] = m_new;
-#pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          o[n][2 * i] *= alpha;
-          o[n][2 * i + 1] *= alpha;
-        }
-      }
-      // O += P V over 16-key steps, P split hi/lo
-#pragma unroll
-      for (int kk = 0; kk < split::kKeys / 16; ++kk) {
-        uint32_t ph[4], pl[4];
-        ptx::split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
-        ptx::split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
-        ptx::split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
-        ptx::split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int np = 0; np < HD / 16; ++np) {
-          uint32_t vb[4];
-          ptx::ldmatrix_x4_trans(vb, &sm.v[16 * kk + lane % 8 +
-                                          8 * ((lane / 8) % 2)]
-                                         [16 * np + 8 * (lane / 16)]);
-          ptx::mma_m16n8k16(o[2 * np], ph, vb[0], vb[1]);
-          ptx::mma_m16n8k16(o[2 * np], pl, vb[0], vb[1]);
-          ptx::mma_m16n8k16(o[2 * np + 1], ph, vb[2], vb[3]);
-          ptx::mma_m16n8k16(o[2 * np + 1], pl, vb[2], vb[3]);
-        }
-      }
+      tile::qk<HD>(sc, qa, &sm.k[0][0], lane);
+      // row r0 + 8 i's keys count while they are < lim[i]
+      tile::softmax<HD>(sc, m, l, o, k0 + 2 * (lane % 4), lim, scale);
+      tile::pv<HD>(o, sc, &sm.v[0][0], lane);
     }
 
     // this split's raw partials of every member row
@@ -402,13 +326,16 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
   }
 }
 
-template <typename T, int HD>
+// The fp32 branch pass: one CTA per (row, KV head), K1's CUDA-core loop
+// over the suffix table, the shared partials (one split in fp32) merged in
+// the epilogue.
+template <int HD>
 __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int* __restrict__ row_group,
+    const float* __restrict__ q, const float* __restrict__ k_pages,
+    const float* __restrict__ v_pages, const int* __restrict__ row_group,
     const int* __restrict__ shared_lens, const int* __restrict__ branch_bt,
     const int* __restrict__ lengths, const float* __restrict__ part,
-    T* __restrict__ out, int batch, int q_heads, int kv_heads, int num_pages,
+    float* __restrict__ out, int batch, int q_heads, int kv_heads, int num_pages,
     int page_size, int pages_per_seq, int num_groups, int split_keys,
     int n_split, float scale) {
   __shared__ Shared<HD> sm;
@@ -425,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
 
   const size_t q_row = ((size_t)b * q_heads + (size_t)h * group) * HD;
   for (int i = tid; i < group * HD; i += kThreads)
-    sm.q[i / HD][i % HD] = to_f32(q[q_row + i]) * scale;
+    sm.q[i / HD][i % HD] = q[q_row + i] * scale;
   init_rows(sm);
   if (tid < kMaxRows) sm.row_end[tid] = suffix;
   float acc[kPer];
@@ -433,7 +360,7 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
   for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
 
   const size_t head = (size_t)h * num_pages * page_size * HD;
-  stream_pages<T, HD>(sm, acc, k_pages + head, v_pages + head,
+  stream_pages<float, HD>(sm, acc, k_pages + head, v_pages + head,
                       branch_bt + (size_t)b * pages_per_seq, pages_per_seq,
                       num_pages, page_size, suffix, group);
 
@@ -469,7 +396,7 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
         l = ls * as + l * ab;
         o = os * as + o * ab;
       }
-      store(out + q_row + (size_t)r * HD + d, o / fmaxf(l, 1e-30f));
+      out[q_row + (size_t)r * HD + d] = o / fmaxf(l, 1e-30f);
     }
   }
 }
@@ -529,31 +456,60 @@ extern "C" int tree_shared_launch(
 }
 
 // The branch pass merges the shared pass's split partials (in split order,
-// split z covering span keys [z * split_keys, (z + 1) * split_keys), the
-// last every key from its start) before the row's own suffix.
+// split z covering span keys [z * shared_keys, (z + 1) * shared_keys), the
+// last every key from its start) before the row's own suffix. split_keys
+// and n_split are the bf16 kernel's own key splits over the suffix tables
+// (ref.py: decode_splits; fp32 takes the whole table as one split).
 extern "C" int tree_branch_launch(
     int dtype, int head_dim, const void* q, const void* k_pages,
     const void* v_pages, const void* row_group, const void* shared_lens,
     const void* branch_bt, const void* lengths, const void* part,
     void* out, int batch,
     int q_heads, int kv_heads, int num_pages, int page_size,
-    int pages_per_seq, int num_groups, int split_keys, int n_split,
-    float scale, void* stream) {
+    int pages_per_seq, int num_groups, int shared_keys, int shared_n,
+    int split_keys, int n_split, float scale, void* stream) {
   const int group = q_heads / kv_heads;
-  if (group < 1 || group > kMaxRows || n_split < 1 || split_keys < 1)
+  if (group < 1 || group > kMaxRows || shared_n < 1 || shared_keys < 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(batch, kv_heads);
   cudaStream_t s = (cudaStream_t)stream;
-  const bool ok = dispatch(dtype, head_dim, [&](auto t, auto hd) {
-    using T = decltype(t);
-    constexpr int HD = decltype(hd)::value;
-    tree_branch_kernel<T, HD><<<grid, kThreads, 0, s>>>(
-        (const T*)q, (const T*)k_pages, (const T*)v_pages,
+  if (dtype == 1) {
+    decode::Args a = {};
+    a.q = (const __nv_bfloat16*)q;
+    a.k_pages = (const __nv_bfloat16*)k_pages;
+    a.v_pages = (const __nv_bfloat16*)v_pages;
+    a.tables = (const int*)branch_bt;
+    a.lengths = (const int*)lengths;
+    a.out = (__nv_bfloat16*)out;
+    a.row_group = (const int*)row_group;
+    a.shared_lens = (const int*)shared_lens;
+    a.part = (const float*)part;
+    a.num_groups = num_groups;
+    a.shared_keys = shared_keys;
+    a.shared_n = shared_n;
+    a.batch = batch;
+    a.q_heads = q_heads;
+    a.kv_heads = kv_heads;
+    a.num_pages = num_pages;
+    a.page_size = page_size;
+    a.pages_per_seq = pages_per_seq;
+    a.split_keys = split_keys;
+    a.n_split = n_split;
+    a.scale = scale;
+    int rc = (int)cudaErrorInvalidValue;
+    decode::dispatch_hd(head_dim, [&](auto hd) {
+      rc = decode::launch<decltype(hd)::value, true>(a, s);
+    });
+    return rc;
+  }
+  if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid(batch, kv_heads);
+  const bool ok = decode::dispatch_hd(head_dim, [&](auto hd) {
+    tree_branch_kernel<decltype(hd)::value><<<grid, kThreads, 0, s>>>(
+        (const float*)q, (const float*)k_pages, (const float*)v_pages,
         (const int*)row_group, (const int*)shared_lens,
         (const int*)branch_bt, (const int*)lengths, (const float*)part,
-        (T*)out, batch,
-        q_heads, kv_heads, num_pages, page_size, pages_per_seq, num_groups,
-        split_keys, n_split, scale);
+        (float*)out, batch, q_heads, kv_heads, num_pages, page_size,
+        pages_per_seq, num_groups, shared_keys, shared_n, scale);
   });
   if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -15,6 +15,14 @@ import torch
 from ..paged_attention.ref import NEG_INF, gather_pages
 
 
+# Past this many positions the plain version attends in query blocks of
+# Q_BLOCK rows, so its transient scores are [Q_BLOCK, S] per head, never
+# [S, S] (the reference's ``models/attention.py`` CHUNKED_THRESHOLD and
+# Q_CHUNK, where ``_attend_chunked`` takes over).
+CHUNKED_THRESHOLD = 2048
+Q_BLOCK = 512
+
+
 def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True,
                       true_len: Optional[int] = None) -> torch.Tensor:
@@ -23,19 +31,32 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     causal on positions or not; with ``true_len`` (a host int, 0 <
     true_len <= S) keys at or past it are never attended and rows at or
     past it are exact zeros. Returns [B, S, H, hd] in q's dtype.
-    O(S^2) memory, correctness only."""
+    Up to ``CHUNKED_THRESHOLD`` positions the scores are one [S, S] fp32
+    tensor per head; past it, query blocks of ``Q_BLOCK`` rows (the same
+    function with fp32 scores and P, [Q_BLOCK, S] per head at a time).
+    Correctness only."""
     b, s, h, hd = q.shape
     hkv = k.shape[2]
     n = s if true_len is None else int(true_len)
     qg = q.reshape(b, s, hkv, h // hkv, hd).float()
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / (hd ** 0.5)
+    kf, vf = k.float(), v.float()
+    block = s if s <= CHUNKED_THRESHOLD else Q_BLOCK
     pos = torch.arange(s, device=q.device)
-    mask = (pos < n)[None, :].expand(s, s)               # [Sq, Sk]
-    if causal:
-        mask = mask & (pos[None, :] <= pos[:, None])
-    scores = scores.masked_fill(~mask, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    out = torch.empty((b, s, hkv, h // hkv, hd), dtype=torch.float32,
+                      device=q.device)
+    for r0 in range(0, s, block):
+        rows = pos[r0:r0 + block]
+        # a causal block sees no key past its last row
+        sk = min(int(rows[-1]) + 1, s) if causal else s
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, r0:r0 + block],
+                              kf[:, :sk]) / (hd ** 0.5)
+        mask = (pos[:sk] < n)[None, :].expand(len(rows), sk)   # [Sq, Sk]
+        if causal:
+            mask = mask & (pos[None, :sk] <= rows[:, None])
+        scores = scores.masked_fill(~mask, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        out[:, r0:r0 + block] = torch.einsum("bkgqs,bskd->bqkgd", w,
+                                             vf[:, :sk])
     out = out.masked_fill((pos >= n)[None, :, None, None, None], 0.0)
     return out.reshape(b, s, h, hd).to(q.dtype)
 

@@ -2,6 +2,10 @@
 
 The kernel is ``csrc/paged_decode.cu``; it replaces the TPU kernel
 ``repro/kernels/paged_attention/paged_attention.py:paged_attention_decode``.
+bf16 runs the split-key tensor-core decode core
+(``csrc/paged_decode_mma.cuh``), cut over the CTAs of a cluster by
+``ref.decode_splits`` from the shapes alone; fp32 the CUDA-core loop. One
+launch and one allocation (the output) per call, no host sync.
 ``launches`` counts the launches this wrapper made.
 """
 from __future__ import annotations
@@ -11,11 +15,12 @@ import ctypes
 import torch
 
 from .. import build
+from .ref import decode_splits
 
 launches = 0
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
-    [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 MAX_GROUP = 32          # query heads per KV head one CTA holds
 
 
@@ -35,15 +40,20 @@ def paged_attention_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError("paged_decode: block tables and lengths are int32")
     if block_tables.shape[0] != batch or tuple(lengths.shape) != (batch,):
         raise ValueError("paged_decode: block tables / lengths batch")
+    ptrs = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        raise ValueError("paged_decode: q and the pages must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if batch == 0:
         return out
+    width = block_tables.shape[1]
+    split_keys, n_split = decode_splits(page_size, width, q.dtype)
     fn = build.function("paged_decode", "paged_decode_launch", _ARGTYPES)
-    rc = fn(build.dtype_code(q), head_dim, q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), batch, q_heads, kv_heads, num_pages, page_size,
-            block_tables.shape[1], 1.0 / head_dim ** 0.5,
-            build.stream(q))
+    rc = fn(build.dtype_code(q), head_dim, *ptrs, block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), batch, q_heads, kv_heads,
+            num_pages, page_size, width, split_keys, n_split,
+            1.0 / head_dim ** 0.5, build.stream(q))
     build.raise_on_error("paged_decode", rc)
     launches += 1
     return out

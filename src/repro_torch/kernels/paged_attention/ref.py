@@ -6,9 +6,20 @@ CPU runs and the yardsticks the CUDA kernels are held to on the card.
 """
 from __future__ import annotations
 
+import functools
+from typing import Optional, Tuple
+
 import torch
 
 NEG_INF = -1e30
+
+#: the bf16 decode core's layout (csrc/paged_decode_mma.cuh): keys per
+#: warp tile, warps per CTA, the most CTAs (key splits) of one row, and the
+#: fewest keys a split takes before a table is cut over CTAs
+DECODE_TILE_KEYS = 32
+DECODE_WARPS = 4
+DECODE_MAX_SPLITS = 8
+DECODE_MIN_SPLIT_KEYS = 1024
 
 
 def gather_pages(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -93,10 +104,16 @@ def _partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k/v [B, kv, S, hd], row b seeing keys start <= key < end[b]: (m, l,
     acc) as [B, H], [B, H], [B, H, hd]; a row with no key gets
     (NEG_INF, 0, 0)."""
+    key = torch.arange(k.shape[2], device=q.device)[None, :]
+    return _masked_partials(q, k, v, (key >= start) & (key < end[:, None]))
+
+
+def _masked_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     keys: torch.Tensor):
+    """``_partials`` over the keys that ``keys`` [B, S] (bool) marks."""
     batch, q_heads, head_dim = q.shape
     kv_heads = k.shape[1]
-    key = torch.arange(k.shape[2], device=q.device)[None, :]
-    mask = ((key >= start) & (key < end[:, None]))[:, None, None, :]
+    mask = keys[:, None, None, :]
     qg = q.reshape(batch, kv_heads, -1, head_dim).float()
     s = torch.einsum("bkgd,bksd->bkgs", qg, k) / (head_dim ** 0.5)
     s = s.masked_fill(~mask, NEG_INF)
@@ -195,3 +212,125 @@ def tree_branch_merge_ref(q: torch.Tensor, k_pages: torch.Tensor,
     l = l_s * a_s + l_b * a_b
     acc = acc_s * a_s[..., None] + acc_b * a_b[..., None]
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+
+
+# ------------------------------------------------- the bf16 decode core
+
+
+@functools.lru_cache(maxsize=256)
+def decode_splits(page_size: int, width: int,
+                  dtype: torch.dtype) -> Tuple[int, int]:
+    """``(split_keys, n_split)``: how the bf16 decode core (K1 and K3's
+    branch pass, ``csrc/paged_decode_mma.cuh``) cuts tables of ``width``
+    pages of ``page_size`` tokens over the CTAs of a cluster, from these
+    shapes only (never from a step's lengths). A table of up to 1,024 keys
+    is one split (its keys rounded up to 128, one 32-key tile per warp);
+    a longer one is cut into splits of 1,024 keys (8 tiles per warp),
+    doubled until at most 8 cover it. The serve's 32 pages of 16 tokens
+    are one split of 512 keys: at its 16 rows a split over CTAs costs more
+    than it saves (``scripts/decode_core_sweep.py``). fp32 (the CUDA-core
+    loop) takes the whole table as one split."""
+    cap = page_size * width
+    if dtype != torch.bfloat16:
+        return max(cap, 1), 1
+    if cap <= DECODE_MIN_SPLIT_KEYS:
+        step = DECODE_TILE_KEYS * DECODE_WARPS
+        return max(step, -(-cap // step) * step), 1
+    keys = DECODE_MIN_SPLIT_KEYS
+    while -(-cap // keys) > DECODE_MAX_SPLITS:
+        keys *= 2
+    return keys, -(-cap // keys)
+
+
+def decode_split_keys(end: torch.Tensor, split_keys: int, n_split: int,
+                      s_max: int) -> torch.Tensor:
+    """Which keys each (CTA, warp) of the decode core walks: bool [n_split,
+    DECODE_WARPS, B, s_max]. CTA z holds keys [z * split_keys, (z + 1) *
+    split_keys) of a row, cut into 32-key tiles; warp w walks tiles w, w +
+    4, ... of them; only keys < end[b] count."""
+    key = torch.arange(s_max, device=end.device)
+    tile = (key % split_keys) // DECODE_TILE_KEYS
+    z = torch.arange(n_split, device=end.device)[:, None, None, None]
+    w = torch.arange(DECODE_WARPS, device=end.device)[None, :, None, None]
+    return ((key // split_keys == z) & (tile % DECODE_WARPS == w)
+            & (key < end[:, None]))
+
+
+def decode_split_partials_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor, tables: torch.Tensor,
+                              end: torch.Tensor, split_keys: int,
+                              n_split: int):
+    """Plain version of the decode core's per-warp partials: q [B, H, hd]
+    over the first ``end[b]`` keys of ``tables`` [B, W], raw fp32 (m, l,
+    acc) of each (CTA z, warp w) as [n_split, WARPS, B, H] twice and
+    [n_split, WARPS, B, H, hd]; (NEG_INF, 0, 0) where a warp holds no
+    key."""
+    k = gather_pages(k_pages, tables).float()
+    v = gather_pages(v_pages, tables).float()
+    owned = decode_split_keys(end.long(), split_keys, n_split, k.shape[2])
+    parts = [_masked_partials(q, k, v, owned[z, w]) for z in range(n_split)
+             for w in range(DECODE_WARPS)]
+    return tuple(torch.stack(x).unflatten(0, (n_split, DECODE_WARPS))
+                 for x in zip(*parts))
+
+
+def decode_merge_ref(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                     shared: Optional[tuple] = None) -> torch.Tensor:
+    """The decode core's merge, fp32 [B, H, hd]: each CTA's warps
+    (per-warp partials [n_split, WARPS, ...] as
+    ``decode_split_partials_ref`` gives them) folded into the CTA's
+    partials, then one list — the shared splits ``shared = (m, l, acc)``
+    [n, B, H(, hd)] first where given (K3's branch pass), then the CTAs
+    in split order — folded by ``tree_merge_splits_ref`` (one max, then
+    every partial rescaled to it and summed) and divided by max(l,
+    1e-30). A list without a key gives zeros."""
+    ctas = [tree_merge_splits_ref(m[z], l[z], acc[z])
+            for z in range(m.shape[0])]
+    parts = ([tuple(x[i] for x in shared) for i in range(shared[0].shape[0])]
+             if shared is not None else []) + ctas
+    _, l_all, acc_all = tree_merge_splits_ref(
+        *(torch.stack(x) for x in zip(*parts)))
+    return acc_all / l_all.clamp_min(1e-30)[..., None]
+
+
+def paged_attention_decode_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor,
+                                     block_tables: torch.Tensor,
+                                     lengths: torch.Tensor, split_keys: int,
+                                     n_split: int) -> torch.Tensor:
+    """K1 as the bf16 decode core computes it: per-warp partials of each
+    key split, merged in the fixed order. The same function as
+    ``paged_attention_decode_ref``; [B, H, hd] in q's dtype."""
+    cap = block_tables.shape[1] * k_pages.shape[2]
+    end = lengths.long().clamp(0, cap)
+    out = decode_merge_ref(*decode_split_partials_ref(
+        q, k_pages, v_pages, block_tables, end, split_keys, n_split))
+    return out.to(q.dtype)
+
+
+def tree_branch_split_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, row_group: torch.Tensor,
+                          shared_lens: torch.Tensor, branch_bt: torch.Tensor,
+                          lengths: torch.Tensor, m_shared: torch.Tensor,
+                          l_shared: torch.Tensor, acc_shared: torch.Tensor,
+                          split_keys: int, n_split: int) -> torch.Tensor:
+    """K3's branch pass as the bf16 decode core computes it: the suffix
+    (``max(length - span, 0)`` keys of ``branch_bt``) in key splits and
+    warps, merged behind the shared pass's split partials (m, l [n, B, H],
+    acc [n, B, H, hd], read only for rows in a group) in the fixed order.
+    The same function as ``tree_branch_merge_ref`` over the folded
+    splits; [B, H, hd] in q's dtype."""
+    num_groups = shared_lens.shape[0]
+    cap = branch_bt.shape[1] * k_pages.shape[2]
+    rg = row_group.long()
+    grouped = (rg >= 0) & (rg < num_groups)
+    grp = rg.clamp(0, num_groups - 1)
+    span = torch.where(grouped, shared_lens.long()[grp].clamp(0, cap), 0)
+    end = (lengths.long().clamp(0, cap) - span).clamp_min(0)
+    g2 = grouped[:, None]
+    shared = (torch.where(g2, m_shared, NEG_INF),
+              torch.where(g2, l_shared, 0.0),
+              torch.where(g2[..., None], acc_shared, 0.0))
+    out = decode_merge_ref(*decode_split_partials_ref(
+        q, k_pages, v_pages, branch_bt, end, split_keys, n_split), shared)
+    return out.to(q.dtype)

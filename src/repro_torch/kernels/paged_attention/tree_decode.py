@@ -5,7 +5,10 @@ kernels of ``repro/kernels/paged_attention/tree_decode.py:
 paged_tree_attention_fwd`` — ``tree_shared_kernel`` its shared pass
 (``_tree_shared_kernel``), ``tree_branch_kernel`` its branch pass
 (``_tree_branch_kernel``) with the merge of the partial sets folded
-into the epilogue. In bf16 the shared pass is split over the span
+into the epilogue; in bf16 the branch pass is K1's split-key tensor-core
+decode core (``csrc/paged_decode_mma.cuh``) over the suffix tables, cut
+by ``ref.decode_splits`` from the shapes alone. In bf16 the shared pass
+is split over the span
 (``shared_splits``): its fp32 partials are one tensor [n_split, B, H, hd
 + 2], each row ``acc`` then ``m`` then ``l`` (``unpack_partials`` gives
 the three as views), returned with the split width; the branch pass
@@ -25,13 +28,14 @@ from typing import Tuple
 import torch
 
 from .. import build
+from .ref import decode_splits
 
 shared_launches = 0
 branch_launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SHARED_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
-_BRANCH_ARGTYPES = [_I, _I] + [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P]
+_BRANCH_ARGTYPES = [_I, _I] + [_P] * 9 + [_I] * 11 + [ctypes.c_float, _P]
 MAX_GROUP = 32          # query heads per KV head one CTA holds
 MIN_SPLIT_KEYS = 32     # the bf16 shared pass's smallest split, in keys
 MAX_SPLITS = 16         # and its most splits of one span
@@ -157,16 +161,22 @@ def paged_tree_branch_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     kv_heads, num_pages, page_size, _ = k_pages.shape
     if branch_bt.shape[0] != batch:
         raise ValueError("tree_branch: branch_bt batch")
+    ptrs = q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()
+    if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        raise ValueError("tree_branch: q and the pages must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     if batch == 0:
         return out
+    width = branch_bt.shape[1]
+    own_keys, own_n = decode_splits(page_size, width, q.dtype)
     _launch("tree_branch_launch", _BRANCH_ARGTYPES,
-            build.dtype_code(q), head_dim, q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), row_group.data_ptr(), shared_lens.data_ptr(),
+            build.dtype_code(q), head_dim, *ptrs,
+            row_group.data_ptr(), shared_lens.data_ptr(),
             branch_bt.data_ptr(), lengths.data_ptr(), partials.data_ptr(),
             out.data_ptr(), batch, q_heads, kv_heads, num_pages, page_size,
-            branch_bt.shape[1], shared_lens.shape[0], split_keys, n_split,
-            1.0 / head_dim ** 0.5, build.stream(q))
+            width, shared_lens.shape[0], split_keys, n_split, own_keys,
+            own_n, 1.0 / head_dim ** 0.5, build.stream(q))
     branch_launches += 1
     return out
 

@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
 
 from repro.kernels.flash_prefill.flash_prefill import \
     flash_prefill as jax_k5_pallas
@@ -22,7 +24,9 @@ from repro.kernels.flash_prefill.ref import flash_prefill_ref as jax_k5_ref
 from repro_torch.kernels.flash_prefill import flash_prefill as k5_module
 from repro_torch.kernels.flash_prefill.flash_prefill import flash_prefill
 from repro_torch.kernels.flash_prefill.ops import flash_attention
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.flash_prefill.ref import (CHUNKED_THRESHOLD,
+                                                   Q_BLOCK,
+                                                   flash_prefill_ref)
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 
@@ -98,6 +102,54 @@ def test_true_len_rows_are_exact_zeros(rng, causal, true_len, s):
     k[:, true_len:] = 1e4                         # never attended
     out2 = _port([q, k, v], causal=causal, true_len=true_len)
     np.testing.assert_allclose(out2, out, atol=0, rtol=0)
+
+
+class _LargestTensor(TorchDispatchMode):
+    """Records the most elements any tensor an op returns holds."""
+
+    def __init__(self):
+        super().__init__()
+        self.most = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_flatten(out)[0]:
+            if isinstance(t, torch.Tensor):
+                self.most = max(self.most, t.numel())
+        return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,true_len", [(4096, None), (4096, 3001),
+                                        (2049, None)])
+def test_long_prompt_blocks_match_jax(causal, s, true_len):
+    """Past 2,048 positions the plain version attends in blocks of 512
+    query rows: no tensor of the call holds [S, S] elements per head (the
+    largest, recorded op by op, is one block's [512, S] scores per head),
+    and the output equals the JAX plain version over the first
+    ``true_len`` positions within 1e-5 (fp32), rows past it exact zeros;
+    causal and not, a partial last block (S = 2049) included."""
+    assert s > CHUNKED_THRESHOLD
+    b, h, hkv = 1, 2, 1
+    arrays = _inputs(np.random.default_rng(7), b, s, h, hkv, 32)
+    with _LargestTensor() as seen:
+        out = flash_prefill_ref(*[torch.from_numpy(a) for a in arrays],
+                                causal=causal, true_len=true_len).numpy()
+    assert seen.most <= b * h * Q_BLOCK * s < b * h * s * s
+    n = s if true_len is None else true_len
+    want = np.asarray(jax_k5_ref(*[jnp.asarray(a[:, :n]) for a in arrays],
+                                 causal=causal))
+    np.testing.assert_allclose(out[:, :n], want, **F32)
+    assert np.all(out[:, n:] == 0.0)
+
+
+def test_short_prompt_is_one_block():
+    """At or under 2,048 positions the plain version stays one [S, S]
+    block per head, as before."""
+    arrays = _inputs(np.random.default_rng(8), 1, 300, 2, 1, 32)
+    with _LargestTensor() as seen:
+        flash_prefill_ref(*[torch.from_numpy(a) for a in arrays])
+    assert seen.most == 2 * 300 * 300
 
 
 def test_plain_version_keeps_bf16(rng):

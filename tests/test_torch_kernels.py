@@ -32,7 +32,11 @@ from repro_torch.kernels.flash_prefill.ref import paged_flash_prefill_ref
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.paged_attention import \
     paged_attention_decode
-from repro_torch.kernels.paged_attention.ref import paged_attention_decode_ref
+from repro_torch.kernels.paged_attention.ref import (
+    DECODE_MAX_SPLITS, DECODE_MIN_SPLIT_KEYS, DECODE_TILE_KEYS, DECODE_WARPS,
+    decode_split_keys,
+    decode_splits, paged_attention_decode_ref,
+    paged_attention_decode_split_ref)
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 
@@ -120,6 +124,106 @@ def test_decode_plain_ignores_poisoned_stale_slots(rng):
         v2[:, last, n_tok % 8:] = np.nan
     got = paged_attention(*_torch(q, k2, v2, bt, ln)).numpy()
     np.testing.assert_array_equal(got, base)
+
+
+# ------------------------------------- the bf16 decode core's key splits
+
+
+@pytest.mark.parametrize("page_size", [1, 4, 16, 64])
+def test_decode_splits_cover_every_key_once(page_size):
+    """The split rule over tables of 1-64 pages: key splits of a multiple
+    of 32 keys, 1 to 8 of them, none empty, covering the table, a table
+    of more than 1,024 keys cut into splits of at least 1,024; for every
+    end from 0 to the table's capacity (every 61st past 1,024 keys), each
+    key below it lies in exactly one (CTA, warp) and no other key in any.
+    fp32 takes the whole table as one split."""
+    for width in range(1, 65):
+        cap = page_size * width
+        keys, n = decode_splits(page_size, width, torch.bfloat16)
+        assert keys % DECODE_TILE_KEYS == 0 and keys >= 128
+        assert 1 <= n <= DECODE_MAX_SPLITS
+        assert (n - 1) * keys < cap <= n * keys
+        assert n == 1 or keys >= DECODE_MIN_SPLIT_KEYS
+        ends = torch.arange(cap + 1)
+        if cap > 1024:      # several splits: every 61st end and the last
+            ends = torch.cat([ends[::61], ends[-2:]])
+        owned = decode_split_keys(ends, keys, n, cap).long()
+        assert owned.shape == (n, DECODE_WARPS, len(ends), cap)
+        want = (torch.arange(cap)[None, :] < ends[:, None]).long()
+        assert torch.equal(owned.sum((0, 1)), want)
+        assert decode_splits(page_size, width, torch.float32) == (cap, 1)
+
+
+def test_decode_splits_depend_on_the_shapes_only():
+    """The serve's tables (32 pages of 16 tokens) are one split of 512
+    keys whatever the step's lengths; past 1,024 keys a table is cut into
+    1,024-key splits, doubled until 8 cover it."""
+    assert decode_splits(16, 32, torch.bfloat16) == (512, 1)
+    assert decode_splits(16, 3, torch.bfloat16) == (128, 1)
+    assert decode_splits(16, 64, torch.bfloat16) == (1024, 1)
+    assert decode_splits(16, 65, torch.bfloat16) == (1024, 2)
+    assert decode_splits(16, 512, torch.bfloat16) == (1024, 8)
+    assert decode_splits(16, 1024, torch.bfloat16) == (2048, 8)
+
+
+# name: (q_heads, kv_heads, hd, ps, width, lengths): the table's capacity,
+# 1 and 0, ragged ends across 32-key tiles and 128-key splits
+SPLIT_CASES = {
+    "group5_capacity": (10, 2, 128, 16, 12, [192, 1, 0, 129, 65]),
+    "group7_tiles": (14, 2, 64, 8, 20, [160, 33, 31, 96, 97]),
+    "group2_page1": (4, 2, 32, 1, 300, [300, 0, 1, 128, 257]),
+    "group1_page4": (4, 4, 64, 4, 70, [280, 255, 2, 0]),
+    # past 1,024 keys: 2 and 4 splits by the rule (CTA clusters on a card)
+    "group5_two_splits": (10, 2, 128, 16, 80,
+                          [1280, 1025, 1024, 1023, 0, 1, 700]),
+    "group2_four_splits": (4, 2, 32, 16, 200, [3200, 2049, 0, 3000, 1]),
+}
+
+
+def _split_inputs(rng, case, poison):
+    """A SPLIT_CASES case with sentinel tails; with ``poison`` NaN in
+    every slot past each row's end in its last page and in the two
+    pages no row owns."""
+    qh, kvh, hd, ps, width, lengths = SPLIT_CASES[case]
+    q, k, v, bt, ln = _decode_inputs(rng, batch=len(lengths), q_heads=qh,
+                                     kv_heads=kvh, hd=hd, ps=ps, width=width,
+                                     lengths=lengths,
+                                     num_pages=len(lengths) * width + 2)
+    if poison:
+        k, v = k.copy(), v.copy()
+        for b, n_tok in enumerate(lengths):
+            if n_tok % ps:
+                k[:, bt[b, n_tok // ps], n_tok % ps:] = np.nan
+                v[:, bt[b, n_tok // ps], n_tok % ps:] = np.nan
+        owned = set(bt[bt < k.shape[1]].tolist())
+        free = [p for p in range(k.shape[1]) if p not in owned]
+        k[:, free], v[:, free] = np.nan, np.nan
+    return q, k, v, bt, ln
+
+
+@pytest.mark.parametrize("split", ["rule", "32-key"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_decode_split_merge_matches_plain_and_pallas(case, split):
+    """The plain model of the bf16 decode core (per-warp partials of each
+    key split, merged in warp order, then split order, then divided)
+    equals the plain K1 and the JAX Pallas kernel in interpret mode
+    within 1e-5 (fp32), at the split rule's layout and at 32-key splits
+    (many CTAs per row); lengths 0, 1 and the table's capacity, NaN in
+    stale and unowned pages and sentinel table entries included, and a
+    length-0 row is exact zeros."""
+    q, k, v, bt, ln = _split_inputs(np.random.default_rng(5), case,
+                                    poison=True)
+    ps, width = k.shape[2], bt.shape[1]
+    keys, n = (decode_splits(ps, width, torch.bfloat16) if split == "rule"
+               else (32, -(-ps * width // 32)))
+    got = paged_attention_decode_split_ref(*_torch(q, k, v, bt, ln), keys, n)
+    assert bool(torch.isfinite(got).all())
+    assert (got[torch.from_numpy(ln) == 0] == 0).all()
+    clean = _split_inputs(np.random.default_rng(5), case, poison=False)
+    np.testing.assert_allclose(
+        got.numpy(), paged_attention(*_torch(*clean)).numpy(), **F32)
+    ker = np.asarray(jax_k1(*map(jnp.asarray, clean), use_kernel=True))
+    np.testing.assert_allclose(got.numpy(), ker, **F32)
 
 
 PREFILL_CASES = {
@@ -249,6 +353,39 @@ def test_decode_kernel_matches_plain_on_card(cuda, case, dtype, tol, rng):
     args = [t.to(cuda) for t in _torch(*_decode_inputs(
         rng, batch=len(lengths), q_heads=qh, kv_heads=kvh, hd=hd, ps=ps,
         width=width, lengths=lengths))]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    out = paged_attention(*args)
+    ref = paged_attention_decode_ref(*args)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_decode_kernel_splits_match_plain_on_card(cuda, case, dtype, tol,
+                                                  rng):
+    """CUDA K1 = plain K1 on the card where rows span several key splits
+    (the bf16 kernel's cluster merge), with NaN in stale and unowned
+    pages; a length-0 row is exact zeros."""
+    args = [a.to(cuda) for a in _torch(*_split_inputs(rng, case, True))]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    out = paged_attention(*args)
+    ref = paged_attention_decode_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert (out[args[4] == 0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_decode_kernel_two_head_slices_on_card(cuda, dtype, tol, rng):
+    """A GQA group of 24 query heads (two 16-head slices of the bf16
+    kernel) against the plain K1 on the card."""
+    args = [a.to(cuda) for a in _torch(*_decode_inputs(
+        rng, batch=3, q_heads=48, kv_heads=2, hd=64, ps=16, width=16,
+        lengths=[256, 17, 0]))]
     args[:3] = [a.to(dtype) for a in args[:3]]
     out = paged_attention(*args)
     ref = paged_attention_decode_ref(*args)

@@ -32,8 +32,9 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_tree_attention,
                                                      tree_decode_bytes_read)
 from repro_torch.kernels.paged_attention.ref import (
-    NEG_INF, tree_branch_merge_ref, tree_full_tables, tree_merge_splits_ref,
-    tree_shared_partials_ref, tree_shared_split_partials_ref)
+    NEG_INF, decode_splits, tree_branch_merge_ref, tree_branch_split_ref,
+    tree_full_tables, tree_merge_splits_ref, tree_shared_partials_ref,
+    tree_shared_split_partials_ref)
 
 TOL_REF = dict(atol=1e-5, rtol=1e-5)
 TOL_MERGE = dict(atol=1e-6, rtol=1e-6)
@@ -260,6 +261,102 @@ def test_merged_splits_and_branch_match_pallas(name):
     np.testing.assert_allclose(got.numpy(), pallas, **TOL_PALLAS)
 
 
+# topologies for the branch pass's key splits: suffixes across 32-key
+# tiles and 128-key splits, a row at the table's capacity (the spare
+# sentinel column dropped), rows of length 0 and 1, one ending inside its
+# group's span
+SPLIT_TOPOLOGIES = {
+    "group5_long_suffixes": (dict(qh=10, kvh=2, hd=32, ps=4),
+                             [(3, [3 * 4 + 132, 3 * 4 + 1, 3 * 4 + 64, 5])],
+                             [140, 0, 1]),
+    "mqa_capacity": (dict(qh=4, kvh=1, hd=64, ps=16),
+                     [(2, [32 + 200, 32 + 17])], [256, 1, 0]),
+    "group7_two_groups": (dict(qh=14, kvh=2, hd=64, ps=8),
+                          [(4, [32 + 97, 32 + 33, 32]), (1, [8 + 63])],
+                          [31]),
+    # past 1,024 keys: suffixes across 2 of the rule's splits (CTA
+    # clusters on a card), an ungrouped row at the capacity
+    "group7_two_splits": (dict(qh=14, kvh=2, hd=64, ps=16),
+                          [(2, [32 + 1100, 32 + 500, 20])], [1200, 0]),
+}
+
+
+def _split_topology(name, seed, poison=False):
+    """A SPLIT_TOPOLOGIES topology without its spare table column; with
+    ``poison`` NaN in every page no row owns and in every slot past a
+    row's end in the pages only that row reads."""
+    shape, groups, singles = SPLIT_TOPOLOGIES[name]
+    t = _topology(seed, groups, singles, **shape)
+    for k in ("shared_bt", "branch_bt", "full_bt"):
+        t[k] = np.ascontiguousarray(t[k][:, :-1])
+    if poison:
+        ps = t["kp"].shape[2]
+        kp, vp = t["kp"].copy(), t["vp"].copy()
+        kp[:, -2:], vp[:, -2:] = np.nan, np.nan
+        for gi, pages, n in t["rows"]:
+            private = (pages[len(t["shared_of"][gi]):] if gi is not None
+                       else pages)
+            if private and n % ps:
+                kp[:, private[-1], n % ps:] = np.nan
+                vp[:, private[-1], n % ps:] = np.nan
+        t["kp"], t["vp"] = kp, vp
+    return t
+
+
+@pytest.mark.parametrize("split", ["rule", "32-key"])
+@pytest.mark.parametrize("name", sorted(SPLIT_TOPOLOGIES))
+def test_branch_split_merge_matches_plain_and_pallas(name, split):
+    """The plain model of the bf16 branch pass (the suffix's per-warp
+    partials of each key split, merged behind the shared pass's split
+    partials in the fixed order) equals ``tree_branch_merge_ref`` over the
+    folded splits and the plain tree version within 1e-5, and the JAX
+    Pallas pair in interpret mode within 2e-4 (fp32), at the split rule's
+    layout and at 32-key splits; NaN in stale and unowned pages, sentinel
+    entries, lengths 0, 1 and the capacity included; length-0 rows are
+    exact zeros."""
+    t = _split_topology(name, 31, poison=True)
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    ps, width = kp.shape[2], bbt.shape[1]
+    assert int(ln.max()) == ps * width or name not in (
+        "mqa_capacity", "group7_two_splits")
+    shared = tree_shared_split_partials_ref(
+        q, kp, vp, rg, sbt, sl, ln, *tree_decode.shared_splits(
+            ps, width, torch.bfloat16, _span(t)))
+    keys, n = (decode_splits(ps, width, torch.bfloat16) if split == "rule"
+               else (32, -(-ps * width // 32)))
+    got = tree_branch_split_ref(q, kp, vp, rg, sl, bbt, ln, *shared, keys, n)
+    assert bool(torch.isfinite(got).all())
+    assert (got[ln == 0] == 0).all()
+    torch.testing.assert_close(got, tree_branch_merge_ref(
+        q, kp, vp, rg, sl, bbt, ln, *tree_merge_splits_ref(*shared)),
+        **TOL_REF)
+    clean = _split_topology(name, 31)
+    torch.testing.assert_close(got, _port(clean), **TOL_REF)
+    pallas = np.asarray(j_tree_pallas(*_jax_args(clean), interpret=True))
+    np.testing.assert_allclose(got.numpy(), pallas, **TOL_PALLAS)
+
+
+def test_branch_split_merge_skips_the_partials_of_rows_in_no_group():
+    """The branch pass's model reads no shared partial of a row in no
+    group: NaN there changes no bit of the output."""
+    t = _split_topology("group5_long_suffixes", 32)
+    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+    rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
+    ps, width = kp.shape[2], bbt.shape[1]
+    shared = tree_shared_split_partials_ref(
+        q, kp, vp, rg, sbt, sl, ln, *tree_decode.shared_splits(
+            ps, width, torch.bfloat16, _span(t)))
+    keys, n = decode_splits(ps, width, torch.bfloat16)
+    base = tree_branch_split_ref(q, kp, vp, rg, sl, bbt, ln, *shared, keys, n)
+    free = rg >= sl.shape[0]
+    junk = [x.clone() for x in shared]
+    for x in junk:
+        x[:, free] = float("nan")
+    got = tree_branch_split_ref(q, kp, vp, rg, sl, bbt, ln, *junk, keys, n)
+    assert bool(free.any()) and torch.equal(got, base)
+
+
 @pytest.mark.parametrize("span", [0, 16, 100, 256, 4096, 10 ** 6])
 @pytest.mark.parametrize("page_size,width", [(16, 32), (16, 5), (4, 3),
                                              (4, 40), (16, 256), (64, 7),
@@ -475,3 +572,21 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype, tol):
     ref = paged_tree_attention(*(a.cpu() for a in args), _span(t))
     torch.cuda.synchronize()
     torch.testing.assert_close(out.cpu(), ref, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", sorted(SPLIT_TOPOLOGIES))
+def test_branch_kernel_splits_match_plain_on_card(cuda, name, dtype, tol):
+    """Both passes on the card where suffixes span several of the branch
+    pass's key splits (its cluster merge), with NaN in stale and unowned
+    pages; length-0 rows are exact zeros."""
+    t = _split_topology(name, 33, poison=True)
+    args = [torch.from_numpy(t[k]).to(cuda, dtype) for k in ("q", "kp", "vp")]
+    args += [torch.from_numpy(t[k]).to(cuda) for k in _MAP]
+    out = tree_decode.paged_tree_attention_fwd(*args, _span(t))
+    ref = paged_tree_attention(*(a.cpu() for a in args), _span(t))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.cpu(), ref, atol=tol, rtol=tol)
+    assert (out[args[-1] == 0] == 0).all()
