@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device  — the card's name and power limit (nvidia-smi) and torch's name;
   2. build   — nvcc builds the CUDA kernels from ``src/repro_torch/csrc``
                (the time of each source, ptxas's registers and spills,
-               and the tensor-core instructions in the SASS);
+               and the tensor-core instructions in the SASS per kernel;
+               the bf16 kernels of K2 and K4 must hold HMMA and spill
+               nothing);
   3. kernels — K1 (paged flash-decode; bf16 on the split-key mma.sync
                decode core), K2 (paged flash-prefill), both
                passes of K3 (tree decode; the shared pass's split partials
@@ -44,7 +46,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                and K3's branch pass also at a long context (16 rows of 512
                tokens; suffixes of 240-256 tokens), and K1 at 2 rows of
                2,048 tokens, where each row spans two key splits (a
-               cluster of 2 CTAs);
+               cluster of 2 CTAs); K2 (one launch over all lanes of a
+               step) also over four lanes of bucket 32 in one launch, each
+               lane bit-equal to itself launched alone and with the NaN
+               past its horizon taken out, and timed at phase 6's
+               cold-header chunk (64 rows at pos0 192) too; K4 also timed
+               at one row of 2,048 positions (16 chunks);
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -61,11 +68,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
                Kernel launch counters are zeroed just before and read just
-               after, and every request must complete with no fault;
+               after, and every request must complete with no fault; K2
+               must launch once per layer per mixed step;
   6. tree    — the same model and weights, phase 5's engine freed, with
                ``prefix_cache=True, decode_kernel="tree"``: 4 requests whose
                prompts share a 256-token few-shot header. The cache must
-               hit, K3 must carry every decode row and K1 must not launch;
+               hit, K3 must carry every decode row, K1 must not launch and
+               K2 must launch once per layer per mixed step;
   7. exact   — the same model and weights, phase 6's traffic with
                ``chunked_prefill=False`` (cache off, per-branch decode):
                every admission is one exact-length pass, K5 48 times; K5
@@ -89,6 +98,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -103,6 +113,14 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "fp32": 67e12}
 TOL = {"bf16": 2e-2, "fp32": 1e-5}      # atol = rtol, per working dtype
+# the bf16 tensor-core kernels of K2 and K4 (phase 2: HMMA, no spills)
+TENSOR_K2_K4 = {"paged_prefill": "prefill_mma_kernel",
+                "ssd_scan": "ssd_mma_kernel"}
+# name fragments of the port's CUDA kernels (K1-K5), for the profile
+PORT_KERNELS = ("decode_mma_kernel", "paged_decode_kernel",
+                "prefill_mma_kernel", "prefill_f32_kernel",
+                "tree_shared", "tree_branch_kernel",
+                "ssd_mma_kernel", "ssd_f32_kernel", "flash_prefill")
 
 
 def fail(msg: str) -> None:
@@ -168,6 +186,54 @@ def k2_inputs(torch, gen, dev, *, t, pos0, valid_len, q_heads, kv_heads, hd,
     if end % ps:
         _poison_tail(k_pages, v_pages, perm[n - 1], end % ps)
     return q, k_pages, v_pages, bt.to(dev), pos0, valid_len
+
+
+def k2_lanes_inputs(torch, gen, dev, *, bucket, lanes, q_heads, kv_heads, hd,
+                    ps, width, pool_pages, dtype):
+    """One mixed step's chunk lanes as the engine lays them out: ``lanes``
+    is a list of (pos0, valid_len); each lane owns its own pages, its
+    ``bucket`` rows share its block table, and its positions run from pos0
+    (pad rows repeat the last valid one). Slots past each lane's last valid
+    position and every page no lane owns (the clamped sentinel's target
+    too) are NaN. Returns (q, k_pages, v_pages, block_tables [R, W],
+    positions [R], chunk_lens [n])."""
+    n = len(lanes)
+    q = torch.randn((n * bucket, q_heads, hd), generator=gen,
+                    device=dev).to(dtype)
+    k_pages, v_pages = _pages(torch, gen, dev, kv_heads, pool_pages, ps, hd,
+                              dtype)
+    perm = torch.randperm(pool_pages, generator=gen, device=dev).tolist()
+    bt = torch.full((n * bucket, width), pool_pages, dtype=torch.int32)
+    pos = torch.zeros((n * bucket,), dtype=torch.int32)
+    off = 0
+    for i, (pos0, valid) in enumerate(lanes):
+        end = pos0 + valid
+        npg = -(-end // ps)
+        bt[i * bucket:(i + 1) * bucket, :npg] = torch.tensor(
+            perm[off:off + npg], dtype=torch.int32)
+        off += npg
+        pos[i * bucket:(i + 1) * bucket] = torch.clamp(
+            pos0 + torch.arange(bucket), max=end - 1)
+        if end % ps:
+            _poison_tail(k_pages, v_pages, perm[off - 1], end % ps)
+    unowned = torch.tensor(perm[off:], dtype=torch.long, device=dev)
+    k_pages[:, unowned] = float("nan")
+    v_pages[:, unowned] = float("nan")
+    lens = torch.tensor([v for _, v in lanes], dtype=torch.int32)
+    return q, k_pages, v_pages, bt.to(dev), pos.to(dev), lens.to(dev)
+
+
+def k2_bytes_ops(t: int, pos0: int, valid: int, *, H, kv, hd, ps):
+    """What one K2 lane needs (bf16): q of the valid rows in, every output
+    row out, the K/V of the visible tokens once (the reference's byte
+    model at token granularity) and the table entries the causal horizon
+    reaches; 4 hd operations per (valid row, visible key) pair and head."""
+    from repro_torch.kernels.flash_prefill.ops import mixed_step_bytes_read
+    seen = sum(pos0 + i + 1 for i in range(valid))
+    return ((valid + t) * H * hd * 2
+            + mixed_step_bytes_read(valid, pos0, 1, kv, hd, path="fused",
+                                    block_q=t, itemsize=2)
+            + -(-(pos0 + valid) // ps) * 4, 4 * seen * H * hd)
 
 
 # ---------------------------------------------------------------- timing
@@ -302,7 +368,7 @@ def _demangle(symbol: str) -> str:
             or symbol
     except OSError:
         pass
-    return symbol.split("(")[0]
+    return symbol.replace("(anonymous namespace)::", "").split("(")[0]
 
 
 def phase_build():
@@ -312,6 +378,7 @@ def phase_build():
           f"{build.build_dir()}")
     for name, t in sorted(build.build_seconds.items()):
         print(f"[build] {name}: nvcc done after {t:.1f} s")
+    spills = {}     # the bf16 tensor-core kernels of K2 and K4
     for name, log in sorted(build.build_log.items()):
         fn = "?"
         for line in log.splitlines():
@@ -319,22 +386,43 @@ def phase_build():
                 fn = _demangle(line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name}: {fn}: {line.strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+                if m and any(k in fn for k in TENSOR_K2_K4.values()):
+                    spills[fn] = int(m[1]) + int(m[2])
+    for fn, n in sorted(spills.items()):
+        print(f"[build] {fn}: {n} bytes of spill stores and loads")
+    check(all(n == 0 for n in spills.values()),
+          f"a bf16 kernel of K2 or K4 spills: {spills}")
     # the tensor-core instructions in the built code: warpgroup MMAs
     # (HGMMA, wgmma) in K5's bf16 kernel, warp MMAs (HMMA, mma.sync) in
-    # the bf16 decode core (K1; K3's branch pass) and K3's shared pass
+    # the bf16 decode core (K1; K3's branch pass), K3's shared pass and the
+    # bf16 kernels of K2 and K4
     dump = Path(build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         print("[build] no cuobjdump beside nvcc: SASS not counted")
         return
     for name, op in (("flash_prefill_sm90", "HGMMA"),
                      ("paged_decode", "HMMA"),
-                     ("paged_tree_decode", "HMMA")):
+                     ("paged_tree_decode", "HMMA"),
+                     ("paged_prefill", "HMMA"),
+                     ("ssd_scan", "HMMA")):
         sass = subprocess.run(
             [str(dump), "-sass", str(build.build_dir() / f"lib{name}.so")],
             capture_output=True, text=True, timeout=120).stdout
-        n = sum(op in line for line in sass.splitlines())
-        print(f"[build] {name}: {n} {op} instructions in its SASS")
+        per_fn, fn = {}, "?"
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = _demangle(line.split("Function :")[1].strip())
+            elif op in line:
+                per_fn[fn] = per_fn.get(fn, 0) + 1
+        n = sum(per_fn.values())
+        print(f"[build] {name}: {n} {op} instructions in its SASS "
+              + json.dumps(per_fn))
         check(n > 0, f"{name} has no {op} instruction")
+        if name in TENSOR_K2_K4:
+            check(any(TENSOR_K2_K4[name] in f for f in per_fn),
+                  f"{name}: no {op} in {TENSOR_K2_K4[name]}")
 
 
 def _compare(torch, name, out, ref, dtype_name):
@@ -370,10 +458,10 @@ def k1_splits(torch, page_size: int, width: int) -> str:
 def phase_kernels(torch):
     """Hold K1/K2 against their plain versions; returns per-kernel
     results for the JSON line (timings at the serving shapes)."""
-    from repro_torch.kernels.flash_prefill.ops import mixed_step_bytes_read
-    from repro_torch.kernels.flash_prefill.paged_prefill import \
-        paged_flash_prefill_fwd
-    from repro_torch.kernels.flash_prefill.ref import paged_flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.paged_prefill import (
+        paged_flash_prefill_fwd, paged_flash_prefill_lanes_fwd)
+    from repro_torch.kernels.flash_prefill.ref import (
+        paged_flash_prefill_lanes_ref, paged_flash_prefill_ref)
     from repro_torch.kernels.paged_attention.paged_attention import \
         paged_attention_decode
     from repro_torch.kernels.paged_attention.ref import (
@@ -434,6 +522,38 @@ def phase_kernels(torch):
             errs["paged_prefill"].append(_compare(
                 torch, f"K2 hd={shape['hd']} T={t} pos0={pos0} "
                 f"valid={valid} {dn}", out, ref, dn))
+    # one launch over four lanes of bucket 32 (the engine's call): against
+    # the plain version lane by lane, each lane bit-equal to that lane
+    # launched alone, and bit-equal with the NaN past each lane's horizon
+    # taken out of the pools
+    lanes = [(0, 17), (37, 32), (256, 1), (496, 9)]
+    for dn, dt in dtypes.items():
+        q, kp, vp, bt, pos, lens = k2_lanes_inputs(
+            torch, gen, dev, bucket=32, lanes=lanes, dtype=dt, **r1)
+        out = paged_flash_prefill_lanes_fwd(q, kp, vp, bt, pos, lens,
+                                            (32,) * 4)
+        ref = paged_flash_prefill_lanes_ref(q, kp, vp, bt, pos, lens,
+                                            (32,) * 4)
+        clean = paged_flash_prefill_lanes_fwd(q, kp.nan_to_num(),
+                                              vp.nan_to_num(), bt, pos, lens,
+                                              (32,) * 4)
+        torch.cuda.synchronize()
+        errs["paged_prefill"].append(_compare(
+            torch, f"K2 4 lanes of 32 at pos0 "
+            f"{[p for p, _ in lanes]} valid {[v for _, v in lanes]} {dn}",
+            out, ref, dn))
+        check(torch.equal(out, clean), "K2 output moved with the NaN past "
+              "the lanes' horizons")
+        for i, (pos0, valid) in enumerate(lanes):
+            rows = slice(32 * i, 32 * (i + 1))
+            alone = paged_flash_prefill_fwd(q[rows], kp, vp, bt[32 * i],
+                                            pos0, valid)
+            check(torch.equal(out[rows], alone),
+                  f"K2 lane {i} of 4 differs from the lane launched alone")
+            check(bool((out[rows][valid:] == 0).all()),
+                  f"K2 lane {i}: pad rows are not zero")
+        print(f"[kernels] K2 4 lanes {dn}: each lane bit-equal alone, "
+              "bit-equal without the NaN, pad rows zeros: ok")
 
     # timing at the serve phase's shapes (bf16): 16 decode rows whose
     # contexts run from the prompt (11-17 tokens) to prompt + 96; one
@@ -509,36 +629,41 @@ def phase_kernels(torch):
     }
     print("[kernels] K1 long-context row, 2 rows: "
           + json.dumps(k1["long_few_rows"]))
-    t, pos0, valid = 32, 0, 17
-    q, kp, vp, bt, _, _ = k2_inputs(torch, gen, dev, t=t, pos0=pos0,
-                                    valid_len=valid, dtype=torch.bfloat16,
-                                    **r1)
-    kc = gather_pages(kp, bt).nan_to_num()[None]       # [1, kv, S, hd]
-    vc = gather_pages(vp, bt).nan_to_num()[None]
-    s_max = kc.shape[2]
-    mask2 = (torch.arange(s_max, device=dev)[None, :]
-             <= pos0 + torch.arange(t, device=dev)[:, None])[None, None]
-    qt = q.transpose(0, 1)[None]                       # [1, H, T, hd]
-    seen = sum(pos0 + i + 1 for i in range(valid))
-    k2 = {
-        **kernel_ms(torch, lambda: paged_flash_prefill_fwd(
-            q, kp, vp, bt, pos0, valid)),
-        "plain_ms": time_ms(torch, lambda: paged_flash_prefill_ref(
-            q, kp, vp, bt, pos0, valid)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kc, vc, attn_mask=mask2, enable_gqa=True)),
-        # q of the valid rows in (pad rows are zeros whatever q holds),
-        # every output row out, the K/V of the visible tokens once (the
-        # reference's byte model at token granularity), the table entries
-        # the causal horizon reaches
-        "bytes": (valid + t) * H * hd * 2
-        + mixed_step_bytes_read(valid, pos0, 1, kv, hd, path="fused",
-                                block_q=t, itemsize=2)
-        + -(-(pos0 + valid) // ps) * 4,
-        "ops": 4 * seen * H * hd,
-        "shape": f"T={t} pos0={pos0} valid_len={valid} H=40 kv=8 hd=128 "
-                 "ps=16 W=32 bf16",
-    }
+    # K2 at the serve shape (one lane of bucket 32 holding a 17-token
+    # prompt from position 0) and at phase 6's cold-header chunk (64 rows
+    # at pos0 192, all valid), each beside SDPA over the K/V gathered
+    # beforehand with the same causal mask
+    k2_rows = {}
+    for t, pos0, valid in ((32, 0, 17), (64, 192, 64)):
+        q, kp, vp, bt, _, _ = k2_inputs(torch, gen, dev, t=t, pos0=pos0,
+                                        valid_len=valid,
+                                        dtype=torch.bfloat16, **r1)
+        kc = gather_pages(kp, bt).nan_to_num()[None]     # [1, kv, S, hd]
+        vc = gather_pages(vp, bt).nan_to_num()[None]
+        s_max = kc.shape[2]
+        mask2 = (torch.arange(s_max, device=dev)[None, :]
+                 <= pos0 + torch.arange(t, device=dev)[:, None])[None, None]
+        qt = q.transpose(0, 1)[None]                     # [1, H, T, hd]
+        sdpa = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=mask2, enable_gqa=True))
+        bytes_, ops = k2_bytes_ops(t, pos0, valid, H=H, kv=kv, hd=hd, ps=ps)
+        row = {
+            **kernel_ms(torch, lambda: paged_flash_prefill_fwd(
+                q, kp, vp, bt, pos0, valid)),
+            "plain_ms": time_ms(torch, lambda: paged_flash_prefill_ref(
+                q, kp, vp, bt, pos0, valid)),
+            "library_ms": sdpa["ms"], "library": sdpa,
+            "bytes": bytes_, "ops": ops,
+            "bound_ms": bound(bytes_, ops, "bf16")[0],
+            "shape": f"T={t} pos0={pos0} valid_len={valid} H=40 kv=8 "
+                     "hd=128 ps=16 W=32 bf16",
+        }
+        print(f"[kernels] K2 at {row['shape']}: ms {row['ms']:.4f} (SDPA "
+              f"{sdpa['ms']:.4f}), queued_ms {row['queued_ms']:.4f} (SDPA "
+              f"{sdpa['queued_ms']:.4f}), host_us {row['host_us']:.1f} "
+              f"(SDPA {sdpa['host_us']:.1f}), bound {row['bound_ms']:.6f}")
+        k2_rows[t] = row
+    k2 = dict(k2_rows[32], header_chunk=k2_rows[64])
     return errs, {"paged_decode": k1, "paged_prefill": k2}
 
 
@@ -811,7 +936,8 @@ def phase_ssd_kernels(torch):
     Returns the results for the JSON line, timed at phase 8's lane
     shape."""
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan.ssd_scan import (ctas_per_head,
+                                                       smem_bytes, ssd_scan)
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(4)
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
@@ -901,28 +1027,41 @@ def phase_ssd_kernels(torch):
     compare("K4 lane 3 of 4 vs alone bf16 final state", fin[2:3], fin1,
             "bf16", exact=True)
 
-    # timing at phase 8's lane shape: one lane of a 32-row bucket (an
-    # 11-17-token prompt), mamba2-130m's widths, a zero start, bf16
-    b, s, h, p, n, q = 1, 32, 24, 64, 128, 128
-    x, dt, a, bb, cc, _ = ssd_inputs(torch, gen, dev, b=b, s=s, h=h, p=p,
-                                     n=n, dtype=torch.bfloat16)
-    valid = torch.arange(s, device=dev)[None, :] < 17
-    dtm = dt * valid[..., None]
-    state_bytes = b * h * p * n * 2
-    timing = {
-        **kernel_ms(torch, lambda: ssd_scan(x, dtm, a, bb, cc, chunk=q)),
-        "plain_ms": time_ms(torch, lambda: ssd_chunked(x, dt, a, bb, cc, q,
-                                                       valid=valid)),
-        "library_ms": None,
-        # x, b, c, dt, a in; y and the final state out (the zero start is
-        # not read)
-        "bytes": x.numel() * 2 * 2 + bb.numel() * 2 * 2 + dt.numel() * 4
-        + a.numel() * 4 + state_bytes,
-        # the scan over the valid rows only (masked rows are identity
-        # transitions whose products are all zero)
-        "ops": b * ssd_flops(17, h, p, n, q),
-        "shape": f"B=1 S={s} (17 valid) H={h} P={p} N={n} chunk {q} bf16",
-    }
+    # timing at phase 8's lane shape (one lane of a 32-row bucket holding
+    # an 11-17-token prompt, dt masked past 17) and at one long row (2,048
+    # positions, 16 chunks: an exact-length ssm admission), mamba2-130m's
+    # widths, a zero start, bf16
+    def timed(s, n_valid):
+        b, h, p, n, q = 1, 24, 64, 128, 128
+        x, dt, a, bb, cc, _ = ssd_inputs(torch, gen, dev, b=b, s=s, h=h, p=p,
+                                         n=n, dtype=torch.bfloat16)
+        valid = torch.arange(s, device=dev)[None, :] < n_valid
+        dtm = dt * valid[..., None]
+        ctas = ctas_per_head(p) * h * b
+        row = {
+            **kernel_ms(torch, lambda: ssd_scan(x, dtm, a, bb, cc, chunk=q)),
+            "plain_ms": time_ms(torch, lambda: ssd_chunked(
+                x, dt, a, bb, cc, q, valid=valid), n=10 if s > 256 else 50),
+            "library_ms": None,
+            # x, b, c, dt, a in; y and the final state out (the zero start
+            # is not read)
+            "bytes": x.numel() * 2 * 2 + bb.numel() * 2 * 2 + dt.numel() * 4
+            + a.numel() * 4 + b * h * p * n * 2,
+            # the scan over the valid rows only (masked rows are identity
+            # transitions whose products are all zero)
+            "ops": b * ssd_flops(n_valid, h, p, n, q),
+            "ctas": ctas,
+            "shape": f"B=1 S={s} ({n_valid} valid) H={h} P={p} N={n} chunk "
+                     f"{q} bf16, {ctas} CTAs ({ctas_per_head(p)} per head), "
+                     f"{smem_bytes(q, p, n, s)} B of shared memory each",
+        }
+        row["bound_ms"] = bound(row["bytes"], row["ops"], "bf16")[0]
+        print(f"[kernels] K4 at {row['shape']}: ms {row['ms']:.4f}, "
+              f"queued_ms {row['queued_ms']:.4f}, host_us "
+              f"{row['host_us']:.1f}, bound {row['bound_ms']:.6f}")
+        return row
+    timing = timed(32, 17)
+    timing["long"] = timed(2048, 2048)
     return {"ssd_scan": errs}, {"ssd_scan": timing}
 
 
@@ -1271,6 +1410,10 @@ def phase_serve(torch):
           "non-finite hidden state")
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the path never launched: {launches}")
+    check(launches["paged_prefill"]
+          == cfg.num_layers * engine.mixed_steps_executed,
+          f"K2 did not launch once per layer per mixed step: {launches}, "
+          f"{engine.mixed_steps_executed} mixed steps")
     return model, params, launches
 
 
@@ -1369,6 +1512,10 @@ def _serve_shared_header(torch, model, params, decode_kernel: str):
           "non-finite hidden state")
     check(stats["hit_tokens"] > 0 and stats["hit_rate"] > 0,
           "the shared header never hit the prefix cache")
+    check(launches["paged_prefill"]
+          == model.cfg.num_layers * engine.mixed_steps_executed,
+          f"K2 did not launch once per layer per mixed step: {launches}, "
+          f"{engine.mixed_steps_executed} mixed steps")
     return line, launches
 
 
@@ -1716,6 +1863,15 @@ def phase_profile(torch, out_dir: Path) -> None:
         print(table)
         print("[profile] " + json.dumps({"model": arch, "untraced": plain,
                                          "traced": traced}))
+        # the port's own kernels, wherever they rank in the table
+        ours = {e.key: {"launches": e.count,
+                        "self_device_ms": e.self_device_time_total / 1e3,
+                        "us_each": e.self_device_time_total / e.count}
+                for e in events
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and any(k in e.key for k in PORT_KERNELS)}
+        print("[profile-kernels] " + json.dumps({"model": arch,
+                                                 "kernels": ours}))
         del model, params, engine, prof, events
 
 
@@ -1820,7 +1976,8 @@ def main() -> int:
             "library": library, "timed_shape": tm["shape"], "card": smi,
             **{key: tm[k] for k, key in (("long", "long_context"),
                                          ("long_few_rows",
-                                          "long_context_few_rows"))
+                                          "long_context_few_rows"),
+                                         ("header_chunk", "header_chunk"))
                if k in tm},
         })
     for k in kernels:

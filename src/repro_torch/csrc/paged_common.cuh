@@ -1,10 +1,10 @@
 // Shared core of the paged attention kernels on CUDA cores: an
 // online-softmax pass of a few query rows of one KV head over that head's
-// paged K/V, one shared-memory tile of keys at a time. K2
-// (paged_prefill.cu) runs it in both dtypes; K1 (paged_decode.cu) and both
-// K3 passes (paged_tree_decode.cu) in fp32 only, since bf16 tensor-core
+// paged K/V, one shared-memory tile of keys at a time. K1
+// (paged_decode.cu), K2 (paged_prefill.cu) and both K3 passes
+// (paged_tree_decode.cu) run it in fp32 only, since bf16 tensor-core
 // products cannot meet fp32's tolerance (their bf16 kernels are mma.sync
-// tiles: paged_decode_mma.cuh).
+// tiles built from paged_decode_mma.cuh).
 //
 // Layout (the JAX package's, consumed unchanged): K/V pools are
 // [kv_heads, num_pages, page_size, head_dim] for one layer, contiguous;
@@ -164,25 +164,6 @@ __device__ __forceinline__ void stream_pages(
     }
   }
   __syncthreads();  // l is final before any thread reads another row's
-}
-
-// Calls f(T{}, std::integral_constant<int, HD>{}) for the storage type
-// (dtype 0 = fp32, 1 = bf16) and head_dim (32, 64 or 128) the paged kernels
-// are built for; returns false for any other (K2 takes both dtypes).
-template <typename F>
-static bool dispatch(int dtype, int head_dim, F&& f) {
-  using bf16 = __nv_bfloat16;
-  using hd128 = std::integral_constant<int, 128>;
-  using hd64 = std::integral_constant<int, 64>;
-  using hd32 = std::integral_constant<int, 32>;
-  if (dtype == 1 && head_dim == 128) f(bf16{}, hd128{});
-  else if (dtype == 1 && head_dim == 64) f(bf16{}, hd64{});
-  else if (dtype == 1 && head_dim == 32) f(bf16{}, hd32{});
-  else if (dtype == 0 && head_dim == 128) f(float{}, hd128{});
-  else if (dtype == 0 && head_dim == 64) f(float{}, hd64{});
-  else if (dtype == 0 && head_dim == 32) f(float{}, hd32{});
-  else return false;
-  return true;
 }
 
 }  // namespace paged

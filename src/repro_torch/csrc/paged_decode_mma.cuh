@@ -1,6 +1,7 @@
 // The split-key tensor-core decode core for Hopper (sm_90a), bf16, and the
 // 32-key mma.sync tile pieces it shares with K3's shared pass
-// (paged_tree_decode.cu, tree_shared_mma_kernel).
+// (paged_tree_decode.cu, tree_shared_mma_kernel) and K2's bf16 kernel
+// (paged_prefill.cu, prefill_mma_kernel).
 //
 // One kernel template, decode_mma_kernel<HD, kBranch>, instantiated twice:
 //   * kBranch = false: K1, the paged flash-decode (paged_decode.cu,

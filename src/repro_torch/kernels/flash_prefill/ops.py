@@ -4,13 +4,15 @@ tensors."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from .flash_prefill import flash_prefill
-from .paged_prefill import paged_flash_prefill_fwd
-from .ref import flash_prefill_ref, paged_flash_prefill_ref
+from .paged_prefill import (paged_flash_prefill_fwd,
+                            paged_flash_prefill_lanes_fwd)
+from .ref import (flash_prefill_ref, paged_flash_prefill_lanes_ref,
+                  paged_flash_prefill_ref)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -36,6 +38,26 @@ def paged_flash_prefill(q: torch.Tensor, k_pages: torch.Tensor,
                                        pos0, valid_len)
     return paged_flash_prefill_fwd(q, k_pages, v_pages, block_table, pos0,
                                    valid_len)
+
+
+def paged_flash_prefill_lanes(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              positions: torch.Tensor,
+                              chunk_lens: torch.Tensor,
+                              lane_buckets: Sequence[int]) -> torch.Tensor:
+    """Every chunk lane of a mixed step at once, [R, H, hd]: lane i holds
+    ``lane_buckets[i]`` consecutive rows of q, and its pos0, block table
+    and valid length are its first row's entry of ``positions`` and
+    ``block_tables`` and ``chunk_lens[i]`` (device arrays: no host int
+    that changes between steps). Each lane is ``paged_flash_prefill`` of
+    its rows. Dispatches on the device of ``q``; on the card one launch."""
+    if q.device.type == "cpu":
+        return paged_flash_prefill_lanes_ref(q, k_pages, v_pages,
+                                             block_tables, positions,
+                                             chunk_lens, lane_buckets)
+    return paged_flash_prefill_lanes_fwd(q, k_pages, v_pages, block_tables,
+                                         positions, chunk_lens, lane_buckets)
 
 
 def mixed_step_bytes_read(chunk: int, pos0: int, page_size: int,

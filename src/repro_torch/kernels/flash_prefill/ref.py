@@ -8,7 +8,7 @@ the CUDA kernels are held to on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -90,3 +90,25 @@ def paged_flash_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.einsum("tkgs,ksd->tkgd", w, v)
     out = out.masked_fill((rows >= valid_len)[:, None, None, None], 0.0)
     return out.reshape(t, q_heads, head_dim).to(q.dtype)
+
+
+def paged_flash_prefill_lanes_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                  v_pages: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  positions: torch.Tensor,
+                                  chunk_lens: torch.Tensor,
+                                  lane_buckets: Sequence[int]
+                                  ) -> torch.Tensor:
+    """Every chunk lane of a step: q [R, H, hd] holds the lanes' rows in
+    order (lane i has ``lane_buckets[i]`` rows), block_tables [R, W] and
+    positions [R] the same rows'; chunk_lens [n_lanes]. Lane i is
+    ``paged_flash_prefill_ref`` of its rows through its first row's table,
+    from its first row's position, with ``chunk_lens[i]`` valid rows.
+    Returns [R, H, hd] in q's dtype."""
+    parts, off = [], 0
+    for i, bk in enumerate(lane_buckets):
+        parts.append(paged_flash_prefill_ref(
+            q[off:off + bk], k_pages, v_pages, block_tables[off],
+            int(positions[off]), int(chunk_lens[i])))
+        off += bk
+    return torch.cat(parts, 0) if parts else q.new_zeros(q.shape)

@@ -2,8 +2,9 @@
 
 The kernel is ``csrc/ssd_scan.cu``; it replaces the TPU kernel
 ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan`` and carries a state in and
-out as ``repro/models/mamba2.py:ssd_chunked`` does. ``launches`` counts the
-launches this wrapper made.
+out as ``repro/models/mamba2.py:ssd_chunked`` does. One launch covers
+every (16-column slice of P, head, row); bf16 runs on tensor cores, fp32
+on the CUDA cores. ``launches`` counts the launches this wrapper made.
 """
 from __future__ import annotations
 
@@ -18,18 +19,48 @@ launches = 0
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
     [ctypes.c_void_p]
-MAX_DIM = 128              # chunk, head_dim and state_dim one CTA holds
+MAX_DIM = 128              # chunk, head_dim and state_dim the kernel takes
 MAX_SMEM = 232448          # shared memory a block may take on the H100
+SLICE = 16                 # columns of head_dim one CTA owns
 
 
-def smem_bytes(chunk: int, head_dim: int, state_dim: int) -> int:
-    """The CTA's shared memory (``Layout`` in ``ssd_scan.cu``, which
-    refuses the same widths): B with a padded row, C, X, the padded
-    [P, N] state, a [32, Q] gate tile and three [Q] vectors, all fp32.
+def ctas_per_head(head_dim: int) -> int:
+    """CTAs of one (row, head): its 16-column slices of P (the grid is
+    (slice, head, row))."""
+    return -(-head_dim // SLICE)
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def smem_bytes(chunk: int, head_dim: int, state_dim: int,
+               seqlen: Optional[int] = None,
+               dtype: torch.dtype = torch.bfloat16) -> int:
+    """One CTA's shared memory (``MmaLayout`` / ``F32Layout`` in
+    ``ssd_scan.cu``, which refuses the same shapes). It is sized by the
+    rows a chunk holds (min(chunk, seqlen)) and one 16-column slice of X,
+    never by ``head_dim``. bf16: per stage (two where the sequence spans
+    several chunks) B and C rows of N padded to 16, 32, 64 or 128 plus 8
+    bf16, the X slice [rows][24] bf16 and dt fp32, then the state's hi and
+    lo [16][N + 8] bf16 and two [rows] fp32 vectors, rows padded to 16.
+    fp32: B [rows][N + 1], C [rows][N], the X slice [rows][16], the state
+    slice [16][N + 1], a [32][rows] gate tile and three [rows] vectors.
     Checked here so that a CPU test can see the limit."""
-    floats = (chunk * (state_dim + 1) + chunk * state_dim + chunk * head_dim
-              + head_dim * (state_dim + 1) + 32 * chunk + 3 * chunk)
-    return 4 * floats
+    del head_dim   # the slice is 16 columns whatever P is
+    rows = min(chunk, seqlen if seqlen is not None else chunk)
+    n = state_dim
+    if dtype == torch.float32:
+        floats = (rows * (n + 1) + rows * n + rows * SLICE
+                  + SLICE * (n + 1) + 32 * rows + 3 * rows)
+        return 4 * floats
+    q = _round16(rows)
+    npad = next(w for w in (16, 32, 64, 128) if w >= n) if n <= 128 \
+        else _round16(n)
+    stride = npad + 8
+    stages = 2 if seqlen is not None and seqlen > chunk else 1
+    stage = 2 * q * stride * 2 + q * (SLICE + 8) * 2 + q * 4
+    return stages * stage + 2 * SLICE * stride * 2 + 2 * q * 4
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -62,7 +93,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError("ssd_scan: the initial state is [B, H, P, N] in "
                          "x's dtype")
     if not 1 <= chunk <= MAX_DIM or p > MAX_DIM or n > MAX_DIM or \
-            smem_bytes(chunk, p, n) > MAX_SMEM:
+            smem_bytes(chunk, p, n, s, x.dtype) > MAX_SMEM:
         raise ValueError(f"ssd_scan: chunk {chunk}, head_dim {p}, state "
                          f"{n} exceed what one CTA holds")
     y = torch.empty_like(x)

@@ -69,7 +69,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels.flash_prefill.ops import paged_flash_prefill
+from ..kernels.flash_prefill.ops import paged_flash_prefill_lanes
 from ..kernels.paged_attention.ops import (paged_attention,
                                            paged_tree_attention)
 from ..kv import (BranchBlocks, OutOfPagesError, PageAllocator, PrefixCache,
@@ -542,9 +542,9 @@ class Engine:
     def step_variants(self) -> List[StepVariant]:
         """Every step shape this engine can dispatch: the pure-decode
         shape plus one mixed shape per (bucket, lane-count) pair, each
-        with the arrays it takes (the tree map's four with
-        ``decode_kernel="tree"``; for ssm/hybrid the slot-validity mask,
-        the lanes' chunk lengths and their stacked (conv, ssd) chunk
+        with the arrays it takes (the lanes' chunk lengths; the tree map's
+        four with ``decode_kernel="tree"``; for ssm/hybrid the
+        slot-validity mask and the lanes' stacked (conv, ssd) chunk
         state)."""
         cfg, mc = self.cfg, self.model.cfg
         B, w = cfg.max_slots, cfg.max_pages_per_branch
@@ -561,9 +561,9 @@ class Engine:
                            row_group=((B,), "int32"),
                            shared_bt=((B, w), "int32"),
                            shared_lens=((B,), "int32"))
+            out["chunk_lens"] = ((n_lanes,), "int32")
             if mc.uses_ssm:
-                out.update(slot_valid=((B,), "bool"),
-                           chunk_lens=((n_lanes,), "int32"))
+                out["slot_valid"] = ((B,), "bool")
                 if n_lanes:
                     conv, ssd = self.state["conv"], self.state["ssd"]
                     L = mc.num_layers
@@ -674,8 +674,7 @@ class Engine:
             np.concatenate([d_positions] + [ln[1] for ln in lanes]),
             np.concatenate([d_bt] + [ln[2] for ln in lanes]),
             np.concatenate([d_lengths] + [ln[3] for ln in lanes]),
-            lane_buckets, chunk_lens, [st.next_pos for st in sts], cows,
-            tree, slot_valid, chunk_state)
+            lane_buckets, chunk_lens, cows, tree, slot_valid, chunk_state)
         self.prefill_chunk_steps += len(sts)
         self.mixed_steps_executed += 1
         ps = cfg.page_size
@@ -882,7 +881,7 @@ class Engine:
     def _step(self, tokens: np.ndarray, positions: np.ndarray,
               block_tables: np.ndarray, lengths: np.ndarray,
               lane_buckets: tuple = (), chunk_lens: Sequence[int] = (),
-              lane_pos0: Sequence[int] = (), cows: Sequence[tuple] = (),
+              cows: Sequence[tuple] = (),
               tree: Optional[tuple] = None,
               slot_valid: Optional[np.ndarray] = None,
               chunk_state: Optional[tuple] = None):
@@ -891,15 +890,17 @@ class Engine:
 
         Rows 0..max_slots-1 are the decode slots; extra rows are the
         step's prefill chunk lanes — ``lane_buckets`` gives each lane's
-        padded row count, ``chunk_lens[i]`` its true chunk length and
-        ``lane_pos0[i]`` the absolute position of its first row (host
-        ints, so the lanes' K2 launches need no device sync). ``tree`` is
-        the decode rows' map from ``_tree_map`` (None: per-branch K1).
+        padded row count (a shape) and ``chunk_lens[i]`` its true chunk
+        length, which rides the step's one host-to-device copy: K2 reads it
+        and each lane's first position (its first row's) on the device, so
+        its one launch per layer takes no host int that changes between
+        steps. ``tree`` is the decode rows' map from ``_tree_map`` (None:
+        per-branch K1).
         Order, as the reference: CoW copies, then per layer norm -> the
         mixer -> MLP; then the final norm, unembed and sampling. The
         attention mixer runs QKV -> RoPE -> K/V page writes of every row
         -> attention (K1, or K3 over ``tree``, for the decode rows; K2
-        once per lane with the "fused" kernel) -> wo. CoW runs before
+        once over all lanes with the "fused" kernel) -> wo. CoW runs before
         attention, so no shared page of the map is written mid-step.
 
         The SSM mixer (ssm/hybrid) steps the decode rows with
@@ -916,7 +917,6 @@ class Engine:
         mc, cfg, p = self.model.cfg, self.cfg, self.params
         B, nS = tokens.shape[0], cfg.max_slots
         ps, w = cfg.page_size, cfg.max_pages_per_branch
-        lane_off = list(np.cumsum((nS,) + tuple(lane_buckets))[:-1])
         # host-side index math: the page and slot each row writes; pad rows
         # of a lane (past its chunk length) write to the spare page
         col = np.minimum(positions // ps, w - 1)
@@ -929,7 +929,8 @@ class Engine:
             page_of = np.where(write_ok, page_of, cfg.num_pages)
         cow_src, cow_dst = self._cow_arrays(cows)
         # the step's one host-to-device copy: every index array, the tree
-        # map's and the SSM masks included, sliced apart on the device
+        # map's, the SSM masks and the lanes' chunk lengths included,
+        # sliced apart on the device
         parts = [tokens, positions, page_of, positions % ps, lengths + 1,
                  block_tables.reshape(-1)]
         if tree is not None:
@@ -939,7 +940,8 @@ class Engine:
             # pass by it
             tree_span = int(sl.max(initial=0))
         if mc.uses_ssm:
-            parts += [slot_valid, np.asarray(chunk_lens, np.int32)]
+            parts.append(slot_valid)
+        parts.append(np.asarray(chunk_lens, np.int32))
         host = np.concatenate(parts + [cow_src, cow_dst]).astype(np.int32)
         dev = torch.from_numpy(host).to(self.device)
         tok_d, pos_d, page_d, slot_d, len_d = dev[:5 * B].view(5, B)
@@ -951,10 +953,11 @@ class Engine:
                 2, nS, w)
             off += 2 * nS + 2 * nS * w
         if mc.uses_ssm:
-            n_lanes = len(lane_buckets)
             valid_d = dev[off:off + nS].bool()
-            lens_d = dev[off + nS:off + nS + n_lanes]
-            off += nS + n_lanes
+            off += nS
+        n_lanes = len(lane_buckets)
+        lens_d = dev[off:off + n_lanes]
+        off += n_lanes
         if mc.uses_attention:
             kp_all, vp_all = self.state["k_pages"], self.state["v_pages"]
             if cows:
@@ -1000,13 +1003,11 @@ class Engine:
                         att = paged_attention(q[:nS], kp, vp, bt_d[:nS],
                                               len_d[:nS])
                     if fused_chunk:
-                        att_parts = [att]
-                        for i, bk in enumerate(lane_buckets):
-                            o = lane_off[i]
-                            att_parts.append(paged_flash_prefill(
-                                q[o:o + bk], kp, vp, bt_d[o], lane_pos0[i],
-                                chunk_lens[i]))
-                        att = torch.cat(att_parts, 0)
+                        # every lane in one call: each lane's pos0 and
+                        # table are its first row's, its length lens_d's
+                        att = torch.cat([att, paged_flash_prefill_lanes(
+                            q[nS:], kp, vp, bt_d[nS:], pos_d[nS:], lens_d,
+                            lane_buckets)], 0)
                 mix = att.reshape(B, 1, -1) @ lp["attn"]["wo"]
             if mc.uses_ssm:
                 conv_l, ssd_l = self.state["conv"][layer], \

@@ -534,6 +534,40 @@ def _equal_states(a, b):
             assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("family", ["dense", "dense_bias"])
+def test_dense_multi_lane_matches_single_lane(family):
+    """Two chunk lanes per mixed step (K2 once over both lanes, each lane's
+    pos0 and length read from the step's device arrays) give each prompt
+    the single-lane FIFO's first-token logits and K/V pages bit for bit,
+    and the same greedy tokens when a branch of each decodes."""
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(2, 97, size=s)]
+               for s in (13, 9, 17)]
+    single = _port(family)
+    want = [single.prefill(p) for p in prompts]
+    multi = _port(family, step_token_budget=16)
+    assert multi.admission_capacity == 2
+    sts = [multi.begin_prefill(p) for p in prompts]
+    steps = 0
+    while any(not st.done for st in sts):
+        multi.decode_step()
+        steps += 1
+    assert steps < sum(-(-len(p) // 8) for p in prompts)
+    got = [multi.finish_prefill(st) for st in sts]
+    for (b_m, lg_m, _), (b_w, lg_w, _) in zip(got, want):
+        assert torch.equal(lg_m, lg_w)
+        for a, b in zip(_kv_of(multi, b_m), _kv_of(single, b_w)):
+            np.testing.assert_array_equal(a, b)
+    tokens = []
+    for eng, res in ((single, want), (multi, got)):
+        hs = [eng.spawn_branch(i, b, lg, ssm, len(p))
+              for i, ((b, lg, ssm), p) in enumerate(zip(res, prompts))]
+        for _ in range(4):
+            eng.decode_step()
+        tokens.append([h.tokens for h in hs])
+    assert tokens[0] == tokens[1]
+
+
 @pytest.mark.parametrize("family", SSM_FAMILIES)
 def test_ssm_multi_lane_matches_single_lane(family):
     """Two lanes per mixed step (one batched scan) give each prompt the

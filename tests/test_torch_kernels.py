@@ -24,11 +24,12 @@ from repro.kernels.paged_attention.ops import paged_attention as jax_k1
 from repro.kernels.paged_attention.ref import \
     paged_attention_decode_ref as jax_k1_ref
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_prefill.ops import (mixed_step_bytes_read,
-                                                   paged_flash_prefill)
-from repro_torch.kernels.flash_prefill.paged_prefill import \
-    paged_flash_prefill_fwd
-from repro_torch.kernels.flash_prefill.ref import paged_flash_prefill_ref
+from repro_torch.kernels.flash_prefill.ops import (
+    mixed_step_bytes_read, paged_flash_prefill, paged_flash_prefill_lanes)
+from repro_torch.kernels.flash_prefill.paged_prefill import (
+    paged_flash_prefill_fwd, paged_flash_prefill_lanes_fwd)
+from repro_torch.kernels.flash_prefill.ref import (
+    paged_flash_prefill_lanes_ref, paged_flash_prefill_ref)
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.paged_attention import \
     paged_attention_decode
@@ -252,6 +253,79 @@ def test_prefill_plain_matches_jax_ref_and_pallas(case, rng):
     assert (out[valid:] == 0).all(), "pad rows must give exact zeros"
 
 
+def _lanes_inputs(rng, *, bucket, lanes, q_heads, kv_heads, hd, ps, width):
+    """A step's chunk lanes as the engine lays them out: lane i holds
+    ``bucket`` rows of q sharing its own block table (distinct pages of one
+    pool, sentinel tails) and positions pos0 .. (pad rows repeat the last
+    valid one); ``lanes`` lists (pos0, valid_len)."""
+    n = len(lanes)
+    num_pages = n * width + 3
+    q = rng.normal(size=(n * bucket, q_heads, hd)).astype(np.float32)
+    k = rng.normal(size=(kv_heads, num_pages, ps, hd)).astype(np.float32)
+    v = rng.normal(size=(kv_heads, num_pages, ps, hd)).astype(np.float32)
+    perm = rng.permutation(num_pages)
+    bt = np.full((n * bucket, width), num_pages, np.int32)
+    pos = np.zeros((n * bucket,), np.int32)
+    off = 0
+    for i, (pos0, valid) in enumerate(lanes):
+        npg = -(-(pos0 + valid) // ps)
+        bt[i * bucket:(i + 1) * bucket, :npg] = perm[off:off + npg]
+        off += npg
+        pos[i * bucket:(i + 1) * bucket] = np.minimum(
+            pos0 + np.arange(bucket), pos0 + valid - 1)
+    lens = np.asarray([v for _, v in lanes], np.int32)
+    return q, k, v, bt, pos, lens
+
+
+LANES_CASES = {
+    # name: (q_heads, kv_heads, hd, ps, width, bucket, [(pos0, valid)])
+    "group2_mid_page": (4, 2, 64, 4, 8, 8, [(6, 8), (0, 5), (13, 1)]),
+    "group5_one_valid_row": (10, 2, 128, 16, 4, 16,
+                             [(37, 11), (0, 16), (20, 1), (5, 9)]),
+    "group7_mid_page": (14, 2, 64, 8, 4, 8, [(13, 1), (3, 8), (10, 6)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LANES_CASES))
+def test_prefill_lanes_plain_matches_per_lane_and_jax(case, rng):
+    """The lanes entry (every chunk lane of a step at once, pos0 read from
+    each lane's first row, valid_len from chunk_lens) equals the one-lane
+    plain version lane by lane bit for bit, and each lane equals the JAX
+    ref and the Pallas kernel (interpret mode); pad rows exact zeros."""
+    qh, kvh, hd, ps, width, bucket, lanes = LANES_CASES[case]
+    q, k, v, bt, pos, lens = _lanes_inputs(
+        rng, bucket=bucket, lanes=lanes, q_heads=qh, kv_heads=kvh, hd=hd,
+        ps=ps, width=width)
+    out = paged_flash_prefill_lanes(*_torch(q, k, v, bt, pos, lens),
+                                    (bucket,) * len(lanes)).numpy()
+    for i, (pos0, valid) in enumerate(lanes):
+        rows = slice(i * bucket, (i + 1) * bucket)
+        alone = paged_flash_prefill(*_torch(q[rows], k, v, bt[i * bucket]),
+                                    pos0, valid).numpy()
+        np.testing.assert_array_equal(out[rows], alone)
+        jargs = list(map(jnp.asarray, (q[rows], k, v, bt[i * bucket]))) + [
+            jnp.int32(pos0), jnp.int32(valid)]
+        np.testing.assert_allclose(out[rows], np.asarray(jax_k2_ref(*jargs)),
+                                   **F32)
+        np.testing.assert_allclose(
+            out[rows], np.asarray(jax_k2(*jargs, use_kernel=True)), **F32)
+        assert (out[rows][valid:] == 0).all(), "pad rows must be zeros"
+
+
+def test_prefill_lanes_cuda_wrapper_checks_its_lanes(rng):
+    """The lanes wrapper refuses CPU tensors (only the dispatcher routes
+    them to the plain version), and on the plain path an empty lane list
+    gives an empty result."""
+    q, k, v, bt, pos, lens = _torch(*_lanes_inputs(
+        rng, bucket=4, lanes=[(0, 3), (5, 4)], q_heads=4, kv_heads=2,
+        hd=32, ps=4, width=4))
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_flash_prefill_lanes_fwd(q, k, v, bt, pos, lens, (4, 4))
+    empty = paged_flash_prefill_lanes_ref(q[:0], k, v, bt[:0], pos[:0],
+                                          lens[:0], ())
+    assert empty.shape == (0, 4, 32)
+
+
 def test_prefill_plain_ignores_poisoned_future_slots(rng):
     """NaN past the chunk's last valid position never reaches a row."""
     t, pos0, valid, ps = 8, 3, 6, 4
@@ -407,6 +481,28 @@ def test_prefill_kernel_matches_plain_on_card(cuda, case, dtype, tol, rng):
     ref = paged_flash_prefill_ref(*args, pos0, valid)
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     assert (out[valid:] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_prefill_kernel_four_lanes_on_card(cuda, dtype, tol, rng):
+    """CUDA K2 over four lanes of bucket 32 in one launch (pos0 0, 37,
+    256, 496; valid 17, 32, 1, 9; r1-distill-14b's heads) = the plain
+    version lane by lane, and each lane bit-equal to that lane launched
+    alone."""
+    lanes = [(0, 17), (37, 32), (256, 1), (496, 9)]
+    q, k, v, bt, pos, lens = (a.to(cuda) for a in _torch(*_lanes_inputs(
+        rng, bucket=32, lanes=lanes, q_heads=40, kv_heads=8, hd=128, ps=16,
+        width=32)))
+    q, k, v = (a.to(dtype) for a in (q, k, v))
+    out = paged_flash_prefill_lanes(q, k, v, bt, pos, lens, (32,) * 4)
+    ref = paged_flash_prefill_lanes_ref(q, k, v, bt, pos, lens, (32,) * 4)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    for i, (pos0, valid) in enumerate(lanes):
+        rows = slice(32 * i, 32 * (i + 1))
+        alone = paged_flash_prefill(q[rows], k, v, bt[32 * i], pos0, valid)
+        assert torch.equal(out[rows], alone)
 
 
 @pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),

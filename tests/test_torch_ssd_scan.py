@@ -145,12 +145,49 @@ def test_k4_wrapper_refuses_cpu_tensors(rng):
 
 def test_k4_serving_widths_fit_one_cta():
     """mamba2-130m's chunk lane (Q = N = 128, P = 64) and hymba-1.5b's
-    (N = 16) fit the card's shared memory; the kernel source is built."""
-    assert k4.smem_bytes(128, 64, 128) <= k4.MAX_SMEM
-    assert k4.smem_bytes(128, 64, 16) <= k4.MAX_SMEM
-    assert k4.smem_bytes(128, 128, 128) > k4.MAX_SMEM
+    (N = 16) fit one CTA's shared memory in both dtypes; a CTA holds one
+    16-column slice of P, so P = 128, which the one-CTA-per-head layout
+    could not hold, fits at the same size; the kernel source is built."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for p, n in ((64, 128), (64, 16), (128, 128)):
+            assert k4.smem_bytes(128, p, n, 2048, dtype) <= k4.MAX_SMEM
+        assert k4.smem_bytes(128, 128, 128, 2048, dtype) == \
+            k4.smem_bytes(128, 64, 128, 2048, dtype)
     assert "ssd_scan" in build.SOURCES
     assert (build.CSRC / "ssd_scan.cu").exists()
+
+
+def _ssm_widths():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import _FALLBACK_FAMILIES
+    out = {name: (c.ssm_head_dim, c.ssm_state, c.ssm_chunk)
+           for name, c in ((n, get_config(n))
+                           for n in ("mamba2-130m", "hymba-1.5b"))}
+    for fam in ("ssm", "hybrid"):
+        f = _FALLBACK_FAMILIES[fam]
+        out[f"fallback-{fam}"] = (f["ssm_head_dim"], f["ssm_state"],
+                                  f["ssm_chunk"])
+    return out
+
+
+@pytest.mark.parametrize("name", ["mamba2-130m", "hymba-1.5b",
+                                  "fallback-ssm", "fallback-hybrid"])
+def test_k4_geometry_fits_the_card(name):
+    """The redesigned K4's geometry at each served SSM width: one CTA per
+    16-column slice of P (4 per head at P = 64, 2 at the fallbacks' 32),
+    shared memory within the card's 227 KB at the serving lanes (32 and
+    64 rows) and at a long exact-length admission (2,048 positions) in
+    both dtypes, and small enough at a 32-row lane in bf16 that four CTAs
+    share an SM."""
+    p, n, chunk = _ssm_widths()[name]
+    assert k4.ctas_per_head(p) == -(-p // 16)
+    for dtype in (torch.bfloat16, torch.float32):
+        for s in (32, 64, 2048):
+            assert 0 < k4.smem_bytes(chunk, p, n, s, dtype) <= k4.MAX_SMEM
+    assert 4 * k4.smem_bytes(chunk, p, n, 32) <= k4.MAX_SMEM
+    # sized by the rows present, not by the chunk
+    assert k4.smem_bytes(chunk, p, n, 16) <= k4.smem_bytes(chunk, p, n,
+                                                           chunk)
 
 
 # ------------------------------------------------------- on the card only
@@ -172,6 +209,26 @@ def cuda():
 def test_k4_matches_plain_on_card(cuda, rng, b, s, h, p, n, q, dtype, tol):
     """CUDA K4 = the plain chunked scan computed in fp32 on the same
     inputs, outputs and final state, from a given state."""
+    x, dt, a, bb, cc = (t.to(cuda) for t in _t(*_inputs(rng, b, s, h, p,
+                                                         n)))
+    init = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(
+        np.float32)).to(cuda)
+    x, bb, cc, init_d = (t.to(dtype) for t in (x, bb, cc, init))
+    y, st = k4.ssd_scan(x, dt, a, bb, cc, chunk=q, initial_state=init_d)
+    y_r, st_r = ssd_chunked(x.float(), dt, a, bb.float(), cc.float(), q,
+                            init_d.float())
+    torch.testing.assert_close(y.float(), y_r, atol=tol, rtol=tol)
+    torch.testing.assert_close(st.float(), st_r, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_k4_long_row_matches_plain_on_card(cuda, rng, dtype, tol):
+    """CUDA K4 over one row of 2,048 positions at mamba2-130m's widths (16
+    chunks of 128: the double-buffered chunk loop) = the plain chunked
+    scan in fp32, outputs and final state, from a given state."""
+    b, s, h, p, n, q = 1, 2048, 24, 64, 128, 128
     x, dt, a, bb, cc = (t.to(cuda) for t in _t(*_inputs(rng, b, s, h, p,
                                                          n)))
     init = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(
