@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py              # every phase; needs one card
     python3 chip_smoke.py --skip-serve # build + kernel checks only, no "ok"
-    python3 chip_smoke.py --profile DIR  # build + profiled serves, no "ok"
+    python3 chip_smoke.py --profile DIR  # build + profiled serves (eager
+                                         # and graphs), no "ok"
     python3 chip_smoke.py --tree-pairs 3 # build + phase 6 tree/paged pairs
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -51,7 +52,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                lane bit-equal to itself launched alone and with the NaN
                past its horizon taken out, and timed at phase 6's
                cold-header chunk (64 rows at pos0 192) too; K4 also timed
-               at one row of 2,048 positions (16 chunks);
+               at one row of 2,048 positions (16 chunks); K3's shared
+               pass splits from the table's shape (16 splits of 32 keys
+               at the serve's 32-page tables), both passes also timed at
+               the 8 splits a host span of 256 tokens gave before;
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -63,13 +67,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                with ``chunked_prefill=False`` (K5 in every exact
                admission); ``Model.prefill`` + ``decode_step`` (dense and
                sliding-window); the launcher's dense and hybrid fallback
-               trunks (head_dim 32) serving on the card;
+               trunks (head_dim 32) serving on the card; the card's
+               engines step through their CUDA graphs;
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
+               Every step is the replay of its variant's CUDA graph (the
+               engine's default on the card): replays must equal decode
+               steps, graphs captured at most the declared variants.
                Kernel launch counters are zeroed just before and read just
-               after, and every request must complete with no fault; K2
-               must launch once per layer per mixed step;
+               after; a kernel's launches are what the engine reports, its
+               launches recorded at capture times its variant's replays
+               (``Engine.step_launches``). Every request must complete
+               with no fault; K2 must launch once per layer per mixed
+               step;
   6. tree    — the same model and weights, phase 5's engine freed, with
                ``prefix_cache=True, decode_kernel="tree"``: 4 requests whose
                prompts share a 256-token few-shot header. The cache must
@@ -86,7 +97,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                768, 24 SSD heads, state 128, bf16, random weights from a
                seed) through ``run_serving``: 4 requests, n=8. K4 must
                launch once per layer per mixed step, K1-K3 never; every
-               request completes with no fault and no leaked page.
+               request completes with no fault and no leaked page;
+  9. graphs  — eager steps (``Engine.eager()``) against graph steps, greedy,
+               at full width and depth on one set of random weights each:
+               r1-distill-14b on phase 5's traffic and on phase 6's with
+               tree decode, mamba2-130m on phase 8's. The tokens of every
+               decode step must be identical; prints the steps' largest
+               logit difference, both step p50s and each variant's
+               capture time.
+
+Phases 5, 6 (tree and paged), 7 (its decode steps) and 8 serve through
+the step graphs; a capture or replay that fails raises, and nothing falls
+back to the eager step.
 
 Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
@@ -95,6 +117,7 @@ Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -679,7 +702,8 @@ def phase_tree_kernels(torch):
         gather_pages, paged_tree_attention_ref, tree_branch_merge_ref,
         tree_full_tables, tree_merge_splits_ref, tree_shared_partials_ref)
     from repro_torch.kernels.paged_attention.tree_decode import (
-        paged_tree_branch_fwd, paged_tree_shared_fwd, unpack_partials)
+        paged_tree_branch_fwd, paged_tree_shared_fwd,
+        paged_tree_shared_split_fwd, unpack_partials)
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(2)
@@ -734,38 +758,33 @@ def phase_tree_kernels(torch):
                                                        ln)
             ref = paged_tree_attention_ref(*args)
             grouped = rg < rg.shape[0]
-            # splits over a span of the whole table, over the longest
-            # group span (as the engine passes it), and over a span
-            # understated to one page (the last split takes the rest)
-            longest = int(sl.max())
-            table = shape["ps"] * sbt.shape[1]
-            for span in (table, longest, shape["ps"]):
-                part, keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl,
-                                                   ln, span)
-                out = paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln, part,
-                                            keys)
-                m, l, acc = unpack_partials(part)
-                # NaN in unowned pages and stale slots changes no bit
-                kc, vc = kp.nan_to_num(), vp.nan_to_num()
-                clean = paged_tree_branch_fwd(q, kc, vc, rg, sl, bbt, ln, *(
-                    paged_tree_shared_fwd(q, kc, vc, rg, sbt, sl, ln, span)))
-                torch.cuda.synchronize()
-                check(bool((out[ln == 0] == 0).all()),
-                      "K3 length-0 row is not zero")
-                check(torch.equal(out, clean), "K3 output moved with the "
-                      "NaN in stale or unowned pages")
-                # the kernel's split partials of the grouped rows, folded
-                m_k, l_k, acc_k = tree_merge_splits_ref(
-                    m[:, grouped], l[:, grouped], acc[:, grouped])
-                tag = f"{name} {dn} B={q.shape[0]} span={span} " \
-                    f"n_split={m.shape[0]}"
-                errs["paged_tree_shared"].append(_compare(
-                    torch, f"K3 shared {tag}",
-                    torch.cat([m_k[..., None], l_k[..., None], acc_k], -1),
-                    torch.cat([m_r[grouped, :, None], l_r[grouped, :, None],
-                               acc_r[grouped]], -1), dn))
-                errs["paged_tree_branch"].append(_compare(
-                    torch, f"K3 branch (output) {tag}", out, ref, dn))
+            # the splits come from the table's shape alone: splits past
+            # a group's span hold no key
+            part, keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
+            out = paged_tree_branch_fwd(q, kp, vp, rg, sl, bbt, ln, part,
+                                        keys)
+            m, l, acc = unpack_partials(part)
+            # NaN in unowned pages and stale slots changes no bit
+            kc, vc = kp.nan_to_num(), vp.nan_to_num()
+            clean = paged_tree_branch_fwd(q, kc, vc, rg, sl, bbt, ln, *(
+                paged_tree_shared_fwd(q, kc, vc, rg, sbt, sl, ln)))
+            torch.cuda.synchronize()
+            check(bool((out[ln == 0] == 0).all()),
+                  "K3 length-0 row is not zero")
+            check(torch.equal(out, clean), "K3 output moved with the "
+                  "NaN in stale or unowned pages")
+            # the kernel's split partials of the grouped rows, folded
+            m_k, l_k, acc_k = tree_merge_splits_ref(
+                m[:, grouped], l[:, grouped], acc[:, grouped])
+            tag = f"{name} {dn} B={q.shape[0]} n_split={m.shape[0]} of " \
+                f"{keys} keys"
+            errs["paged_tree_shared"].append(_compare(
+                torch, f"K3 shared {tag}",
+                torch.cat([m_k[..., None], l_k[..., None], acc_k], -1),
+                torch.cat([m_r[grouped, :, None], l_r[grouped, :, None],
+                           acc_r[grouped]], -1), dn))
+            errs["paged_tree_branch"].append(_compare(
+                torch, f"K3 branch (output) {tag}", out, ref, dn))
 
     # timing at the tree serve's shape (bf16)
     groups, _ = serve_topology()
@@ -777,16 +796,28 @@ def phase_tree_kernels(torch):
     lens = ln.tolist()
     span = 256
     suffix = [n - span for n in lens]
-    # the K3 calls as the engine makes them: the longest span as a host int
-    part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln,
-                                             span)
+    # the K3 calls as the engine makes them: splits from the table's shape
+    part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
     n_split = part.shape[0]
     full = tree_full_tables(rg, sbt, sl, bbt, ps)
     k1_ms = kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, full,
                                                             ln))
     k3_ms = kernel_ms(torch, lambda: paged_tree_branch_fwd(
         q, kp, vp, rg, sl, bbt, ln, *paged_tree_shared_fwd(
-            q, kp, vp, rg, sbt, sl, ln, span)))
+            q, kp, vp, rg, sbt, sl, ln)))
+    # against the layout the longest span as a host int gave before the
+    # step was captured (8 splits of 32 keys over a 256-token span)
+    span_keys, span_n = 32, span // 32
+    k3_span_ms = kernel_ms(torch, lambda: paged_tree_branch_fwd(
+        q, kp, vp, rg, sl, bbt, ln, *paged_tree_shared_split_fwd(
+            q, kp, vp, rg, sbt, sl, ln, span_keys, span_n)))
+    shared_span_ms = kernel_ms(torch, lambda: paged_tree_shared_split_fwd(
+        q, kp, vp, rg, sbt, sl, ln, span_keys, span_n))
+    print(f"[kernels] K3 both passes at the tree serve shape, queued_ms: "
+          f"{k3_ms['queued_ms']:.4f} at the shape-only {n_split} splits "
+          f"of {split_keys} keys, {k3_span_ms['queued_ms']:.4f} at the "
+          f"host span's {span_n} splits of {span_keys} keys; the shared "
+          f"pass alone {shared_span_ms['queued_ms']:.4f} at {span_n}")
     # the reference's byte model at token granularity, per fork group
     kv_bytes = {path: sum(tree_decode_bytes_read(
         span, suffix[g * 8:(g + 1) * 8], 1, kv, hd, path=path, itemsize=2)
@@ -815,7 +846,7 @@ def phase_tree_kernels(torch):
         qs, ks, vs, enable_gqa=True))
     shared = {
         **kernel_ms(torch, lambda: paged_tree_shared_fwd(
-            q, kp, vp, rg, sbt, sl, ln, span)),
+            q, kp, vp, rg, sbt, sl, ln)),
         "plain_ms": time_ms(torch, lambda: tree_shared_partials_ref(
             q, kp, vp, rg, sbt, sl, ln)),
         "library_ms": sdpa["ms"],
@@ -829,8 +860,13 @@ def phase_tree_kernels(torch):
         "ops": 4 * B * span * H * hd,
         "shape": "B=16 in 2 groups of 8, shared span 256 tokens (16 pages),"
                  f" H=40 kv=8 hd=128 ps=16 W=32 bf16, n_split={n_split} "
-                 f"of {split_keys} keys (the engine's host span; the splits "
+                 f"of {split_keys} keys (from the table's shape; the splits "
                  f"write {n_split * one_set} bytes of fp32 partials)",
+        "host_span_layout": {"n_split": span_n, "split_keys": span_keys,
+                             "queued_ms": shared_span_ms["queued_ms"],
+                             "both_passes_queued_ms":
+                                 k3_span_ms["queued_ms"]},
+        "both_passes_queued_ms": k3_ms["queued_ms"],
     }
     print(f"[kernels] K3 shared pass at the tree serve shape: ms "
           f"{shared['ms']:.4f} (SDPA {sdpa['ms']:.4f}), queued_ms "
@@ -874,8 +910,7 @@ def phase_tree_kernels(torch):
         torch, gen, dev, groups=long_groups, singles=[],
         dtype=torch.bfloat16, **r1)
     suffix = [n - span for n in ln.tolist()]
-    part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln,
-                                             span)
+    part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
     kb = gather_pages(kp, bbt).nan_to_num()
     vb = gather_pages(vp, bbt).nan_to_num()
     mask = (torch.arange(kb.shape[2], device=dev)[None, :]
@@ -1246,6 +1281,7 @@ def phase_parity(torch):
                 flash_prefill.launches = 0
                 runs.append(_parity_scenario(torch, eng, cfg.vocab_size))
                 stats = eng.prefix_cache_stats()
+            graphs = _graph_stats(eng)      # the card's engine
             (t_cpu, l_cpu, h_cpu, c_cpu, s_cpu), \
                 (t_gpu, l_gpu, h_gpu, c_gpu, s_gpu) = runs
             err = max([float((l_cpu - l_gpu).abs().max()),
@@ -1260,7 +1296,13 @@ def phase_parity(torch):
                   f"{' / (conv, ssd) state' if s_cpu else ''} {err:.3e} "
                   f"(atol 1e-4); warm request cached tokens {c_gpu}; K4 "
                   f"launches {ssd_scan.launches}; K5 launches "
-                  f"{flash_prefill.launches}; {'ok' if ok else 'FAIL'}")
+                  f"{flash_prefill.launches}; step graphs captured "
+                  f"{graphs['captured']} of {graphs['declared']}, replays "
+                  f"{graphs['replays']}; {'ok' if ok else 'FAIL'}")
+            check(0 < graphs["captured"] <= graphs["declared"]
+                  and graphs["replays"] >= graphs["decode_steps"],
+                  f"the card's parity engine did not step through its "
+                  f"graphs: {graphs}")
             check(ok, f"engine on the card disagrees with the CPU engine "
                       f"({name})")
             if cfg.uses_ssm:
@@ -1351,6 +1393,47 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+def _graph_stats(engine) -> dict:
+    """One engine's step graphs: variants captured against declared,
+    replays against decode steps, capture seconds per variant (warm-up on
+    the inert inputs included)."""
+    return {"captured": engine.graphs_captured,
+            "declared": len(engine.step_variants()),
+            "replays": engine.graph_replays,
+            "decode_steps": engine.decode_steps_executed,
+            "capture_s": {name: round(g.capture_seconds, 4)
+                          for name, g in engine.step_graphs.items()
+                          if g.graph is not None}}
+
+
+def _check_graphs(engine, what: str) -> None:
+    """Every decode step of a serve was one graph replay, and no more
+    variants were captured than the engine declares."""
+    st = _graph_stats(engine)
+    check(st["replays"] == st["decode_steps"] > 0,
+          f"{what}: {st['replays']} graph replays for {st['decode_steps']} "
+          "decode steps")
+    check(0 < st["captured"] <= st["declared"],
+          f"{what}: {st['captured']} graphs captured, {st['declared']} "
+          "variants declared")
+
+
+def _path_launches(engine, recorded: dict) -> dict:
+    """The launches a serve's steps ran, for each kernel of ``recorded``:
+    each variant's launches recorded at capture times its replays, plus
+    the eager steps' own (``Engine.step_launches``). ``recorded`` holds
+    the wrappers' counters over the run, zeroed just before it: they
+    count where a wrapper runs, so under graphs the warm-up's and the
+    capture's launches. A kernel the steps ran must show there too."""
+    ran = engine.step_launches()
+    out = {k: ran.get(k, 0) for k in recorded}
+    for k, n in out.items():
+        check((n > 0) == (recorded[k] > 0),
+              f"{k}: the steps ran it {n} times, its wrapper counted "
+              f"{recorded[k]}")
+    return out
+
+
 def phase_serve(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_prefill import paged_prefill
@@ -1376,8 +1459,9 @@ def phase_serve(torch):
         temperature=0.9)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode": paged_attention.launches,
+    recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches}
+    launches = _path_launches(engine, recorded)
 
     steps = sorted(engine.step_seconds)
     p50 = steps[len(steps) // 2] if steps else float("nan")
@@ -1399,8 +1483,10 @@ def phase_serve(torch):
         "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
                                           "quarantined")},
         "used_pages": engine.allocator.used_pages,
+        "graphs": _graph_stats(engine),
     }
     print("[serve] " + json.dumps(line))
+    _check_graphs(engine, "the serve")
     check(out["completed_requests"] == 4 and out["unfinished_requests"] == 0,
           "not every request completed")
     check(faults["step_faults"] == faults["engine_restarts"]
@@ -1430,39 +1516,60 @@ def few_shot_header(n_tokens: int, seed: int):
     return out[:n_tokens]
 
 
-def _serve_shared_header(torch, model, params, decode_kernel: str):
-    """One serve of phase 6's traffic with the prefix cache on: 4
-    requests every 8 steps, each prompt a 256-token few-shot header (16
-    whole pages) and then the request's own problem. The run_serving
-    config otherwise (4096 x 16 pages, 16 slots, 32 pages per branch,
-    chunk 64; SART n=8, window 8, max 96 tokens, OraclePRM noise 0.05),
-    built here so the launcher gains no feature the reference lacks.
-    Launch counters are zeroed just before the run and read just after.
-    Returns (summary line, launches)."""
+def _serve_setup(torch, model, params, *, shared_header: bool,
+                 decode_kernel: str = "paged", temperature: float = 0.9,
+                 engine=None):
+    """The engine and scheduler of a serve phase's traffic: 4 requests
+    every 8 steps under SART (n=8, window 8, max 96 tokens, OraclePRM
+    noise 0.05) on run_serving's engine config (4096 x 16 pages, 16
+    slots, 32 pages per branch, chunk 64, top-p 0.95). With
+    ``shared_header`` phase 6's prompts (a 256-token few-shot header, 16
+    whole pages, then each request's own problem) and the prefix cache
+    on; else phase 5's (run_serving's synthetic problems). Built here so
+    that the launcher gains no feature the reference lacks. A given
+    ``engine`` (idle, with no page held) is served again."""
     from repro_torch.core import OraclePRM, Scheduler, SchedulerConfig
-    from repro_torch.core.scheduler import percentile_latency
     from repro_torch.data import tasks
     from repro_torch.data import tokenizer as tk
-    from repro_torch.kernels.flash_prefill import paged_prefill
-    from repro_torch.kernels.paged_attention import (paged_attention,
-                                                     tree_decode)
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
-    gc.collect()                 # the previous engine and its KV pools
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 1e9
     seed = 0
-    prompts, probs = _shared_header_prompts(seed)
-    torch.cuda.reset_peak_memory_stats()
-    engine = Engine(model, params, EngineConfig(
-        page_size=16, num_pages=4096, max_slots=16, max_pages_per_branch=32,
-        eos_id=tk.EOS, sampling=SamplingParams(temperature=0.9, top_p=0.95),
-        seed=seed, prefix_cache=True, decode_kernel=decode_kernel))
+    if shared_header:
+        prompts, probs = _shared_header_prompts(seed)
+    else:
+        rng = np.random.default_rng(seed + 2)
+        probs = [tasks.gen_problem(rng) for _ in range(4)]
+        prompts = [p.prompt_tokens() for p in probs]
+    if engine is None:
+        engine = Engine(model, params, EngineConfig(
+            page_size=16, num_pages=4096, max_slots=16,
+            max_pages_per_branch=32, eos_id=tk.EOS,
+            sampling=SamplingParams(temperature=temperature, top_p=0.95),
+            seed=seed, prefix_cache=shared_header,
+            decode_kernel=decode_kernel))
     prm = OraclePRM(tasks.oracle_grader, noise=0.05, seed=seed + 1)
     sch = Scheduler(engine, prm, SchedulerConfig(policy="sart", n=8,
                                                  window=8, max_tokens=96),
                     answer_fn=tasks.extract_answer)
     for i, (prompt, prob) in enumerate(zip(prompts, probs)):
         sch.submit(prompt, payload=prob, arrival=i * 8)
+    return engine, sch
+
+
+def _serve_shared_header(torch, model, params, decode_kernel: str):
+    """One serve of phase 6's traffic (``_serve_setup`` with the shared
+    header) with ``decode_kernel``. Launch counters are zeroed just
+    before the run and read just after. Returns (summary line,
+    launches)."""
+    from repro_torch.core.scheduler import percentile_latency
+    from repro_torch.kernels.flash_prefill import paged_prefill
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     tree_decode)
+    gc.collect()                 # the previous engine and its KV pools
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    engine, sch = _serve_setup(torch, model, params, shared_header=True,
+                               decode_kernel=decode_kernel)
 
     paged_attention.launches = 0
     paged_prefill.launches = 0
@@ -1471,10 +1578,11 @@ def _serve_shared_header(torch, model, params, decode_kernel: str):
     metrics = sch.run(max_steps=2_000_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode": paged_attention.launches,
+    recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
                 "paged_tree_branch": tree_decode.branch_launches}
+    launches = _path_launches(engine, recorded)
 
     steps = sorted(engine.step_seconds)
     faults = metrics["faults"]
@@ -1500,8 +1608,10 @@ def _serve_shared_header(torch, model, params, decode_kernel: str):
         "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
                                           "quarantined")},
         "used_pages": engine.allocator.used_pages,
+        "graphs": _graph_stats(engine),
     }
     print("[serve-tree] " + json.dumps(line))
+    _check_graphs(engine, f"the {decode_kernel} serve")
     check(metrics["completed_requests"] == 4
           and metrics["unfinished_requests"] == 0,
           "not every request completed")
@@ -1602,11 +1712,13 @@ def phase_exact_serve(torch, model, params, paged_p50: float):
     metrics = sch.run(max_steps=2_000_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode": paged_attention.launches,
+    # K5 runs eagerly in each admission; the steps' kernels replay
+    recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
-                "paged_tree_branch": tree_decode.branch_launches,
-                "flash_prefill": flash_prefill.launches}
+                "paged_tree_branch": tree_decode.branch_launches}
+    launches = dict(_path_launches(engine, recorded),
+                    flash_prefill=flash_prefill.launches)
     steps = sorted(engine.step_seconds)
     faults = metrics["faults"]
     line = {
@@ -1631,7 +1743,9 @@ def phase_exact_serve(torch, model, params, paged_p50: float):
         "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
                                           "quarantined")},
         "used_pages": engine.allocator.used_pages,
+        "graphs": _graph_stats(engine),
     }
+    _check_graphs(engine, "the exact serve")
     check(metrics["completed_requests"] == 4
           and metrics["unfinished_requests"] == 0,
           "not every request completed")
@@ -1744,11 +1858,12 @@ def phase_ssm_serve(torch):
         temperature=0.9)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"paged_decode": paged_attention.launches,
+    recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
                 "paged_tree_branch": tree_decode.branch_launches,
                 "ssd_scan": ssd_scan.launches}
+    launches = _path_launches(engine, recorded)
 
     steps = sorted(engine.step_seconds)
     faults = out["faults"]
@@ -1768,8 +1883,10 @@ def phase_ssm_serve(torch):
         "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
                                           "quarantined")},
         "used_pages": engine.allocator.used_pages,
+        "graphs": _graph_stats(engine),
     }
     print("[serve-ssm] " + json.dumps(line))
+    _check_graphs(engine, "the ssm serve")
     check(out["completed_requests"] == 4 and out["unfinished_requests"] == 0,
           "not every request completed")
     check(faults["step_faults"] == faults["engine_restarts"]
@@ -1811,6 +1928,118 @@ def phase_tree_pairs(torch, pairs: int) -> None:
         "tree_over_paged": [round(r, 4) for r in ratios]}))
 
 
+def _serve_recorded(torch, model, params, *, eager: bool,
+                    shared_header: bool, decode_kernel: str = "paged"):
+    """One greedy serve of phase 5's or phase 6's traffic
+    (``_serve_setup``), eagerly (``Engine.eager()``) or through the step
+    graphs, recording every decode step's tokens and every step's logits
+    of the rows that carry a result (a copy of them rides each step, both
+    ways). Returns
+    (summary line, tokens per step, logits per step)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine, sch = _serve_setup(torch, model, params,
+                               shared_header=shared_header,
+                               decode_kernel=decode_kernel, temperature=0.0)
+    tokens, logits = [], []
+    step, decode = engine._step, engine.decode_step
+    n_slots = engine.cfg.max_slots
+
+    def recording_step(tokens_, positions, tables, lengths,
+                       lane_buckets=(), chunk_lens=(), *args, **kw):
+        out = step(tokens_, positions, tables, lengths, lane_buckets,
+                   chunk_lens, *args, **kw)
+        # the rows that carry a result: occupied slots and each lane's
+        # valid rows (the others attend the spare page, which the graph
+        # run's warm-up also writes)
+        live = [i for i in range(n_slots) if engine._active[i]]
+        for i, (bk, cl) in enumerate(zip(lane_buckets, chunk_lens)):
+            live += range(n_slots + i * bk, n_slots + i * bk + cl)
+        logits.append(out[2][live].clone())
+        return out
+
+    def recording_decode():
+        out = decode()
+        tokens.append(dict(out))
+        return out
+    engine._step, engine.decode_step = recording_step, recording_decode
+    t0 = time.perf_counter()
+    with engine.eager() if eager else contextlib.nullcontext():
+        metrics = sch.run(max_steps=2_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    faults = metrics["faults"]
+    line = dict(_step_stats(engine, wall),
+                mode="eager" if eager else "graphs",
+                completed_requests=metrics["completed_requests"],
+                graphs=_graph_stats(engine),
+                used_pages=engine.allocator.used_pages)
+    check(metrics["completed_requests"] == 4
+          and metrics["unfinished_requests"] == 0
+          and faults["step_faults"] == faults["engine_restarts"] == 0,
+          f"the {line['mode']} serve did not complete cleanly: {faults}")
+    check(engine.allocator.used_pages == 0,
+          f"the {line['mode']} serve leaked pages")
+    if eager:
+        check(engine.graph_replays == engine.graphs_captured == 0,
+              "the eager serve replayed a graph")
+    else:
+        _check_graphs(engine, "the graph serve")
+    del engine, sch
+    return line, tokens, logits
+
+
+def phase_graphs(torch) -> dict:
+    """Phase 9: eager against graph steps at full width and depth, on one
+    set of random weights each: r1-distill-14b on phase 5's traffic and
+    on phase 6's with tree decode, mamba2-130m on phase 8's; greedy. The
+    tokens of every decode step must be identical both ways; the steps'
+    logits' largest difference is printed. Returns the lines."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    runs = {}
+    for arch, traffic in (("r1-distill-14b", (("serve", False, "paged"),
+                                              ("tree", True, "tree"))),
+                          ("mamba2-130m", (("ssm", False, "paged"),))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = Model(get_config(arch), dtype=torch.bfloat16, device=DEVICE)
+        params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
+        for name, header, kernel in traffic:
+            eager, t_e, l_e = _serve_recorded(torch, model, params,
+                                              eager=True,
+                                              shared_header=header,
+                                              decode_kernel=kernel)
+            graph, t_g, l_g = _serve_recorded(torch, model, params,
+                                              eager=False,
+                                              shared_header=header,
+                                              decode_kernel=kernel)
+            same = t_e == t_g
+            err = (max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(l_e, l_g))
+                   if len(l_e) == len(l_g) else float("nan"))
+            line = {"model": arch, "traffic": name, "decode_kernel": kernel,
+                    "tokens_identical": same, "decode_steps": len(t_g),
+                    "logits_max_abs_diff": err,
+                    "step_ms_p50": {"eager": eager["step_ms_p50"],
+                                    "graphs": graph["step_ms_p50"]},
+                    "step_ms_mean": {"eager": eager["step_ms_mean"],
+                                     "graphs": graph["step_ms_mean"]},
+                    "graphs": graph["graphs"]}
+            print("[graphs] " + json.dumps(line))
+            print(f"[graphs] {arch} {name}: step p50 eager "
+                  f"{eager['step_ms_p50']:.3f} ms, graphs "
+                  f"{graph['step_ms_p50']:.3f} ms; tokens identical at "
+                  f"every step: {same}; capture s per variant "
+                  f"{graph['graphs']['capture_s']}")
+            check(same, f"{arch} {name}: graph steps gave other tokens than "
+                        "eager steps")
+            runs[f"{arch} {name}"] = line
+            del l_e, l_g
+        del model, params
+    return runs
+
+
 def _step_stats(engine, wall: float) -> dict:
     steps = sorted(engine.step_seconds)
     return {"decode_steps": engine.decode_steps_executed, "wall_s": wall,
@@ -1819,60 +2048,83 @@ def _step_stats(engine, wall: float) -> dict:
 
 
 def phase_profile(torch, out_dir: Path) -> None:
-    """The serve phases' traffic (4 requests, n=8, 96 tokens) on
-    r1-distill-14b (phase 5) and on mamba2-130m (phase 8), each served
-    twice: once plain, for step times, then under torch.profiler tracing
+    """Phase 5's traffic (4 requests, n=8, 96 tokens, temperature 0.9) on
+    r1-distill-14b and on mamba2-130m (phase 8), each served eagerly
+    (``Engine.eager()``) and through the step graphs: per mode one plain
+    serve, for step times (the graph run captures its variants), then the
+    same engine again, its graphs captured, under torch.profiler tracing
     device activity only (no host ops, so the trace adds little to the
-    host side), for device time by kernel and the device's busy share of
-    that run's own wall time. The tables go to
-    ``out_dir/profile_serve.txt`` and ``out_dir/profile_serve_ssm.txt``."""
+    host side), for device time by kernel, the device's busy share of
+    that run's own wall time and the device kernels per decode step. The
+    tables go to ``out_dir/profile_serve[_ssm]_{eager,graphs}.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import run_serving
     from repro_torch.models import Model
-    kw = dict(policy="sart", n=8, num_requests=4, rate_gap=8,
-              prm_kind="oracle", window=8, max_tokens=96, max_slots=16,
-              seed=0, temperature=0.9)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for arch, fname in (("r1-distill-14b", "profile_serve.txt"),
-                        ("mamba2-130m", "profile_serve_ssm.txt")):
+    for arch, stem in (("r1-distill-14b", "profile_serve"),
+                       ("mamba2-130m", "profile_serve_ssm")):
         gc.collect()
         torch.cuda.empty_cache()
         model = Model(get_config(arch), dtype=torch.bfloat16, device=DEVICE)
         params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
-        t0 = time.perf_counter()
-        _, engine = run_serving(model, params, None, **kw)
-        torch.cuda.synchronize()
-        plain = _step_stats(engine, time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, engine = run_serving(model, params, None, **kw)
-            torch.cuda.synchronize()
-            traced = _step_stats(engine, time.perf_counter() - t0)
-        events = prof.key_averages()
-        # one stream, so kernels never overlap and their sum is busy time
-        device_us = sum(e.self_device_time_total for e in events
-                        if e.device_type == torch.autograd.DeviceType.CUDA
-                        and not e.is_user_annotation)
-        traced["device_busy_s"] = device_us / 1e6
-        traced["device_busy_share"] = device_us / 1e6 / traced["wall_s"]
-        table = events.table(sort_by="self_device_time_total", row_limit=30,
-                             max_name_column_width=90)
-        (out_dir / fname).write_text(table)
-        print(table)
-        print("[profile] " + json.dumps({"model": arch, "untraced": plain,
-                                         "traced": traced}))
-        # the port's own kernels, wherever they rank in the table
-        ours = {e.key: {"launches": e.count,
-                        "self_device_ms": e.self_device_time_total / 1e3,
-                        "us_each": e.self_device_time_total / e.count}
-                for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and any(k in e.key for k in PORT_KERNELS)}
-        print("[profile-kernels] " + json.dumps({"model": arch,
-                                                 "kernels": ours}))
-        del model, params, engine, prof, events
+        for mode in ("eager", "graphs"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            eager = mode == "eager"
+            engine, sch = _serve_setup(torch, model, params,
+                                       shared_header=False)
+            with engine.eager() if eager else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                sch.run(max_steps=2_000_000)
+                torch.cuda.synchronize()
+                plain = _step_stats(engine, time.perf_counter() - t0)
+                plain["graphs"] = _graph_stats(engine)
+                steps0 = engine.decode_steps_executed
+                replays0 = engine.graph_replays
+                engine.step_seconds.clear()
+                _, sch = _serve_setup(torch, model, params,
+                                      shared_header=False, engine=engine)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    sch.run(max_steps=2_000_000)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            traced = _step_stats(engine, wall)
+            traced["decode_steps"] -= steps0
+            traced["graph_replays"] = engine.graph_replays - replays0
+            events = prof.key_averages()
+            device = [e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.is_user_annotation]
+            # one stream, so kernels never overlap and their sum is busy
+            device_us = sum(e.self_device_time_total for e in device)
+            traced["device_busy_s"] = device_us / 1e6
+            traced["device_busy_share"] = device_us / 1e6 / wall
+            traced["device_ops_per_step"] = (
+                sum(e.count for e in device) / traced["decode_steps"])
+            traced["device_ms_per_step"] = (
+                device_us / 1e3 / traced["decode_steps"])
+            # the port's kernels per step by the engine's count (both runs)
+            traced["port_launches_per_step"] = (
+                sum(engine.step_launches().values())
+                / engine.decode_steps_executed)
+            table = events.table(sort_by="self_device_time_total",
+                                 row_limit=30, max_name_column_width=90)
+            (out_dir / f"{stem}_{mode}.txt").write_text(table)
+            print(table)
+            print("[profile] " + json.dumps({"model": arch, "mode": mode,
+                                             "untraced": plain,
+                                             "traced": traced}))
+            # the port's own kernels, wherever they rank in the table
+            ours = {e.key: {"launches": e.count,
+                            "self_device_ms": e.self_device_time_total / 1e3,
+                            "us_each": e.self_device_time_total / e.count}
+                    for e in device if any(k in e.key for k in PORT_KERNELS)}
+            print("[profile-kernels] " + json.dumps(
+                {"model": arch, "mode": mode, "kernels": ours}))
+            del engine, sch, prof, events, device
+        del model, params
 
 
 def main() -> int:
@@ -1929,6 +2181,7 @@ def main() -> int:
                                                   paged_p50)
     del model, params
     launches["ssd_scan"] = phase_ssm_serve(torch)["ssd_scan"]
+    phase_graphs(torch)
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
             "K/V (a yardstick; the port never calls it)")

@@ -199,7 +199,7 @@ def main() -> int:
                                            attn_mask=mask, enable_gqa=True))
     # K3's branch pass at the tree serve's shape (2 groups of 8 over a
     # 256-token span, suffixes 1-96 and 240-256 tokens), behind the
-    # production shared pass's 8 split partials
+    # production shared pass's 16 split partials (8 of them with keys)
     from repro_torch.kernels.paged_attention.ref import (
         tree_branch_merge_ref, tree_merge_splits_ref)
     from repro_torch.kernels.paged_attention.tree_decode import (
@@ -212,7 +212,7 @@ def main() -> int:
         q, kp, vp, rg, sbt, sl, bbt, ln = cs.k3_inputs(
             torch, gen, dev, groups=groups, singles=[],
             dtype=torch.bfloat16, **r1w)
-        part, skeys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln, 256)
+        part, skeys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
         out = torch.empty_like(q)
         ref = tree_branch_merge_ref(q, kp, vp, rg, sl, bbt, ln,
                                     *tree_merge_splits_ref(

@@ -63,12 +63,14 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def paged_flash_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
                             v_pages: torch.Tensor, block_table: torch.Tensor,
-                            pos0: int, valid_len: int) -> torch.Tensor:
+                            pos0, valid_len) -> torch.Tensor:
     """q [T, H, hd] chunk rows of one request against pages [kv, P, ps,
     hd] through its block table [W]. Row i sits at absolute position
     pos0 + i and sees keys at positions <= pos0 + i; rows >= valid_len are
-    bucket padding and return exact zeros. Returns [T, H, hd] in q's
-    dtype. O(T * W * ps) memory, correctness only."""
+    bucket padding and return exact zeros. ``pos0`` and ``valid_len`` are
+    host ints or 0-d integer tensors on q's device (then nothing here
+    reads a value on the host). Returns [T, H, hd] in q's dtype.
+    O(T * W * ps) memory, correctness only."""
     t, q_heads, head_dim = q.shape
     kv_heads = k_pages.shape[0]
     group = q_heads // kv_heads
@@ -84,7 +86,9 @@ def paged_flash_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     # keys past the last valid row's horizon never count: zero their
     # values so a stale page's bytes cannot reach the sum
-    horizon = pos0 + max(min(valid_len, t), 0)
+    horizon = pos0 + (valid_len.clamp(0, t)
+                      if isinstance(valid_len, torch.Tensor)
+                      else max(min(valid_len, t), 0))
     v = v.masked_fill((torch.arange(s_max, device=q.device) >= horizon)
                       [None, :, None], 0.0)
     out = torch.einsum("tkgs,ksd->tkgd", w, v)
@@ -103,12 +107,13 @@ def paged_flash_prefill_lanes_ref(q: torch.Tensor, k_pages: torch.Tensor,
     order (lane i has ``lane_buckets[i]`` rows), block_tables [R, W] and
     positions [R] the same rows'; chunk_lens [n_lanes]. Lane i is
     ``paged_flash_prefill_ref`` of its rows through its first row's table,
-    from its first row's position, with ``chunk_lens[i]`` valid rows.
-    Returns [R, H, hd] in q's dtype."""
+    from its first row's position, with ``chunk_lens[i]`` valid rows
+    (read on the device: no host read of a value). Returns [R, H, hd] in
+    q's dtype."""
     parts, off = [], 0
     for i, bk in enumerate(lane_buckets):
         parts.append(paged_flash_prefill_ref(
             q[off:off + bk], k_pages, v_pages, block_tables[off],
-            int(positions[off]), int(chunk_lens[i])))
+            positions[off].long(), chunk_lens[i].long()))
         off += bk
     return torch.cat(parts, 0) if parts else q.new_zeros(q.shape)

@@ -26,22 +26,21 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
 def paged_tree_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, row_group: torch.Tensor,
                          shared_bt: torch.Tensor, shared_lens: torch.Tensor,
-                         branch_bt: torch.Tensor, lengths: torch.Tensor,
-                         span: int) -> torch.Tensor:
+                         branch_bt: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
     """Tree/cascade decode attention over a branch x page map (built by
     ``repro_torch.kv.tree_decode_map``): each fork group's shared pages
     are streamed once for all its rows. Same output as
-    ``paged_attention`` over the per-row full tables the map decomposes.
-    ``span``, the longest group span as a host int (the caller's map
-    knows it), sets how the card's shared pass splits and changes no
-    result. Dispatches on the device of ``q``."""
+    ``paged_attention`` over the per-row full tables the map decomposes;
+    no host int of a step's map reaches the card's launches. Dispatches on
+    the device of ``q``."""
     if q.device.type == "cpu":
         return paged_tree_attention_ref(q, k_pages, v_pages, row_group,
                                         shared_bt, shared_lens, branch_bt,
                                         lengths)
     return paged_tree_attention_fwd(q, k_pages, v_pages, row_group,
                                     shared_bt, shared_lens, branch_bt,
-                                    lengths, span)
+                                    lengths)
 
 
 def tree_decode_bytes_read(shared_pages: int, branch_pages: Sequence[int],

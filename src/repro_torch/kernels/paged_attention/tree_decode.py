@@ -8,12 +8,13 @@ paged_tree_attention_fwd`` — ``tree_shared_kernel`` its shared pass
 into the epilogue; in bf16 the branch pass is K1's split-key tensor-core
 decode core (``csrc/paged_decode_mma.cuh``) over the suffix tables, cut
 by ``ref.decode_splits`` from the shapes alone. In bf16 the shared pass
-is split over the span
-(``shared_splits``): its fp32 partials are one tensor [n_split, B, H, hd
-+ 2], each row ``acc`` then ``m`` then ``l`` (``unpack_partials`` gives
-the three as views), returned with the split width; the branch pass
-takes both and merges the splits in order before the row's suffix. In
-fp32 the shared pass runs the whole span as one split (n_split = 1). The
+is split over the table, from its shape alone (``shared_splits``; splits
+past a group's span hold no key): its fp32 partials are one tensor
+[n_split, B, H, hd + 2], each row ``acc`` then ``m`` then ``l``
+(``unpack_partials`` gives the three as views), returned with the split
+width; the branch pass takes both and merges the splits in order before
+the row's suffix. In fp32 the shared pass runs the whole span as one
+split (n_split = 1). The
 wrappers' host time is paid on every decode step of the tree path, so
 they make one allocation each and few tensor calls.
 ``shared_launches`` and ``branch_launches`` count the launches of each
@@ -38,30 +39,28 @@ _SHARED_ARGTYPES = [_I, _I] + [_P] * 8 + [_I] * 9 + [ctypes.c_float, _P]
 _BRANCH_ARGTYPES = [_I, _I] + [_P] * 9 + [_I] * 11 + [ctypes.c_float, _P]
 MAX_GROUP = 32          # query heads per KV head one CTA holds
 MIN_SPLIT_KEYS = 32     # the bf16 shared pass's smallest split, in keys
-MAX_SPLITS = 16         # and its most splits of one span
+MAX_SPLITS = 16         # and its most splits of one table
 
 
 @functools.lru_cache(maxsize=256)
-def shared_splits(page_size: int, width: int, dtype: torch.dtype,
-                  span: int) -> Tuple[int, int]:
+def shared_splits(page_size: int, width: int,
+                  dtype: torch.dtype) -> Tuple[int, int]:
     """``(split_keys, n_split)`` of the shared pass over tables of
-    ``width`` pages of ``page_size`` tokens whose groups' spans are at
-    most ``span`` tokens (a host int the caller knows, as the engine does
-    from its host map). bf16: splits of whole pages, at least 32 keys,
-    doubled until at most 16 cover the span (never more than the table):
-    the tree serve's 256-token span of 16-token pages is 8 splits of 32
-    keys, so its 2 groups x 8 KV heads give 128 CTAs, all with keys.
-    fp32: one split (the CUDA-core loop). The last split also takes every
-    key past its start, so a span longer than ``span`` is still attended
-    whole."""
+    ``width`` pages of ``page_size`` tokens, from these shapes only (never
+    from a step's spans, so a captured step's grid holds for every step).
+    bf16: splits of whole pages, at least 32 keys, doubled until at most
+    16 cover the table: the serve's 32-page tables of 16-token pages are
+    16 splits of 32 keys, and a group's 256-token span fills the first 8
+    (its 2 groups x 8 KV heads x 8 = 128 CTAs with keys); a split past a
+    group's span writes its neutral (NEG_INF, 0, 0) partials. fp32: one
+    split (the CUDA-core loop)."""
     cap = page_size * width
     if dtype != torch.bfloat16:
         return max(cap, 1), 1
-    cover = -(-min(max(int(span), 0), cap) // page_size)    # pages to cover
     pages = max(1, -(-MIN_SPLIT_KEYS // page_size))
-    while -(-cover // pages) > MAX_SPLITS:
+    while -(-width // pages) > MAX_SPLITS:
         pages *= 2
-    return pages * page_size, max(1, -(-cover // pages))
+    return pages * page_size, max(1, -(-width // pages))
 
 
 def unpack_partials(partials: torch.Tensor
@@ -94,17 +93,33 @@ def _launch(name: str, argtypes, *args) -> None:
 def paged_tree_shared_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, row_group: torch.Tensor,
                           shared_bt: torch.Tensor, shared_lens: torch.Tensor,
-                          lengths: torch.Tensor, span: int
-                          ) -> Tuple[torch.Tensor, int]:
+                          lengths: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """The shared pass: raw fp32 partials of each row in a group over its
     group's shared span (keys < min(length, span)), packed as [n_split, B,
     H, hd + 2] (``acc``, ``m``, ``l``; see ``unpack_partials``), and the
     split width ``split_keys``: split ``z`` covers span keys [z *
     split_keys, (z + 1) * split_keys), the last one every key from its
-    start (``shared_splits`` with the host ``span``, the longest group
-    span; n_split = 1 in fp32). Every split of a grouped row is written,
-    (NEG_INF, 0, 0) where it holds no visible key; rows in no group are
-    left unwritten. Both go to ``paged_tree_branch_fwd`` as they are."""
+    start (``shared_splits`` of the table's shape; n_split = 1 in fp32).
+    Every split of a grouped row is written, (NEG_INF, 0, 0) where it
+    holds no visible key; rows in no group are left unwritten. Both go to
+    ``paged_tree_branch_fwd`` as they are."""
+    split_keys, n_split = shared_splits(k_pages.shape[2], shared_bt.shape[1],
+                                        q.dtype)
+    return paged_tree_shared_split_fwd(q, k_pages, v_pages, row_group,
+                                       shared_bt, shared_lens, lengths,
+                                       split_keys, n_split)
+
+
+def paged_tree_shared_split_fwd(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                row_group: torch.Tensor,
+                                shared_bt: torch.Tensor,
+                                shared_lens: torch.Tensor,
+                                lengths: torch.Tensor, split_keys: int,
+                                n_split: int) -> Tuple[torch.Tensor, int]:
+    """``paged_tree_shared_fwd`` at an explicit layout of ``n_split``
+    splits of ``split_keys`` keys (bf16; fp32 takes one split), to time
+    one layout against another."""
     global shared_launches
     _check("tree_shared", q, k_pages, v_pages, row_group, lengths,
            shared_bt, shared_lens)
@@ -117,7 +132,6 @@ def paged_tree_shared_fwd(q: torch.Tensor, k_pages: torch.Tensor,
             v_pages.data_ptr() % 16:
         raise ValueError("tree_shared: q and the pages must be 16-byte "
                          "aligned")
-    split_keys, n_split = shared_splits(page_size, width, q.dtype, span)
     partials = q.new_empty((n_split, batch, q_heads, head_dim + 2),
                            dtype=torch.float32)
     if batch == 0 or num_groups == 0:
@@ -185,16 +199,15 @@ def paged_tree_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, row_group: torch.Tensor,
                              shared_bt: torch.Tensor,
                              shared_lens: torch.Tensor,
-                             branch_bt: torch.Tensor, lengths: torch.Tensor,
-                             span: int) -> torch.Tensor:
+                             branch_bt: torch.Tensor,
+                             lengths: torch.Tensor) -> torch.Tensor:
     """Tree-decode over the branch x page map: the shared pass, then the
     branch pass on the same stream. Same contract as
     ``paged_attention_decode`` over the full tables the map decomposes;
-    ``span`` (a host int, the longest group span) only sets how the
-    shared pass splits."""
+    both passes take their layouts from the shapes alone."""
     if shared_bt.shape[1] != branch_bt.shape[1]:
         raise ValueError("paged_tree: shared_bt and branch_bt widths differ")
     shared = paged_tree_shared_fwd(q, k_pages, v_pages, row_group,
-                                   shared_bt, shared_lens, lengths, span)
+                                   shared_bt, shared_lens, lengths)
     return paged_tree_branch_fwd(q, k_pages, v_pages, row_group, shared_lens,
                                  branch_bt, lengths, *shared)

@@ -4,9 +4,15 @@ Counterpart of ``repro.serving.engine``: the substrate the SART scheduler
 drives. A fixed ``max_slots`` decode batch holds one branch per slot;
 prompts are admitted chunk by chunk as extra rows ("lanes") of the same
 decode step; page accounting and copy-on-write run on the host in
-``repro_torch.kv.PageAllocator``. Each step runs eagerly on the engine's
-device: a Python loop over layers in place of ``jax.lax.scan``, the
-paged flash-decode (kernel K1) for every decode row — or, with
+``repro_torch.kv.PageAllocator``. Each step is a host array built in
+numpy, copied to the device once, and a step body that reads only
+device tensors and shapes; on the card the body of each step variant
+(``step_variants()``) is captured once as a CUDA graph and every step is
+one replay of it (``serving.step_graph``, the counterpart of the
+reference's jitted ``_step_fn``), on the CPU it runs eagerly, as it does
+on the card inside ``Engine.eager()``. The body is a Python loop over
+layers in place of ``jax.lax.scan``: the paged flash-decode (kernel K1)
+for every decode row — or, with
 ``decode_kernel="tree"``, the tree-decode pair (kernel K3) over the
 slots' fork-group map — and the paged flash-prefill (kernel K2) once per
 chunk lane, as the reference's ``mixed_step_kernel="fused"`` default.
@@ -35,7 +41,13 @@ Differences from the reference that a reader must know:
     chunk's own keys are visible to K2, as ``engine.py:1069-1170``.
   * **One host sync per step**, the sampled tokens. The step's index
     arrays, the tree map's four included, are built on the host in numpy
-    and copied to the device once.
+    into one array of one length per variant (the CoW pairs padded to
+    ``max_slots`` with sentinel pairs, as the reference's) and copied to
+    the device once, from a pinned buffer into the variant's static one.
+  * **Step outputs are static buffers.** A variant's graph (or, eagerly,
+    its copy of the body's outputs) rewrites them every step, so what
+    the engine keeps past a step — ``last_logits``, ``_last_hidden``,
+    the lanes' SSM state — is a copy.
   * **Snapshots are clones.** A torch slice is a view, so every SSM
     state the engine keeps past a step (a lane's running state, the
     ``ssm_snaps`` boundary snapshots, a suspended branch's state) is a
@@ -45,13 +57,14 @@ Differences from the reference that a reader must know:
     and sinusoidal positions.
   * **No per-length program.** The reference jit-compiles one exact
     prefill per prompt length (``_make_prefill``, cached in
-    ``_prefill_cache``); the port runs eagerly, and ``exact_prefills``
+    ``_prefill_cache``); the port runs it eagerly, and ``exact_prefills``
     counts the exact passes run in its place. The exact pass allocates
     the prompt's pages before it computes (the reference after), so a
     full pool fails before any work; and it unembeds only the last
     position, the one the engine reads.
   * **Randomness** comes from one ``torch.Generator`` on the device,
-    seeded from ``EngineConfig.seed``; greedy sampling matches the
+    seeded from ``EngineConfig.seed`` and registered with every step
+    graph, so each replay draws fresh noise; greedy sampling matches the
     reference token for token, stochastic sampling only in distribution.
 
 Public contracts kept from the reference: non-blocking admission
@@ -62,7 +75,9 @@ and ``prefill_compile_count``), inert rows never perturb state.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -79,6 +94,7 @@ from ..models.layers import apply_norm, embed_tokens, unembed
 from ..models.mamba2 import init_mamba2_state, mamba2_decode, mamba2_forward
 from ..models.model import Model, layer_slices
 from .sampling import SamplingParams, sample
+from .step_graph import StepGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,8 +282,9 @@ class BranchHandle:
 class StepVariant:
     """One reachable step shape: ``"decode"`` or ``"mixed:b{bucket}x
     l{lanes}"``; ``lane_buckets`` (each lane's padded row count) selects
-    it — the shape set a later slice captures as CUDA graphs. ``args``
-    maps each host index array the step takes to its (shape, dtype)."""
+    it — on the card, one CUDA graph each (``Engine.step_graphs``).
+    ``args`` maps each host index array the step takes to its (shape,
+    dtype)."""
 
     name: str
     lane_buckets: Tuple[int, ...]
@@ -363,6 +380,13 @@ class Engine:
                 "chunk rows would alias (see Engine._bucket_for)")
         self._buckets = buckets
         self._buckets_used: set = set()   # (bucket, n_lanes) shapes run
+        # one StepGraph per step variant run, by variant name; the card's
+        # graphs share one memory pool
+        self._tree_on = (cfg.decode_kernel == "tree"
+                         and mc.uses_attention)
+        self.step_graphs: Dict[str, StepGraph] = {}
+        self._graph_pool = None
+        self._eager = False
         self._pending_prefills: List[ChunkedPrefillState] = []
         self._lane_configs = derive_lane_configs(
             cfg.chunk_lane_configs, cfg.step_token_budget, buckets[-1])
@@ -631,17 +655,18 @@ class Engine:
                         cows: Sequence[tuple] = (),
                         tree: Optional[tuple] = None):
         """Run one chunk of each state in ``sts`` through the step as
-        concurrent lanes. With ``piggyback`` the caller (``decode_step``)
-        supplies the live decode rows plus the step's CoW page copies and
-        tree map; standalone draining pads with inert rows (sentinel block
-        tables send their page writes to the spare page; the tree map
-        groups none of them; the slot-validity mask freezes every slot's
-        SSM state).
+        concurrent lanes (the variant ``mixed:b{bucket}xl{len(sts)}``).
+        With ``piggyback`` the caller (``decode_step``) supplies the live
+        decode rows plus the step's CoW page copies and tree map;
+        standalone draining pads with inert rows (sentinel block tables
+        send their page writes to the spare page; the tree map groups none
+        of them; the slot-validity mask freezes every slot's SSM state).
 
         ssm/hybrid configs thread each lane's running per-layer (conv,
-        ssd) state through the step (stacked along a lane axis) and get it
-        back advanced by exactly that lane's chunk length — pad rows are
-        identity transitions under the masked-dt scan. With the prefix
+        ssd) state through the step (copied into its lane of the variant's
+        static input) and get a copy back advanced by exactly that lane's
+        chunk length — pad rows are identity transitions under the
+        masked-dt scan. With the prefix
         cache, each lane keeps a copy of its SSM state at page-aligned
         chunk boundaries, and a finished prompt's full pages are inserted
         into the radix with them."""
@@ -663,10 +688,8 @@ class Engine:
             d_lengths = np.zeros((B,), np.int32)
             slot_valid = np.zeros((B,), bool)
             tree = self._tree_map([None] * B)
-        chunk_state = None
-        if mc.uses_ssm:
-            chunk_state = (torch.cat([st.ssm_state[0] for st in sts], 1),
-                           torch.cat([st.ssm_state[1] for st in sts], 1))
+        lane_states = ([st.ssm_state for st in sts] if mc.uses_ssm
+                       else ())
         lane_buckets = (bucket,) * len(sts)
         self._buckets_used.add((bucket, len(sts)))
         next_tokens, hidden, logits, chunk_out = self._step(
@@ -674,7 +697,7 @@ class Engine:
             np.concatenate([d_positions] + [ln[1] for ln in lanes]),
             np.concatenate([d_bt] + [ln[2] for ln in lanes]),
             np.concatenate([d_lengths] + [ln[3] for ln in lanes]),
-            lane_buckets, chunk_lens, cows, tree, slot_valid, chunk_state)
+            lane_buckets, chunk_lens, cows, tree, slot_valid, lane_states)
         self.prefill_chunk_steps += len(sts)
         self.mixed_steps_executed += 1
         ps = cfg.page_size
@@ -682,7 +705,8 @@ class Engine:
             cl = chunk_lens[i]
             st.next_pos += cl
             if chunk_out is not None:
-                # this lane's own copy: the stacked outputs are dropped
+                # this lane's own copy: the step's outputs are static
+                # buffers, rewritten by the variant's next step
                 st.ssm_state = (chunk_out[0][:, i:i + 1].clone(),
                                 chunk_out[1][:, i:i + 1].clone())
                 if st.ssm_snaps is not None and st.next_pos % ps == 0:
@@ -691,7 +715,7 @@ class Engine:
                     st.ssm_snaps[st.next_pos] = st.ssm_state
             if st.next_pos >= len(st.prompt):
                 st.done = True
-                st.last_logits = logits[B + i * bucket + cl - 1]
+                st.last_logits = logits[B + i * bucket + cl - 1].clone()
                 if st in self._pending_prefills:
                     self._pending_prefills.remove(st)
                 if self.prefix_cache is not None:
@@ -859,10 +883,14 @@ class Engine:
 
     # ----------------------------------------------------------------- decode
     def _cow_arrays(self, cows: Sequence[tuple]):
-        """A step's (old, new) CoW page pairs as two int32 arrays, in slot
-        order (each decode slot CoWs at most once per step)."""
-        src = np.asarray([old for old, _ in cows], np.int32)
-        dst = np.asarray([new for _, new in cows], np.int32)
+        """A step's (old, new) CoW page pairs as two int32 [max_slots]
+        arrays, in slot order (each decode slot CoWs at most once per
+        step), padded with sentinel pairs that copy the spare page onto
+        itself (the reference's ``_cow_arrays``)."""
+        src = np.full((self.cfg.max_slots,), self.cfg.num_pages, np.int32)
+        dst = src.copy()
+        src[:len(cows)] = [old for old, _ in cows]
+        dst[:len(cows)] = [new for _, new in cows]
         return src, dst
 
     def _tree_map(self, blocks: List[Optional[BranchBlocks]]
@@ -871,50 +899,85 @@ class Engine:
         ``(row_group, shared_bt, shared_lens, branch_bt)`` from the slots'
         blocks (None for an empty slot), or None with the per-branch
         kernel (and without attention)."""
-        cfg = self.cfg
-        if cfg.decode_kernel != "tree" or not self.model.cfg.uses_attention:
+        if not self._tree_on:
             return None
+        cfg = self.cfg
         return tree_decode_map(
             blocks, pages_per_branch=cfg.max_pages_per_branch,
             num_pages=cfg.num_pages, page_size=cfg.page_size)
 
-    def _step(self, tokens: np.ndarray, positions: np.ndarray,
-              block_tables: np.ndarray, lengths: np.ndarray,
-              lane_buckets: tuple = (), chunk_lens: Sequence[int] = (),
-              cows: Sequence[tuple] = (),
-              tree: Optional[tuple] = None,
-              slot_valid: Optional[np.ndarray] = None,
-              chunk_state: Optional[tuple] = None):
-        """One batched token step (the reference's ``_step_fn``), generic
-        in row count and lane count.
+    @contextlib.contextmanager
+    def eager(self):
+        """Run the steps of the block eagerly, op by op, on the card too
+        (the reference's ``jax.disable_jit()``): the comparison for the
+        step graphs, which serve every step otherwise. The CPU always
+        steps eagerly."""
+        prev, self._eager = self._eager, True
+        try:
+            yield self
+        finally:
+            self._eager = prev
 
-        Rows 0..max_slots-1 are the decode slots; extra rows are the
-        step's prefill chunk lanes — ``lane_buckets`` gives each lane's
-        padded row count (a shape) and ``chunk_lens[i]`` its true chunk
-        length, which rides the step's one host-to-device copy: K2 reads it
-        and each lane's first position (its first row's) on the device, so
-        its one launch per layer takes no host int that changes between
-        steps. ``tree`` is the decode rows' map from ``_tree_map`` (None:
-        per-branch K1).
-        Order, as the reference: CoW copies, then per layer norm -> the
-        mixer -> MLP; then the final norm, unembed and sampling. The
-        attention mixer runs QKV -> RoPE -> K/V page writes of every row
-        -> attention (K1, or K3 over ``tree``, for the decode rows; K2
-        once over all lanes with the "fused" kernel) -> wo. CoW runs before
-        attention, so no shared page of the map is written mid-step.
+    @property
+    def graphs_captured(self) -> int:
+        """Step variants captured as CUDA graphs so far (at most
+        ``len(step_variants())``)."""
+        return sum(g.graph is not None for g in self.step_graphs.values())
 
-        The SSM mixer (ssm/hybrid) steps the decode rows with
-        ``mamba2_decode``, masked by ``slot_valid`` so inert slots keep
-        their state bit-identical, and writes the per-slot state in
-        place; all lanes (uniform buckets) run as ONE batched masked-dt
-        ``mamba2_forward`` (K4 on the card), seeded from ``chunk_state``
-        (per-layer (conv, ssd) stacked along a lane axis) with only each
-        lane's first ``chunk_lens[i]`` rows valid. Hybrids average the two
-        mixers. Returns (next_tokens [rows] int32, hidden [rows, D], logits
-        [rows, V], the lanes' advanced (conv, ssd) chunk state or None),
-        all on the device.
-        """
-        mc, cfg, p = self.model.cfg, self.cfg, self.params
+    @property
+    def graph_replays(self) -> int:
+        """Steps served as the replay of a variant's graph."""
+        return sum(g.replays for g in self.step_graphs.values())
+
+    def step_launches(self) -> Dict[str, int]:
+        """Kernel launches the steps ran on the device, by kernel: each
+        variant's launches recorded at capture times its replays, plus
+        the eager steps' own launches."""
+        out: Dict[str, int] = {}
+        for g in self.step_graphs.values():
+            for k, n in g.launches_run().items():
+                out[k] = out.get(k, 0) + n
+        return out
+
+    def _step_graph(self, lane_buckets: tuple) -> StepGraph:
+        """The variant's ``StepGraph``, made at its first step."""
+        name = (f"mixed:b{lane_buckets[0]}xl{len(lane_buckets)}"
+                if lane_buckets else "decode")
+        if name not in self.step_graphs:
+            cfg, mc = self.cfg, self.model.cfg
+            nS, n = cfg.max_slots, len(lane_buckets)
+            rows = nS + sum(lane_buckets)
+            lane_state = None
+            if mc.uses_ssm and n:
+                lane_state = tuple(
+                    self.state[k].new_zeros(
+                        (mc.num_layers, n) + self.state[k].shape[2:])
+                    for k in ("conv", "ssd"))
+            inert = self._host_array(
+                np.zeros((rows,), np.int32), np.zeros((rows,), np.int32),
+                np.full((rows, cfg.max_pages_per_branch), cfg.num_pages,
+                        np.int32), np.zeros((rows,), np.int32),
+                lane_buckets, [0] * n, (), self._tree_map([None] * nS),
+                np.zeros((nS,), bool))
+            if self.device.type == "cuda" and self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self.step_graphs[name] = StepGraph(
+                functools.partial(self._step_body, lane_buckets=lane_buckets),
+                inert, self.device, lane_state, self._graph_pool,
+                self._gen if cfg.sampling.temperature else None)
+        return self.step_graphs[name]
+
+    def _host_array(self, tokens: np.ndarray, positions: np.ndarray,
+                    block_tables: np.ndarray, lengths: np.ndarray,
+                    lane_buckets: tuple, chunk_lens: Sequence[int],
+                    cows: Sequence[tuple], tree: Optional[tuple],
+                    slot_valid: Optional[np.ndarray]) -> np.ndarray:
+        """The step's one host array, int32, of one length per variant:
+        every row's token, position, page and slot written, length + 1 and
+        block table; the tree map's four (tree decode); the slot-validity
+        mask (ssm/hybrid); the lanes' chunk lengths; the CoW pairs, padded
+        to ``max_slots``. ``_step_body`` slices it apart on the device."""
+        cfg, mc = self.cfg, self.model.cfg
         B, nS = tokens.shape[0], cfg.max_slots
         ps, w = cfg.page_size, cfg.max_pages_per_branch
         # host-side index math: the page and slot each row writes; pad rows
@@ -927,27 +990,80 @@ class Engine:
                 + [np.arange(bk) < chunk_lens[i]
                    for i, bk in enumerate(lane_buckets)])
             page_of = np.where(write_ok, page_of, cfg.num_pages)
-        cow_src, cow_dst = self._cow_arrays(cows)
-        # the step's one host-to-device copy: every index array, the tree
-        # map's, the SSM masks and the lanes' chunk lengths included,
-        # sliced apart on the device
         parts = [tokens, positions, page_of, positions % ps, lengths + 1,
                  block_tables.reshape(-1)]
-        if tree is not None:
+        if self._tree_on:
             rg, sbt, sl, bbt = tree
             parts += [rg, sl, sbt.reshape(-1), bbt.reshape(-1)]
-            # the longest group span, a host int: K3 splits its shared
-            # pass by it
-            tree_span = int(sl.max(initial=0))
         if mc.uses_ssm:
             parts.append(slot_valid)
-        parts.append(np.asarray(chunk_lens, np.int32))
-        host = np.concatenate(parts + [cow_src, cow_dst]).astype(np.int32)
-        dev = torch.from_numpy(host).to(self.device)
+        parts.append(np.asarray(chunk_lens, np.int32).reshape(-1))
+        return np.concatenate(parts + list(self._cow_arrays(cows))).astype(
+            np.int32)
+
+    def _step(self, tokens: np.ndarray, positions: np.ndarray,
+              block_tables: np.ndarray, lengths: np.ndarray,
+              lane_buckets: tuple = (), chunk_lens: Sequence[int] = (),
+              cows: Sequence[tuple] = (),
+              tree: Optional[tuple] = None,
+              slot_valid: Optional[np.ndarray] = None,
+              lane_states: Sequence[tuple] = ()):
+        """One batched token step (the reference's ``_step_fn``): the host
+        array of the step's index arrays (``_host_array``), then the step
+        body over it as the variant's ``StepGraph`` runs it — one graph
+        replay on the card. Rows 0..max_slots-1 are the decode slots;
+        extra rows are the step's prefill chunk lanes, ``lane_buckets``
+        giving each lane's padded row count (a shape, which selects the
+        variant) and ``chunk_lens[i]`` its true chunk length. ``tree`` is
+        the decode rows' map from ``_tree_map`` (None: per-branch K1);
+        ``lane_states`` the lanes' (conv, ssd) ``[L, 1, ...]`` states
+        (ssm/hybrid). Returns (next_tokens [rows] int32, hidden [max_slots,
+        D], logits [rows, V], the lanes' advanced (conv, ssd) stacked
+        along a lane axis or None): static outputs, valid until the next
+        step (the variants' graphs share one memory pool)."""
+        host = self._host_array(tokens, positions, block_tables, lengths,
+                                lane_buckets, chunk_lens, cows, tree,
+                                slot_valid)
+        out = self._step_graph(lane_buckets).run(host, lane_states,
+                                                 eager=self._eager)
+        next_tokens, hidden, logits = out[:3]
+        return next_tokens, hidden, logits, (out[3:] if out[3:] else None)
+
+    def _step_body(self, dev: torch.Tensor,
+                   lane_state: Optional[Tuple[torch.Tensor, ...]],
+                   lane_buckets: tuple = ()):
+        """The step body over the device copy of ``_host_array``'s array:
+        it reads device tensors and shapes only (no host read of a value,
+        no allocation whose size depends on data), so one CUDA graph per
+        variant serves every step. ``lane_buckets`` is the variant's lane
+        shape; ``lane_state`` the lanes' stacked (conv, ssd) per layer.
+
+        Order, as the reference: CoW copies (every step: sentinel pairs
+        copy the spare page onto itself), then per layer norm -> the
+        mixer -> MLP; then the final norm, unembed and sampling. The
+        attention mixer runs QKV -> RoPE -> K/V page writes of every row
+        -> attention (K1, or K3 over the tree map, for the decode rows; K2
+        once over all lanes with the "fused" kernel, reading each lane's
+        pos0 and length on the device) -> wo. CoW runs before attention,
+        so no shared page of the map is written mid-step.
+
+        The SSM mixer (ssm/hybrid) steps the decode rows with
+        ``mamba2_decode``, masked by the slot-validity mask so inert slots
+        keep their state bit-identical, and writes the per-slot state in
+        place; all lanes (uniform buckets) run as ONE batched masked-dt
+        ``mamba2_forward`` (K4 on the card), seeded from ``lane_state``
+        with only each lane's first ``chunk_lens[i]`` rows valid. Hybrids
+        average the two mixers. Returns (next_tokens [rows] int32, hidden
+        [max_slots, D], logits [rows, V]) and, with SSM lanes, their
+        advanced conv and ssd states."""
+        mc, cfg, p = self.model.cfg, self.cfg, self.params
+        nS = cfg.max_slots
+        B = nS + sum(lane_buckets)
+        ps, w = cfg.page_size, cfg.max_pages_per_branch
         tok_d, pos_d, page_d, slot_d, len_d = dev[:5 * B].view(5, B)
         off = 5 * B + B * w
         bt_d = dev[5 * B:off].view(B, w)
-        if tree is not None:
+        if self._tree_on:
             rg_d, sl_d = dev[off:off + 2 * nS].view(2, nS)
             sbt_d, bbt_d = dev[off + 2 * nS:off + 2 * nS + 2 * nS * w].view(
                 2, nS, w)
@@ -960,13 +1076,11 @@ class Engine:
         off += n_lanes
         if mc.uses_attention:
             kp_all, vp_all = self.state["k_pages"], self.state["v_pages"]
-            if cows:
-                # CoW before any write (in place on the pools)
-                nc = len(cows)
-                src = dev[off:off + nc].long()
-                dst = dev[off + nc:].long()
-                kp_all[:, :, dst] = kp_all[:, :, src]
-                vp_all[:, :, dst] = vp_all[:, :, src]
+            # CoW before any write (in place on the pools)
+            src = dev[off:off + nS].long()
+            dst = dev[off + nS:off + 2 * nS].long()
+            kp_all[:, :, dst] = kp_all[:, :, src]
+            vp_all[:, :, dst] = vp_all[:, :, src]
             page_i, slot_i = page_d.long(), slot_d.long()
         fused_chunk = B > nS and cfg.mixed_step_kernel == "fused"
         ssm_lanes = mc.uses_ssm and B > nS
@@ -994,11 +1108,11 @@ class Engine:
                     # needs the fused path)
                     att = paged_attention(q, kp, vp, bt_d, len_d)
                 else:
-                    if tree is not None:
+                    if self._tree_on:
                         # decode rows over the fork-group map (K3)
                         att = paged_tree_attention(q[:nS], kp, vp, rg_d,
                                                    sbt_d, sl_d, bbt_d,
-                                                   len_d[:nS], tree_span)
+                                                   len_d[:nS])
                     else:
                         att = paged_attention(q[:nS], kp, vp, bt_d[:nS],
                                               len_d[:nS])
@@ -1020,8 +1134,7 @@ class Engine:
                     bk = lane_buckets[0]
                     y_ch, (c_conv, c_ssd) = mamba2_forward(
                         mc, lp["mamba"], h[nS:, 0].reshape(n_lanes, bk, -1),
-                        initial=(chunk_state[0][layer],
-                                 chunk_state[1][layer]),
+                        initial=(lane_state[0][layer], lane_state[1][layer]),
                         valid_len=lens_d)
                     new_conv.append(c_conv.to(conv_l.dtype))
                     new_ssd.append(c_ssd.to(ssd_l.dtype))
@@ -1032,9 +1145,10 @@ class Engine:
         hidden = x[:, 0]
         logits = unembed(mc, p["embed"], hidden)
         next_tokens = sample(self._gen, logits, cfg.sampling)
-        chunk_out = ((torch.stack(new_conv), torch.stack(new_ssd))
-                     if ssm_lanes else None)
-        return next_tokens, hidden, logits, chunk_out
+        out = (next_tokens, hidden[:nS], logits)
+        if ssm_lanes:
+            out += (torch.stack(new_conv), torch.stack(new_ssd))
+        return out
 
     def decode_step(self) -> Dict[int, int]:
         """One decode step for all active slots, piggybacking up to
@@ -1090,7 +1204,8 @@ class Engine:
             next_tokens, hidden, _, _ = self._step(
                 self._tokens, self._positions, self._block_tables,
                 self._lengths, cows=cows, tree=tree, slot_valid=self._active)
-        self._last_hidden = hidden[:cfg.max_slots]
+        # a copy: ``hidden`` is the variant's static output
+        self._last_hidden = hidden.clone()
         self.decode_steps_executed += 1
 
         out: Dict[int, int] = {}

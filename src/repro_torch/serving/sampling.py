@@ -50,13 +50,15 @@ def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
 def sample(gen: torch.Generator, logits: torch.Tensor,
            params: SamplingParams) -> torch.Tensor:
     """logits [..., V] -> int32 token ids [...]. Greedy when temperature
-    is 0; else one draw per row from ``gen`` (on the logits' device)."""
+    is 0; else one draw per row from ``gen`` (on the logits' device):
+    argmax(p / E) with E ~ Exp(1), the draw ``torch.multinomial(p, 1)``
+    makes from the same generator state, without its checks of ``p``,
+    which read values on the host (a captured step may not)."""
     if params.temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = logits.float() / params.temperature
     logits = apply_top_k(logits, params.top_k)
     logits = apply_top_p(logits, params.top_p)
     probs = torch.softmax(logits, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    draws = torch.multinomial(flat, 1, generator=gen)
-    return draws.reshape(probs.shape[:-1]).to(torch.int32)
+    noise = torch.empty_like(probs).exponential_(1, generator=gen)
+    return torch.argmax(probs / noise, dim=-1).to(torch.int32)

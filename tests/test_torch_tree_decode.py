@@ -101,12 +101,7 @@ def _port(t, kp=None, vp=None, dtype=torch.float32):
     return paged_tree_attention(
         torch.from_numpy(t["q"]).to(dtype), torch.from_numpy(kp).to(dtype),
         torch.from_numpy(vp).to(dtype),
-        *(torch.from_numpy(t[k]) for k in _MAP), _span(t))
-
-
-def _span(t):
-    """The longest group span, the host int the engine passes."""
-    return int(t["shared_lens"].max(initial=0))
+        *(torch.from_numpy(t[k]) for k in _MAP))
 
 
 def _jax_args(t, kp=None, vp=None, dtype=jnp.float32):
@@ -322,7 +317,7 @@ def test_branch_split_merge_matches_plain_and_pallas(name, split):
         "mqa_capacity", "group7_two_splits")
     shared = tree_shared_split_partials_ref(
         q, kp, vp, rg, sbt, sl, ln, *tree_decode.shared_splits(
-            ps, width, torch.bfloat16, _span(t)))
+            ps, width, torch.bfloat16))
     keys, n = (decode_splits(ps, width, torch.bfloat16) if split == "rule"
                else (32, -(-ps * width // 32)))
     got = tree_branch_split_ref(q, kp, vp, rg, sl, bbt, ln, *shared, keys, n)
@@ -346,7 +341,7 @@ def test_branch_split_merge_skips_the_partials_of_rows_in_no_group():
     ps, width = kp.shape[2], bbt.shape[1]
     shared = tree_shared_split_partials_ref(
         q, kp, vp, rg, sbt, sl, ln, *tree_decode.shared_splits(
-            ps, width, torch.bfloat16, _span(t)))
+            ps, width, torch.bfloat16))
     keys, n = decode_splits(ps, width, torch.bfloat16)
     base = tree_branch_split_ref(q, kp, vp, rg, sl, bbt, ln, *shared, keys, n)
     free = rg >= sl.shape[0]
@@ -362,34 +357,36 @@ def test_branch_split_merge_skips_the_partials_of_rows_in_no_group():
                                              (4, 40), (16, 256), (64, 7),
                                              (1, 100)])
 def test_shared_splits_cover_every_key_once(page_size, width, span):
-    """The launcher's split rule: bf16 splits are whole pages of at least
-    32 keys, at most 16 of them, covering the host span (the table when
-    None, never more than it); with the last split taking every key from
-    its start, each key of the table lies in exactly one split. fp32
-    takes one split."""
+    """The launcher's split rule, from the table's shape alone: bf16
+    splits are whole pages of at least 32 keys, at most 16 of them,
+    covering the table; with the last split taking every key from its
+    start, each key of the table lies in exactly one split, so a group's
+    span of ``span`` tokens (at most the table) is covered whatever it is,
+    and the splits past it hold no key of it. fp32 takes one split."""
     cap = page_size * width
     cover = min(span, cap)
     keys, n_split = tree_decode.shared_splits(page_size, width,
-                                              torch.bfloat16, span)
+                                              torch.bfloat16)
     assert keys % page_size == 0 and keys >= 32
     assert 1 <= n_split <= tree_decode.MAX_SPLITS
-    assert (n_split - 1) * keys < max(cover, 1) and \
-        cover <= -(-cover // page_size) * page_size <= n_split * keys
+    assert (n_split - 1) * keys < cap <= n_split * keys
     owner = [min(p // keys, n_split - 1) for p in range(cap)]
     assert owner == sorted(owner) and set(owner) <= set(range(n_split))
-    assert tree_decode.shared_splits(page_size, width, torch.float32,
-                                     span) == (cap, 1)
+    assert {owner[p] for p in range(cover)} == set(range(-(-cover // keys)))
+    assert tree_decode.shared_splits(page_size, width, torch.float32) == \
+        (cap, 1)
 
 
 def test_shared_splits_give_the_serve_shape_128_working_ctas():
-    """At the tree serve's shape (16-token pages, 32-page tables, a
-    256-token span the engine passes) the bf16 split is 32 keys, 8 of
-    them, every one with keys: 2 groups x 8 KV heads x 8 = 128 CTAs.
-    A span of the whole table takes 16 splits of 512 keys."""
-    assert tree_decode.shared_splits(16, 32, torch.bfloat16, 256) == (32, 8)
-    assert tree_decode.shared_splits(16, 32, torch.bfloat16, 512) == \
-        (32, 16)
-    assert 2 * 8 * 8 == 128
+    """At the tree serve's shape (16-token pages, 32-page tables) the bf16
+    split is 32 keys, 16 of them; a group's 256-token span fills the
+    first 8, so its 2 groups x 8 KV heads give 128 CTAs with keys (the
+    other 128 write neutral partials). A 128-page table takes 16 splits
+    of 128 keys."""
+    keys, n_split = tree_decode.shared_splits(16, 32, torch.bfloat16)
+    assert (keys, n_split) == (32, 16)
+    assert 2 * 8 * -(-256 // keys) == 128
+    assert tree_decode.shared_splits(16, 128, torch.bfloat16) == (128, 16)
 
 
 def test_unpack_partials_views_the_packed_rows():
@@ -491,8 +488,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
     rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
     with pytest.raises(ValueError, match="CUDA"):
-        tree_decode.paged_tree_attention_fwd(q, kp, vp, rg, sbt, sl, bbt, ln,
-                                             _span(t))
+        tree_decode.paged_tree_attention_fwd(q, kp, vp, rg, sbt, sl, bbt, ln)
     with pytest.raises(ValueError, match="CUDA"):
         tree_decode.paged_tree_branch_fwd(
             q, kp, vp, rg, sl, bbt, ln,
@@ -510,8 +506,7 @@ def test_branch_refuses_split_partials_of_the_wrong_shape(case):
     t = _topology(23, [(1, [4 + 2, 4 + 3])], [])
     q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
     rg, _, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
-    keys, n = tree_decode.shared_splits(kp.shape[2], bbt.shape[1], q.dtype,
-                                        _span(t))
+    keys, n = tree_decode.shared_splits(kp.shape[2], bbt.shape[1], q.dtype)
     part = torch.zeros((n, *q.shape[:2], q.shape[2] + 2))
     part, keys = {"no split axis": (part[0], keys),
                   "wrong n_split": (part.repeat(2, 1, 1, 1), keys),
@@ -531,8 +526,7 @@ def test_cuda_pair_refuses_head_dim_256():
     q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
     rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
     with pytest.raises(ValueError, match="head_dim 256"):
-        tree_decode.paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln,
-                                          _span(t))
+        tree_decode.paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
     with pytest.raises(ValueError, match="head_dim 256"):
         tree_decode.paged_tree_branch_fwd(
             q, kp, vp, rg, sl, bbt, ln,
@@ -568,8 +562,8 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype, tol):
     kp[:, -2:], vp[:, -2:] = np.nan, np.nan
     args = [torch.from_numpy(a).to(cuda, dtype) for a in (t["q"], kp, vp)]
     args += [torch.from_numpy(t[k]).to(cuda) for k in _MAP]
-    out = tree_decode.paged_tree_attention_fwd(*args, _span(t))
-    ref = paged_tree_attention(*(a.cpu() for a in args), _span(t))
+    out = tree_decode.paged_tree_attention_fwd(*args)
+    ref = paged_tree_attention(*(a.cpu() for a in args))
     torch.cuda.synchronize()
     torch.testing.assert_close(out.cpu(), ref, atol=tol, rtol=tol)
 
@@ -585,8 +579,8 @@ def test_branch_kernel_splits_match_plain_on_card(cuda, name, dtype, tol):
     t = _split_topology(name, 33, poison=True)
     args = [torch.from_numpy(t[k]).to(cuda, dtype) for k in ("q", "kp", "vp")]
     args += [torch.from_numpy(t[k]).to(cuda) for k in _MAP]
-    out = tree_decode.paged_tree_attention_fwd(*args, _span(t))
-    ref = paged_tree_attention(*(a.cpu() for a in args), _span(t))
+    out = tree_decode.paged_tree_attention_fwd(*args)
+    ref = paged_tree_attention(*(a.cpu() for a in args))
     torch.cuda.synchronize()
     torch.testing.assert_close(out.cpu(), ref, atol=tol, rtol=tol)
     assert (out[args[-1] == 0] == 0).all()
