@@ -26,7 +26,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                bf16 and fp32, at the serving shapes
                of r1-distill-14b and mamba2-130m, one qwen2-0.5b and one
                hymba-1.5b shape, head_dim 32 (the launcher's fallback
-               trunks) for K1-K3 and K5, and the edge cases (K1's ragged
+               trunks) for K1-K3 and K5, the GQA groups of the families
+               of phases 10-11 (qwen3-moe-235b-a22b's 16 and qwen2-vl-72b's
+               8 at head_dim 128 for K1, K2, K3 and K5; musicgen-medium's
+               1 at head_dim 64 with 24 KV heads for K1, K2 and K5), and
+               the edge cases (K1's ragged
                lengths 0-512, and 0-2,048 over 128-page tables cut into two
                key splits, and a 24-head GQA group; K3's topologies, the
                same ragged lengths in one group, suffixes across two key
@@ -51,7 +55,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                step) also over four lanes of bucket 32 in one launch, each
                lane bit-equal to itself launched alone and with the NaN
                past its horizon taken out, and timed at phase 6's
-               cold-header chunk (64 rows at pos0 192) too; K4 also timed
+               cold-header chunk (64 rows at pos0 192) too; K1 and K2
+               also timed at qwen3-moe-235b-a22b's serve shape (64 query
+               heads over 4 KV heads); K4 also timed
                at one row of 2,048 positions (16 chunks); K3's shared
                pass splits from the table's shape (16 splits of 32 keys
                at the serve's 32-page tables), both passes also timed at
@@ -65,7 +71,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                with the cache and tree on, its warm request seeded from a
                page-aligned SSM boundary snapshot; dense, ssm and hybrid
                with ``chunked_prefill=False`` (K5 in every exact
-               admission); ``Model.prefill`` + ``decode_step`` (dense and
+               admission); the smoke widths of qwen3-moe-235b-a22b (MoE;
+               per-branch, cache and tree, exact; the smallest top-k
+               router margin of the CPU run printed), qwen2-vl-72b
+               (M-RoPE) and musicgen-medium (sinusoidal positions);
+               ``Model.prefill`` + ``decode_step`` (dense and
                sliding-window); the launcher's dense and hybrid fallback
                trunks (head_dim 32) serving on the card; the card's
                engines step through their CUDA graphs;
@@ -104,11 +114,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                tree decode, mamba2-130m on phase 8's. The tokens of every
                decode step must be identical; prints the steps' largest
                logit difference, both step p50s and each variant's
-               capture time.
+               capture time;
+ 10. moe     — qwen3-moe-235b-a22b at full width (d_model 4096, 64/4
+               heads of 128, 128 experts top-8 of d_ff 1536, vocab
+               151936), its depth cut from 94 to 8 layers to fit the
+               card, bf16, random weights from a seed, on phase 5's
+               traffic through ``run_serving`` and the step graphs: K1
+               every step, K2 once per layer per mixed step, replays =
+               decode steps, 4/4 requests, no fault or leaked page,
+               finite hidden states; then the same traffic greedy, eager
+               against graphs: tokens identical at every step and the
+               logit difference 0.0 on the rows that carry a result.
+               Prints the step p50 beside the bound from the bytes a step
+               streams (every expert's weights: the capacity buffer runs
+               all 128), the peak memory and each variant's capture time;
+ 11. family  — the same checks on qwen2-vl-72b (M-RoPE; full width, 8 of
+               its 80 layers) and musicgen-medium (sinusoidal positions;
+               full width and depth), 2 requests, n=4, max 48 tokens,
+               the engine feeding text token ids (the vision and codec
+               frontends are stubbed in the configs).
 
-Phases 5, 6 (tree and paged), 7 (its decode steps) and 8 serve through
-the step graphs; a capture or replay that fails raises, and nothing falls
-back to the eager step.
+Phases 5, 6 (tree and paged), 7 (its decode steps), 8, 10 and 11 serve
+through the step graphs; a capture or replay that fails raises, and
+nothing falls back to the eager step.
 
 Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
@@ -468,6 +496,27 @@ RAGGED = [0, 512, 1, 15, 16, 17, 33, 100, 255, 256, 257, 300, 400, 450, 500,
 RAGGED_2K = [0, 2048, 1, 1023, 1024, 1025, 2047, 1500]
 
 
+# the families served in phases 10-11, by their configs' attention
+# shapes: qwen3-moe-235b-a22b (64 query heads over 4 KV heads of 128: a
+# GQA group of 16, one m16 tile), qwen2-vl-72b (64 over 8: group 8),
+# musicgen-medium (24 over 24 of 64: group 1, one row padded to 16)
+FAMILY_ARCHS = {"qwen3-moe": "qwen3-moe-235b-a22b",
+                "qwen2-vl": "qwen2-vl-72b", "musicgen": "musicgen-medium"}
+
+
+def family_shapes(base: dict) -> dict:
+    """``base`` (page size, table width, pool) with each family's heads
+    and head_dim."""
+    from repro_torch.configs import get_config
+    out = {}
+    for name, arch in FAMILY_ARCHS.items():
+        cfg = get_config(arch)
+        out[name] = dict(base, q_heads=cfg.num_heads,
+                         kv_heads=cfg.num_kv_heads,
+                         hd=cfg.resolved_head_dim)
+    return out
+
+
 def k1_splits(torch, page_size: int, width: int) -> str:
     """The bf16 decode core's key splits of such tables, for a shape
     string."""
@@ -504,6 +553,7 @@ def phase_kernels(torch):
     g24 = dict(q_heads=48, kv_heads=2, hd=64, ps=16, width=32,
                pool_pages=4097)
     errs = {"paged_decode": [], "paged_prefill": []}
+    fam = family_shapes(r1)
 
     # 128-page tables (2,048 keys): two key splits, a cluster of 2 CTAs
     r1_2k = dict(r1, width=128)
@@ -511,6 +561,12 @@ def phase_kernels(torch):
                                        ("qwen2", qw, RAGGED),
                                        ("hd32", t32, RAGGED),
                                        ("group24", g24, RAGGED[:6]),
+                                       ("qwen3-moe group16",
+                                        fam["qwen3-moe"], RAGGED),
+                                       ("qwen2-vl group8",
+                                        fam["qwen2-vl"], RAGGED),
+                                       ("musicgen group1",
+                                        fam["musicgen"], RAGGED),
                                        ("r1 2 splits", r1_2k, RAGGED_2K),
                                        ("hd32 2 splits", dict(t32, width=128),
                                         RAGGED_2K)):
@@ -533,7 +589,9 @@ def phase_kernels(torch):
     k2_cases = [(r1, t, pos0, valid) for t in (32, 64) for pos0 in (0, 37, 448)
                 for valid in (t - 5, 1)] + [(qw, 64, 37, 60),
                                             (t32, 64, 37, 60),
-                                            (t32, 32, 0, 17)]
+                                            (t32, 32, 0, 17)] + [
+        (fam[name], t, pos0, valid) for name in fam
+        for t, pos0, valid in ((32, 0, 17), (64, 37, 60), (64, 448, 1))]
     for shape, t, pos0, valid in k2_cases:
         for dn, dt in dtypes.items():
             args = k2_inputs(torch, gen, dev, t=t, pos0=pos0, valid_len=valid,
@@ -543,8 +601,9 @@ def phase_kernels(torch):
             torch.cuda.synchronize()
             check(bool((out[valid:] == 0).all()), "K2 pad rows are not zero")
             errs["paged_prefill"].append(_compare(
-                torch, f"K2 hd={shape['hd']} T={t} pos0={pos0} "
-                f"valid={valid} {dn}", out, ref, dn))
+                torch, f"K2 H={shape['q_heads']} kv={shape['kv_heads']} "
+                f"hd={shape['hd']} T={t} pos0={pos0} valid={valid} {dn}",
+                out, ref, dn))
     # one launch over four lanes of bucket 32 (the engine's call): against
     # the plain version lane by lane, each lane bit-equal to that lane
     # launched alone, and bit-equal with the NaN past each lane's horizon
@@ -591,7 +650,7 @@ def phase_kernels(torch):
             < ln[:, None].long())[:, None, None, :]
     H, kv, hd, ps = r1["q_heads"], r1["kv_heads"], r1["hd"], r1["ps"]
 
-    def k1_bytes_ops(lengths):
+    def k1_bytes_ops(lengths, H=H, kv=kv, hd=hd):
         tok = sum(lengths)
         followed = sum(-(-n // ps) for n in lengths)   # table entries read
         return (2 * len(lengths) * H * hd * 2 + tok * kv * hd * 2 * 2
@@ -633,6 +692,30 @@ def phase_kernels(torch):
                  f"ps=16 W=32 bf16, {k1_splits(torch, ps, r1['width'])}",
     }
     print("[kernels] K1 long-context row: " + json.dumps(k1["long"]))
+    # K1 at qwen3-moe-235b-a22b's serve shape (phase 10): the same 16
+    # decode lengths, 64 query heads over 4 KV heads (a group of 16)
+    q3 = fam["qwen3-moe"]
+    q, kp, vp, bt, ln = k1_inputs(torch, gen, dev, lengths=lengths,
+                                  dtype=torch.bfloat16, **q3)
+    kc = gather_pages(kp, bt).nan_to_num()
+    vc = gather_pages(vp, bt).nan_to_num()
+    bytes_, ops = k1_bytes_ops(lengths, H=q3["q_heads"], kv=q3["kv_heads"],
+                               hd=q3["hd"])
+    k1["moe_serve"] = {
+        **kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, bt,
+                                                          ln)),
+        "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
+            q, kp, vp, bt, ln)),
+        "library": kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True)),
+        "bytes": bytes_, "ops": ops,
+        "bound_ms": bound(bytes_, ops, "bf16")[0],
+        "shape": f"B=16 H=64 kv=4 hd=128 ps=16 W=32 bf16, lengths "
+                 f"{min(lengths)}..{max(lengths)} (sum {sum(lengths)}), "
+                 f"{k1_splits(torch, ps, q3['width'])}",
+    }
+    print("[kernels] K1 at qwen3-moe's serve shape: "
+          + json.dumps(k1["moe_serve"]))
     # 2 rows at 2,048 tokens over 128-page tables: 2 key splits, the
     # case the cluster split is for (few rows, long tables)
     long_lens = [2048] * 2
@@ -657,10 +740,13 @@ def phase_kernels(torch):
     # at pos0 192, all valid), each beside SDPA over the K/V gathered
     # beforehand with the same causal mask
     k2_rows = {}
-    for t, pos0, valid in ((32, 0, 17), (64, 192, 64)):
+    for name, shape, t, pos0, valid in (
+            ("serve", r1, 32, 0, 17), ("header", r1, 64, 192, 64),
+            ("moe_serve", fam["qwen3-moe"], 32, 0, 17)):
+        H, kv, hd = shape["q_heads"], shape["kv_heads"], shape["hd"]
         q, kp, vp, bt, _, _ = k2_inputs(torch, gen, dev, t=t, pos0=pos0,
                                         valid_len=valid,
-                                        dtype=torch.bfloat16, **r1)
+                                        dtype=torch.bfloat16, **shape)
         kc = gather_pages(kp, bt).nan_to_num()[None]     # [1, kv, S, hd]
         vc = gather_pages(vp, bt).nan_to_num()[None]
         s_max = kc.shape[2]
@@ -678,15 +764,16 @@ def phase_kernels(torch):
             "library_ms": sdpa["ms"], "library": sdpa,
             "bytes": bytes_, "ops": ops,
             "bound_ms": bound(bytes_, ops, "bf16")[0],
-            "shape": f"T={t} pos0={pos0} valid_len={valid} H=40 kv=8 "
-                     "hd=128 ps=16 W=32 bf16",
+            "shape": f"T={t} pos0={pos0} valid_len={valid} H={H} "
+                     f"kv={kv} hd={hd} ps=16 W=32 bf16",
         }
         print(f"[kernels] K2 at {row['shape']}: ms {row['ms']:.4f} (SDPA "
               f"{sdpa['ms']:.4f}), queued_ms {row['queued_ms']:.4f} (SDPA "
               f"{sdpa['queued_ms']:.4f}), host_us {row['host_us']:.1f} "
               f"(SDPA {sdpa['host_us']:.1f}), bound {row['bound_ms']:.6f}")
-        k2_rows[t] = row
-    k2 = dict(k2_rows[32], header_chunk=k2_rows[64])
+        k2_rows[name] = row
+    k2 = dict(k2_rows["serve"], header_chunk=k2_rows["header"],
+              moe_serve=k2_rows["moe_serve"])
     return errs, {"paged_decode": k1, "paged_prefill": k2}
 
 
@@ -713,6 +800,7 @@ def phase_tree_kernels(torch):
               pool_pages=4097)
     qw = dict(r1, q_heads=14, kv_heads=2, hd=64)
     t32 = dict(r1, q_heads=4, kv_heads=2, hd=32)
+    fam = family_shapes(r1)
     errs = {"paged_tree_shared": [], "paged_tree_branch": []}
 
     def serve_topology():
@@ -748,7 +836,16 @@ def phase_tree_kernels(torch):
              ("r1 2 splits", dict(r1, width=128),
               [(2, [32 + 2016, 32 + 1000, 32 + 1024, 10])], [2048, 0]),
              ("hd32 2 splits", dict(t32, width=128),
-              [(2, [32 + 1500, 32 + 992, 3])], [1025])]
+              [(2, [32 + 1500, 32 + 992, 3])], [1025]),
+             # the GQA groups of qwen3-moe-235b-a22b (16) and qwen2-vl-72b
+             # (8) at the serve topology, and ragged in one group
+             ("qwen3-moe serve", fam["qwen3-moe"], *serve_topology()),
+             ("qwen3-moe edges", fam["qwen3-moe"],
+              [(4, [4 * 16 + 5, 2 * 16 + 3, 0, 4 * 16]), (2, [2 * 16 + 9])],
+              [37, 0, 1]),
+             ("qwen3-moe ragged", fam["qwen3-moe"], [(2, RAGGED)], []),
+             ("qwen2-vl serve", fam["qwen2-vl"], *serve_topology()),
+             ("qwen2-vl ragged", fam["qwen2-vl"], [(2, RAGGED)], [])]
     for name, shape, groups, singles in cases:
         for dn, dt in dtypes.items():
             args = k3_inputs(torch, gen, dev, groups=groups, singles=singles,
@@ -1114,7 +1211,8 @@ def phase_flash_kernels(torch):
     """Hold K5 (the dense flash prefill) against its plain version on the
     same inputs, bf16 (the wgmma kernel) and fp32 (the CUDA-core kernel):
     r1-distill-14b's exact-prefill shape at S = 272 and 4096, a qwen2-0.5b
-    shape (14/2 heads of 64), head_dim 32, GQA groups 1 and 8,
+    shape (14/2 heads of 64), head_dim 32, GQA groups 1, 8 and 16 (the
+    attention shapes of musicgen-medium, qwen2-vl-72b, qwen3-moe),
     non-divisible S, non-causal, and ``true_len`` (rows past it bit-exact
     zeros; K and V past it NaN, which must not change one bit of the
     output), once at S = 1000 so the key loop wraps the TMA ring. Then
@@ -1145,7 +1243,14 @@ def phase_flash_kernels(torch):
              ("r1 true_len=200 S=272", 1, 272, 40, 8, 128, True, 200),
              ("non-causal true_len=13 S=48", 2, 48, 6, 3, 64, False, 13),
              # 16 key tiles through the TMA ring, the last one partial
-             ("r1 true_len=997 S=1000", 1, 1000, 40, 8, 128, True, 997)]
+             ("r1 true_len=997 S=1000", 1, 1000, 40, 8, 128, True, 997),
+             # the families of phases 10-11: qwen3-moe-235b-a22b (group
+             # 16), qwen2-vl-72b (group 8), musicgen-medium (group 1)
+             ("qwen3-moe group16 S=272", 1, 272, 64, 4, 128, True, None),
+             ("qwen3-moe group16 true_len=13 S=40", 1, 40, 64, 4, 128, True,
+              13),
+             ("qwen2-vl group8 S=272", 1, 272, 64, 8, 128, True, None),
+             ("musicgen group1 S=100", 2, 100, 24, 24, 64, True, None)]
     for name, b, s, h, kv, hd, causal, tl in cases:
         for dn, dt in dtypes.items():
             q, k, v = inputs(b, s, h, kv, hd, dt)
@@ -1235,13 +1340,40 @@ def _tiny_family(arch: str):
     """The tests' ssm/hybrid widths (``tests/conftest.py`` FAMILY_CONFIGS):
     2 layers, d_model 64, 4 SSD heads of 32, state 16, chunk 8; the
     hybrid's 4/2 attention heads are 64 wide (the tests' 16 is below the
-    64 or 128 that K1-K3 take)."""
+    32, 64 or 128 that K1-K3 take)."""
     from repro_torch.models import ModelConfig
     attn = dict(d_ff=0) if arch == "ssm" else dict(d_ff=128, head_dim=64)
     return ModelConfig(name=f"tiny-{arch}", arch_type=arch, num_layers=2,
                        d_model=64, vocab_size=97, num_heads=4,
                        num_kv_heads=2, ssm_state=16, ssm_head_dim=32,
                        ssm_chunk=8, **attn)
+
+
+def _topk_margins(torch):
+    """A context that wraps ``moe.router_probs`` to keep the smallest gap
+    between the k-th and the (k+1)-th router probability of any row it
+    routes (the nearest tie a routing could flip on); yields a dict whose
+    ``"min"`` holds it. For eager runs: it reads the gap on the host."""
+    from repro_torch.models import moe
+    seen = {"min": math.inf}
+    orig = moe.router_probs
+
+    def recording(cfg, p, x_flat):
+        probs = torch.softmax((x_flat @ p["router"]).float(), dim=-1)
+        top = probs.topk(cfg.num_experts_per_tok + 1, dim=-1).values
+        k = cfg.num_experts_per_tok
+        seen["min"] = min(seen["min"],
+                          float((top[:, k - 1] - top[:, k]).min()))
+        return orig(cfg, p, x_flat)
+
+    @contextlib.contextmanager
+    def ctx():
+        moe.router_probs = recording
+        try:
+            yield seen
+        finally:
+            moe.router_probs = orig
+    return ctx()
 
 
 def phase_parity(torch):
@@ -1251,7 +1383,12 @@ def phase_parity(torch):
     off, then the prefix cache and tree decode (K3) on. ssm and hybrid
     (the tests' widths): the chunk lanes' scan is K4; the hybrid runs again
     with the cache (the warm request seeded from a page-aligned boundary
-    snapshot) and the tree on, K1-K4 in one engine."""
+    snapshot) and the tree on, K1-K4 in one engine. The smoke widths of
+    qwen3-moe-235b-a22b (MoE, 4 experts top-2; per-branch, cache and
+    tree, exact), qwen2-vl-72b (M-RoPE) and musicgen-medium (sinusoidal
+    positions); for MoE the smallest top-k router margin of the CPU run
+    is printed (a card/CPU flip of experts below ~1e-5 would be a near
+    tie, not a port fault)."""
     from repro_torch.configs import smoke
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import tree_decode
@@ -1262,7 +1399,11 @@ def phase_parity(torch):
     exact = {"chunked_prefill": False}
     for cfg, extras in ((smoke("r1-distill-14b"), ({}, cache_tree, exact)),
                         (_tiny_family("ssm"), ({}, exact)),
-                        (_tiny_family("hybrid"), ({}, cache_tree, exact))):
+                        (_tiny_family("hybrid"), ({}, cache_tree, exact)),
+                        (smoke("qwen3-moe-235b-a22b"),
+                         ({}, cache_tree, exact)),
+                        (smoke("qwen2-vl-72b"), ({},)),
+                        (smoke("musicgen-medium"), ({},))):
         cpu_model = Model(cfg, device="cpu")
         params = cpu_model.init_params(torch.Generator().manual_seed(0))
         gpu_model = Model(cfg, device=DEVICE)
@@ -1279,7 +1420,11 @@ def phase_parity(torch):
                 tree_decode.branch_launches = 0
                 ssd_scan.launches = 0
                 flash_prefill.launches = 0
-                runs.append(_parity_scenario(torch, eng, cfg.vocab_size))
+                with (_topk_margins(torch) if model is cpu_model
+                      and cfg.uses_moe else contextlib.nullcontext()) as tie:
+                    runs.append(_parity_scenario(torch, eng, cfg.vocab_size))
+                if tie is not None:
+                    margin = tie["min"]
                 stats = eng.prefix_cache_stats()
             graphs = _graph_stats(eng)      # the card's engine
             (t_cpu, l_cpu, h_cpu, c_cpu, s_cpu), \
@@ -1298,7 +1443,10 @@ def phase_parity(torch):
                   f"launches {ssd_scan.launches}; K5 launches "
                   f"{flash_prefill.launches}; step graphs captured "
                   f"{graphs['captured']} of {graphs['declared']}, replays "
-                  f"{graphs['replays']}; {'ok' if ok else 'FAIL'}")
+                  f"{graphs['replays']}"
+                  + (f"; smallest top-k router margin (CPU run) {margin:.3e}"
+                     if cfg.uses_moe else "")
+                  + f"; {'ok' if ok else 'FAIL'}")
             check(0 < graphs["captured"] <= graphs["declared"]
                   and graphs["replays"] >= graphs["decode_steps"],
                   f"the card's parity engine did not step through its "
@@ -1518,11 +1666,13 @@ def few_shot_header(n_tokens: int, seed: int):
 
 def _serve_setup(torch, model, params, *, shared_header: bool,
                  decode_kernel: str = "paged", temperature: float = 0.9,
-                 engine=None):
+                 engine=None, num_requests: int = 4, n: int = 8,
+                 max_tokens: int = 96):
     """The engine and scheduler of a serve phase's traffic: 4 requests
     every 8 steps under SART (n=8, window 8, max 96 tokens, OraclePRM
-    noise 0.05) on run_serving's engine config (4096 x 16 pages, 16
-    slots, 32 pages per branch, chunk 64, top-p 0.95). With
+    noise 0.05; phase 11 takes 2 requests, n=4, max 48) on run_serving's
+    engine config (4096 x 16 pages, 16 slots, 32 pages per branch, chunk
+    64, top-p 0.95). With
     ``shared_header`` phase 6's prompts (a 256-token few-shot header, 16
     whole pages, then each request's own problem) and the prefix cache
     on; else phase 5's (run_serving's synthetic problems). Built here so
@@ -1537,7 +1687,7 @@ def _serve_setup(torch, model, params, *, shared_header: bool,
         prompts, probs = _shared_header_prompts(seed)
     else:
         rng = np.random.default_rng(seed + 2)
-        probs = [tasks.gen_problem(rng) for _ in range(4)]
+        probs = [tasks.gen_problem(rng) for _ in range(num_requests)]
         prompts = [p.prompt_tokens() for p in probs]
     if engine is None:
         engine = Engine(model, params, EngineConfig(
@@ -1547,8 +1697,9 @@ def _serve_setup(torch, model, params, *, shared_header: bool,
             seed=seed, prefix_cache=shared_header,
             decode_kernel=decode_kernel))
     prm = OraclePRM(tasks.oracle_grader, noise=0.05, seed=seed + 1)
-    sch = Scheduler(engine, prm, SchedulerConfig(policy="sart", n=8,
-                                                 window=8, max_tokens=96),
+    sch = Scheduler(engine, prm, SchedulerConfig(policy="sart", n=n,
+                                                 window=8,
+                                                 max_tokens=max_tokens),
                     answer_fn=tasks.extract_answer)
     for i, (prompt, prob) in enumerate(zip(prompts, probs)):
         sch.submit(prompt, payload=prob, arrival=i * 8)
@@ -1929,18 +2080,20 @@ def phase_tree_pairs(torch, pairs: int) -> None:
 
 
 def _serve_recorded(torch, model, params, *, eager: bool,
-                    shared_header: bool, decode_kernel: str = "paged"):
-    """One greedy serve of phase 5's or phase 6's traffic
-    (``_serve_setup``), eagerly (``Engine.eager()``) or through the step
-    graphs, recording every decode step's tokens and every step's logits
-    of the rows that carry a result (a copy of them rides each step, both
-    ways). Returns
-    (summary line, tokens per step, logits per step)."""
+                    shared_header: bool, decode_kernel: str = "paged",
+                    num_requests: int = 4, **traffic):
+    """One greedy serve of phase 5's or phase 6's traffic, or phase 11's
+    with ``traffic`` (``_serve_setup``), eagerly (``Engine.eager()``) or
+    through the step graphs, recording every decode step's tokens and
+    every step's logits of the rows that carry a result (a copy of them
+    rides each step, both ways). Returns (summary line, tokens per step,
+    logits per step)."""
     gc.collect()
     torch.cuda.empty_cache()
     engine, sch = _serve_setup(torch, model, params,
                                shared_header=shared_header,
-                               decode_kernel=decode_kernel, temperature=0.0)
+                               decode_kernel=decode_kernel, temperature=0.0,
+                               num_requests=num_requests, **traffic)
     tokens, logits = [], []
     step, decode = engine._step, engine.decode_step
     n_slots = engine.cfg.max_slots
@@ -1950,8 +2103,7 @@ def _serve_recorded(torch, model, params, *, eager: bool,
         out = step(tokens_, positions, tables, lengths, lane_buckets,
                    chunk_lens, *args, **kw)
         # the rows that carry a result: occupied slots and each lane's
-        # valid rows (the others attend the spare page, which the graph
-        # run's warm-up also writes)
+        # valid rows
         live = [i for i in range(n_slots) if engine._active[i]]
         for i, (bk, cl) in enumerate(zip(lane_buckets, chunk_lens)):
             live += range(n_slots + i * bk, n_slots + i * bk + cl)
@@ -1974,7 +2126,7 @@ def _serve_recorded(torch, model, params, *, eager: bool,
                 completed_requests=metrics["completed_requests"],
                 graphs=_graph_stats(engine),
                 used_pages=engine.allocator.used_pages)
-    check(metrics["completed_requests"] == 4
+    check(metrics["completed_requests"] == num_requests
           and metrics["unfinished_requests"] == 0
           and faults["step_faults"] == faults["engine_restarts"] == 0,
           f"the {line['mode']} serve did not complete cleanly: {faults}")
@@ -2040,6 +2192,154 @@ def phase_graphs(torch) -> dict:
     return runs
 
 
+def _step_bytes(model, params) -> int:
+    """The bytes a decode step must stream at least: every layer weight
+    once (MoE layers run every expert on its capacity buffer, so all
+    experts' weights), the final norm and the LM head (the embedding
+    table when tied); the step's few embedding rows and K/V pages are
+    left out (under 0.1% at these widths)."""
+    def size(tree):
+        return sum(size(v) if isinstance(v, dict)
+                   else v.numel() * v.element_size() for v in tree.values())
+    head = params["embed"].get("lm_head", params["embed"]["embedding"])
+    return (size(params["layers"]) + size(params["final_norm"])
+            + head.numel() * head.element_size())
+
+
+def phase_family_serve(torch, tag: str, arch: str, num_layers: int = 0, *,
+                       n: int = 8, num_requests: int = 4,
+                       max_tokens: int = 96) -> dict:
+    """Phases 10-11: ``arch`` at full width, its depth cut to
+    ``num_layers`` (0: full depth), bf16, random weights from seed 0,
+    behind the SART scheduler through ``run_serving`` (requests every 8
+    steps, window 8, OraclePRM noise 0.05, temperature 0.9) on the
+    launcher's engine config, through the step graphs. Counters are
+    zeroed just before the serve and read just after: K1 and K2 must
+    launch, K2 once per layer per mixed step; replays must equal decode
+    steps, every request complete with no fault or leaked page, hidden
+    states be finite. Then the same traffic greedy, eagerly and through
+    the graphs on the same weights: tokens identical at every step and
+    the largest logit difference on the rows that carry a result 0.0.
+    Prints the step p50 beside the bound from the bytes a step streams,
+    the peak memory, the capture seconds per variant and the phase's
+    seconds; frees the model. Returns the serve's line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_prefill import flash_prefill, paged_prefill
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     tree_decode)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models import Model
+    gc.collect()                 # the earlier phases' models and pools
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    full = get_config(arch)
+    cfg = full.replace(num_layers=num_layers) if num_layers else full
+    model = Model(cfg, dtype=torch.bfloat16, device=DEVICE)
+    params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    step_bytes = _step_bytes(model, params)
+    bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[{tag}] {cfg.name} ({cfg.arch_type}): num_layers "
+          f"{full.num_layers} -> {cfg.num_layers}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}"
+          + (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok}"
+             f" (capacity factor {cfg.moe_capacity_factor})"
+             if cfg.uses_moe else "")
+          + f", vocab {cfg.vocab_size}, {cfg.pos_embedding} positions; "
+          f"{step_bytes / 1e9:.2f} GB of bf16 weights a step streams, bound "
+          f"{bound_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; random "
+          f"weights in {time.perf_counter() - t_phase:.1f} s")
+
+    paged_attention.launches = 0
+    paged_prefill.launches = 0
+    tree_decode.shared_launches = tree_decode.branch_launches = 0
+    ssd_scan.launches = 0
+    flash_prefill.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, engine = run_serving(
+        model, params, None, policy="sart", n=n, num_requests=num_requests,
+        rate_gap=8, prm_kind="oracle", window=8, max_tokens=max_tokens,
+        max_slots=16, seed=0, temperature=0.9)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recorded = {"paged_decode": paged_attention.launches,
+                "paged_prefill": paged_prefill.launches,
+                "paged_tree_shared": tree_decode.shared_launches,
+                "paged_tree_branch": tree_decode.branch_launches,
+                "ssd_scan": ssd_scan.launches,
+                "flash_prefill": flash_prefill.launches}
+    launches = _path_launches(engine, recorded)
+    faults = out["faults"]
+    line = {
+        "model": cfg.name, "num_layers": [full.num_layers, cfg.num_layers],
+        "completed_requests": out["completed_requests"],
+        "unfinished_requests": out["unfinished_requests"],
+        "generated_tokens": engine.tokens_generated,
+        "tokens_per_s": engine.tokens_generated / wall,
+        **_step_stats(engine, wall),
+        "mixed_steps": engine.mixed_steps_executed,
+        "bound_ms": bound_ms, "step_bytes": step_bytes,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches,
+        "e2e_p50_steps": out["p50"], "ttfb50_steps": out["ttfb50"],
+        "faults": {k: faults[k] for k in ("step_faults", "engine_restarts",
+                                          "quarantined")},
+        "used_pages": engine.allocator.used_pages,
+        "graphs": _graph_stats(engine),
+    }
+    print(f"[{tag}] " + json.dumps(line))
+    print(f"[{tag}] {cfg.name}: step p50 {line['step_ms_p50']:.3f} ms "
+          f"against the bound {bound_ms:.3f} ms from bytes "
+          f"({line['step_ms_p50'] / bound_ms:.2f}x); peak memory "
+          f"{line['peak_mem_gb']:.2f} GB; capture s per variant "
+          f"{line['graphs']['capture_s']}; K1 {launches['paged_decode']}, "
+          f"K2 {launches['paged_prefill']} launches")
+    _check_graphs(engine, f"the {tag} serve")
+    check(out["completed_requests"] == num_requests
+          and out["unfinished_requests"] == 0,
+          f"{tag}: not every request completed")
+    check(faults["step_faults"] == faults["engine_restarts"]
+          == faults["quarantined"] == 0, f"{tag}: faults in the run: {faults}")
+    check(engine.allocator.used_pages == 0, f"{tag}: pages leaked")
+    check(bool(torch.isfinite(engine._last_hidden.float()).all()),
+          f"{tag}: non-finite hidden state")
+    check(launches["paged_decode"] > 0 and launches["paged_prefill"]
+          == cfg.num_layers * engine.mixed_steps_executed > 0,
+          f"{tag}: K1 and K2 did not carry the steps: {launches}, "
+          f"{engine.mixed_steps_executed} mixed steps")
+    check(all(launches[k] == 0 for k in launches
+              if k not in ("paged_decode", "paged_prefill")),
+          f"{tag}: a kernel off the path launched: {launches}")
+    del engine
+
+    traffic = dict(n=n, num_requests=num_requests, max_tokens=max_tokens)
+    eager, t_e, l_e = _serve_recorded(torch, model, params, eager=True,
+                                      shared_header=False, **traffic)
+    graph, t_g, l_g = _serve_recorded(torch, model, params, eager=False,
+                                      shared_header=False, **traffic)
+    same = t_e == t_g
+    err = (max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(l_e, l_g))
+           if len(l_e) == len(l_g) else float("nan"))
+    line["eager_vs_graphs"] = {
+        "tokens_identical": same, "decode_steps": len(t_g),
+        "logits_max_abs_diff": err,
+        "step_ms_p50": {"eager": eager["step_ms_p50"],
+                        "graphs": graph["step_ms_p50"]}}
+    print(f"[{tag}] eager against graphs, greedy: "
+          + json.dumps(line["eager_vs_graphs"]))
+    check(same, f"{tag}: graph steps gave other tokens than eager steps")
+    check(err == 0.0, f"{tag}: graph and eager logits differ by {err} on "
+                      "the rows that carry a result")
+    del model, params, l_e, l_g
+    line["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{tag}] {cfg.name}: phase {line['phase_s']:.1f} s")
+    return line
+
+
 def _step_stats(engine, wall: float) -> dict:
     steps = sorted(engine.step_seconds)
     return {"decode_steps": engine.decode_steps_executed, "wall_s": wall,
@@ -2049,24 +2349,30 @@ def _step_stats(engine, wall: float) -> dict:
 
 def phase_profile(torch, out_dir: Path) -> None:
     """Phase 5's traffic (4 requests, n=8, 96 tokens, temperature 0.9) on
-    r1-distill-14b and on mamba2-130m (phase 8), each served eagerly
+    r1-distill-14b, on mamba2-130m (phase 8) and on qwen3-moe-235b-a22b
+    at 8 of its 94 layers (phase 10), each served eagerly
     (``Engine.eager()``) and through the step graphs: per mode one plain
     serve, for step times (the graph run captures its variants), then the
     same engine again, its graphs captured, under torch.profiler tracing
     device activity only (no host ops, so the trace adds little to the
     host side), for device time by kernel, the device's busy share of
     that run's own wall time and the device kernels per decode step. The
-    tables go to ``out_dir/profile_serve[_ssm]_{eager,graphs}.txt``."""
+    tables go to ``out_dir/profile_serve[_ssm|_moe]_{eager,graphs}.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     out_dir.mkdir(parents=True, exist_ok=True)
-    for arch, stem in (("r1-distill-14b", "profile_serve"),
-                       ("mamba2-130m", "profile_serve_ssm")):
+    for arch, stem, layers in (("r1-distill-14b", "profile_serve", 0),
+                               ("mamba2-130m", "profile_serve_ssm", 0),
+                               ("qwen3-moe-235b-a22b", "profile_serve_moe",
+                                8)):
         gc.collect()
         torch.cuda.empty_cache()
-        model = Model(get_config(arch), dtype=torch.bfloat16, device=DEVICE)
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        model = Model(cfg, dtype=torch.bfloat16, device=DEVICE)
         params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
         for mode in ("eager", "graphs"):
             gc.collect()
@@ -2133,7 +2439,8 @@ def main() -> int:
                     help="stop after the kernel checks (prints no result)")
     ap.add_argument("--profile", metavar="DIR",
                     help="profile the serve phases' traffic (r1-distill-14b"
-                         " and mamba2-130m) instead of the checks, writing "
+                         ", mamba2-130m, qwen3-moe-235b-a22b at 8 layers) "
+                         "instead of the checks, writing "
                          "the tables under DIR (prints no result)")
     ap.add_argument("--tree-pairs", type=int, metavar="N",
                     help="serve phase 6's traffic in N alternating "
@@ -2182,6 +2489,12 @@ def main() -> int:
     del model, params
     launches["ssd_scan"] = phase_ssm_serve(torch)["ssd_scan"]
     phase_graphs(torch)
+    # phases 10-11: the MoE, vlm and audio families at full width
+    moe_line = phase_family_serve(torch, "serve-moe", "qwen3-moe-235b-a22b",
+                                  8)
+    for arch, layers in (("qwen2-vl-72b", 8), ("musicgen-medium", 0)):
+        phase_family_serve(torch, "serve-family", arch, layers, n=4,
+                           num_requests=2, max_tokens=48)
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
             "K/V (a yardstick; the port never calls it)")
@@ -2230,9 +2543,13 @@ def main() -> int:
             **{key: tm[k] for k, key in (("long", "long_context"),
                                          ("long_few_rows",
                                           "long_context_few_rows"),
-                                         ("header_chunk", "header_chunk"))
+                                         ("header_chunk", "header_chunk"),
+                                         ("moe_serve",
+                                          "qwen3_moe_serve_shape"))
                if k in tm},
         })
+        if moe_line["launches"].get(name):
+            kernels[-1]["launches_qwen3_moe"] = moe_line["launches"][name]
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")
                   ) and (k["library_ms"] is None

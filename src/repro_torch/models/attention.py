@@ -28,7 +28,7 @@ import torch
 
 from ..kernels.flash_prefill.ops import flash_attention
 from .config import ModelConfig
-from .layers import apply_rope, dense_init
+from .layers import apply_mrope, apply_rope, dense_init, positions_for
 
 NEG_INF = -1e30
 
@@ -73,11 +73,14 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor):
 
 def _rotate(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
             positions: torch.Tensor):
+    """RoPE with [B, S] positions, M-RoPE with [B, S, 3]; sinusoidal
+    and no positions leave q and k as they are."""
     if cfg.pos_embedding == "rope":
         q = apply_rope(cfg, q, positions)
         k = apply_rope(cfg, k, positions)
     elif cfg.pos_embedding == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
+        q = apply_mrope(cfg, q, positions)
+        k = apply_mrope(cfg, k, positions)
     return q, k
 
 
@@ -191,7 +194,7 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     [B,1,D], cache_k, cache_v) — the same cache tensors."""
     b = x.shape[0]
     q, k, v = _project_qkv(cfg, p, x)          # q,k,v: [B,1,.,hd]
-    q, k = _rotate(cfg, q, k, positions[:, None])
+    q, k = _rotate(cfg, q, k, positions_for(cfg, positions[:, None]))
     smax = cache_k.shape[1]
     write_idx = (positions % smax).long()
     bidx = torch.arange(b, device=x.device)

@@ -4,7 +4,6 @@ Counterpart of ``repro.models.layers``. Parameters are plain dicts of
 tensors in the reference's layout: weights are ``[in, out]`` so
 activations compute ``x @ W``, and norm scales are fp32. Norms and RoPE
 compute in fp32 and cast back to the input dtype, as the reference does.
-``apply_mrope`` and ``sinusoidal_embedding`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -108,7 +107,7 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# positions: RoPE
+# positions: RoPE, M-RoPE (qwen2-vl), sinusoidal (musicgen)
 # ---------------------------------------------------------------------------
 
 
@@ -132,6 +131,51 @@ def apply_rope(cfg: ModelConfig, x: torch.Tensor,
     x1, x2 = x_rot.float().chunk(2, dim=-1)
     y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([y.to(x.dtype), x_pass], dim=-1)
+
+
+def apply_mrope(cfg: ModelConfig, x: torch.Tensor,
+                positions3: torch.Tensor) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: [B, S, H, hd]; positions3: [B, S,
+    3] (temporal, height, width) position ids. The hd/2 frequency slots
+    are split into three sections (``cfg.mrope_sections`` scaled to this
+    head_dim), each rotated by its own position stream; with three equal
+    streams it is 1-D RoPE."""
+    hd = x.shape[-1]
+    half = hd // 2
+    sec = cfg.mrope_sections
+    total = sum(sec)
+    sizes = [s * half // total for s in sec]
+    sizes[-1] = half - sizes[0] - sizes[1]
+    inv = rope_freqs(cfg, hd, x.device)                     # [half]
+    pos = positions3.float()                                # [B, S, 3]
+    parts, start = [], 0
+    for i, sz in enumerate(sizes):
+        parts.append(pos[..., i:i + 1] * inv[start:start + sz])
+        start += sz
+    ang = torch.cat(parts, dim=-1)                          # [B, S, half]
+    sin = torch.sin(ang)[:, :, None, :]
+    cos = torch.cos(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return y.to(x.dtype)
+
+
+def sinusoidal_embedding(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """[...] int positions -> [..., dim] fp32 sinusoidal embeddings
+    (sines, then cosines)."""
+    half = dim // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def positions_for(cfg: ModelConfig, positions: torch.Tensor) -> torch.Tensor:
+    """A [B, S] position tensor in the form the config's rotary needs:
+    three equal streams [B, S, 3] for M-RoPE, else unchanged."""
+    if cfg.pos_embedding == "mrope" and positions.dim() == 2:
+        return positions[..., None].expand(*positions.shape, 3)
+    return positions
 
 
 # ---------------------------------------------------------------------------

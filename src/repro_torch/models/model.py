@@ -1,12 +1,12 @@
-"""Decoder-only model of the dense, ssm and hybrid families, as a PyTorch
-module.
+"""Decoder-only model of every family (dense, moe, ssm, hybrid, vlm,
+audio), as a PyTorch module.
 
 Counterpart of ``repro.models.model``. The weights keep the JAX pytree's
 key paths and layout: per-layer tensors are stacked along a leading
 ``[L, ...]`` axis, matrices are ``[in, out]``, norm scales and the
 Mamba2 mixer's ``a_log``/``dt_bias`` are fp32. ``Model`` holds them as
 non-trainable parameters under those paths (``weights.embed.lm_head``,
-``weights.layers.attn.wq``, ``weights.layers.mamba.in_proj``, ...); the
+``weights.layers.attn.wq``, ``weights.layers.moe.w_up``, ...); the
 functional layer code and the engine take the nested dict itself.
 
 Entry points, as the reference's: ``forward`` (full-sequence logits),
@@ -19,8 +19,11 @@ a sliding window; ``conv``/``ssd`` for ssm/hybrid) is written IN PLACE by
 width a second copy would cost as much memory as the cache itself. The
 full-sequence attention of ``forward`` and ``prefill`` is kernel K5 on the
 card where it applies (``attention.py``), the ssm mixer's scan kernel K4.
-Families: dense, swa, ssm and hybrid; MoE layers, M-RoPE and sinusoidal
-positions raise ``NotImplementedError``.
+MoE layers run the capacity dispatch of ``moe.py`` and ``forward`` sums
+their aux losses; vlm configs rotate by M-RoPE over ``[B, S, 3]``
+positions (``[B, S]`` ones are broadcast to three equal streams); audio
+configs add sinusoidal position embeddings to the inputs. vlm and audio
+take ``embeds`` (the stubbed frontend's output) in place of token ids.
 """
 from __future__ import annotations
 
@@ -35,9 +38,11 @@ from .attention import (attention_decode, attention_prefill, attention_train,
                         init_attention)
 from .config import ModelConfig
 from .layers import (apply_mlp, apply_norm, embed_tokens, init_embedding,
-                     init_mlp, init_norm, unembed)
+                     init_mlp, init_norm, positions_for, sinusoidal_embedding,
+                     unembed)
 from .mamba2 import (init_mamba2, init_mamba2_state, mamba2_decode,
                      mamba2_forward)
+from .moe import apply_moe, init_moe
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -52,7 +57,10 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, dtype,
         p["mamba"] = init_mamba2(gen, cfg, dtype, device)
     if cfg.d_ff:
         p["norm2"] = init_norm(cfg, cfg.d_model, device)
-        p["mlp"] = init_mlp(gen, cfg, dtype, device)
+        if cfg.uses_moe:
+            p["moe"] = init_moe(gen, cfg, dtype, device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg, dtype, device)
     return p
 
 
@@ -108,11 +116,8 @@ class Model(nn.Module):
 
     def init_params(self, gen: torch.Generator) -> Params:
         """Random weights from ``gen`` (a generator on ``self.device``),
-        the layout of ``Model.init_params``. MoE layers are not ported
-        yet and raise."""
+        the layout of ``Model.init_params``."""
         cfg = self.cfg
-        if cfg.uses_moe:
-            raise NotImplementedError("moe layers are not ported yet")
         embed = init_embedding(gen, cfg, self.dtype, self.device)
         layers: Params = {}
         for i in range(cfg.num_layers):
@@ -127,14 +132,6 @@ class Model(nn.Module):
         """Bind a params tree (same tensors, no copy) as this module's
         non-trainable parameters under the JAX key paths."""
         self.weights = _module_tree(params)
-
-    def _check_ported(self) -> None:
-        cfg = self.cfg
-        if cfg.uses_moe:
-            raise NotImplementedError("moe layers are not ported yet")
-        if cfg.pos_embedding in ("mrope", "sinusoidal"):
-            raise NotImplementedError(
-                f"{cfg.pos_embedding} positions are not ported yet")
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         """Zero decode cache for ``max_len`` tokens of context on this
@@ -159,36 +156,52 @@ class Model(nn.Module):
         return cache
 
     def _embed_inputs(self, params: Params, tokens, embeds) -> torch.Tensor:
+        """Token embeddings (or ``embeds``), plus sinusoidal embeddings of
+        positions 0..S-1 for audio configs."""
         if embeds is not None:
-            return embeds.to(self.dtype)
-        return embed_tokens(self.cfg, params["embed"], tokens)
+            x = embeds.to(self.dtype)
+        else:
+            x = embed_tokens(self.cfg, params["embed"], tokens)
+        if self.cfg.pos_embedding == "sinusoidal":
+            pos = torch.arange(x.shape[1], device=x.device)
+            x = x + sinusoidal_embedding(pos, self.cfg.d_model)[None].to(
+                x.dtype)
+        return x
+
+    def _positions(self, positions, b: int, s: int, device):
+        """The given positions, or 0..S-1 for every row, in the form the
+        config's rotary takes (``positions_for``)."""
+        if positions is None:
+            positions = torch.arange(s, device=device)[None].expand(b, s)
+        return positions_for(self.cfg, positions)
 
     def _run_layers(self, params: Params, step, x, cache: Optional[Cache]):
         """x through every layer: ``step(layer params, layer cache, x)``
-        with the layer's views of the stacked cache."""
+        with the layer's views of the stacked cache; each step returns (x,
+        its MoE aux loss or None). Returns (x, the aux losses' fp32 sum)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, lp in enumerate(layer_slices(params["layers"],
                                             self.cfg.num_layers)):
             layer_cache = ({k: v[i] for k, v in cache.items()}
                            if cache is not None else None)
-            x = step(lp, layer_cache, x)
-        return x
+            x, aux_l = step(lp, layer_cache, x)
+            if aux_l is not None:
+                aux = aux + aux_l
+        return x, aux
 
     def forward(self, params: Params, tokens=None, embeds=None,
                 positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward. Returns (logits [B,S,V], aux_loss), the
-        aux loss 0 (it sums MoE balance losses, and MoE is not ported)."""
-        self._check_ported()
+        """Full-sequence forward. Returns (logits [B,S,V], aux_loss): the
+        sum over layers of the MoE load-balance losses, 0 without MoE."""
         cfg = self.cfg
         x = self._embed_inputs(params, tokens, embeds)
         b, s, _ = x.shape
-        if positions is None:
-            positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        x = self._run_layers(
+        positions = self._positions(positions, b, s, x.device)
+        x, aux = self._run_layers(
             params, lambda lp, _, x: self._layer_train(lp, x, positions),
             x, None)
         x = apply_norm(cfg, params["final_norm"], x)
-        return unembed(cfg, params["embed"], x), torch.zeros(
-            (), dtype=torch.float32, device=x.device)
+        return unembed(cfg, params["embed"], x), aux
 
     def _layer_train(self, p: Params, x, positions):
         cfg = self.cfg
@@ -203,14 +216,21 @@ class Model(nn.Module):
 
     def _finish_layer(self, p: Params, x, mix):
         """Residual of the mixer (hybrids average their two heads, as
-        Hymba), then the MLP block."""
+        Hymba), then the MLP or MoE block over every row of x. Returns (x,
+        the MoE aux loss or None)."""
         cfg = self.cfg
         if cfg.arch_type == "hybrid":
             mix = mix * 0.5
         x = x + mix
+        aux = None
         if cfg.d_ff:
-            x = x + apply_mlp(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-        return x
+            h = apply_norm(cfg, p["norm2"], x)
+            if cfg.uses_moe:
+                y, aux = apply_moe(cfg, p["moe"], h)
+            else:
+                y = apply_mlp(cfg, p["mlp"], h)
+            x = x + y
+        return x, aux
 
     def prefill(self, params: Params, tokens=None, embeds=None,
                 positions=None, cache: Optional[Cache] = None,
@@ -218,15 +238,13 @@ class Model(nn.Module):
         """Process the prompt and seed the cache (``init_cache(B, max_len
         or cfg.max_seq_len)`` unless one is passed; written in place).
         Returns (logits of the last position [B,V], cache)."""
-        self._check_ported()
         cfg = self.cfg
         x = self._embed_inputs(params, tokens, embeds)
         b, s, _ = x.shape
-        if positions is None:
-            positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        positions = self._positions(positions, b, s, x.device)
         if cache is None:
             cache = self.init_cache(b, max_len or cfg.max_seq_len)
-        x = self._run_layers(
+        x, _ = self._run_layers(
             params, lambda lp, lc, x: self._layer_prefill(lp, lc, x,
                                                           positions, s),
             x, cache)
@@ -259,10 +277,12 @@ class Model(nn.Module):
         """tokens [B] int, positions [B] absolute positions; the cache is
         updated in place. Returns (logits [B,V], cache, hidden [B,D]) —
         ``hidden`` feeds the PRM reward head."""
-        self._check_ported()
         cfg = self.cfg
         x = embed_tokens(cfg, params["embed"], tokens[:, None])
-        x = self._run_layers(
+        if cfg.pos_embedding == "sinusoidal":
+            x = x + sinusoidal_embedding(positions, cfg.d_model)[:, None].to(
+                x.dtype)
+        x, _ = self._run_layers(
             params, lambda lp, lc, x: self._layer_decode(lp, lc, x,
                                                          positions),
             x, cache)

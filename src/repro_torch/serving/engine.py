@@ -23,7 +23,12 @@ whose K/V are then scattered into the prompt's pages.
 The ssm and hybrid families carry a per-slot Mamba2 state (conv tail and
 SSD state per layer): decode rows step it with ``mamba2_decode`` in plain
 torch ops, and all chunk lanes of a step run one batched masked-dt
-``mamba2_forward`` whose chunked scan is kernel K4. With
+``mamba2_forward`` whose chunked scan is kernel K4. MoE layers
+(``models/moe.py``) run once per layer over every row of the step,
+empty slots and chunk pad rows included, so the experts' capacity is
+the reference's; vlm configs rotate by M-RoPE over three equal position
+streams, audio configs add the sinusoidal embedding of each row's
+position. With
 ``prefix_cache=True`` admission serves the longest cached
 page-aligned prefix from the radix cache (``repro_torch.kv.PrefixCache``)
 and chunks from the first uncached token.
@@ -35,7 +40,12 @@ Differences from the reference that a reader must know:
     ``[L, kv, num_pages + 1, ps, hd]``, zero-initialised, and the
     sentinel ``num_pages`` indexes the spare page. The CoW of a sentinel
     pair, the pad rows' K/V and every write through a sentinel block
-    table entry go there; no kernel reads it inside a row's length.
+    table entry go there. Nothing reads it: the tables the attention
+    kernels read hold ``num_pages - 1`` where the host's hold the
+    sentinel, so an empty slot (length 0, one key) attends page
+    ``num_pages - 1`` as the reference's clamped gather does. Its hidden
+    state is then the reference's, which MoE layers need: every row of
+    the step competes for the experts' capacity.
   * **In-place updates, reference order.** The step CoWs first, then for
     each layer writes every row's K/V before any row attends, so a
     chunk's own keys are visible to K2, as ``engine.py:1069-1170``.
@@ -53,8 +63,6 @@ Differences from the reference that a reader must know:
     ``ssm_snaps`` boundary snapshots, a suspended branch's state) is a
     copy that later in-place updates of the per-slot pools cannot reach.
     A suspended branch's state stays on the device, not on the host.
-  * **Families of later slices raise** in ``__init__``: MoE, M-RoPE
-    and sinusoidal positions.
   * **No per-length program.** The reference jit-compiles one exact
     prefill per prompt length (``_make_prefill``, cached in
     ``_prefill_cache``); the port runs it eagerly, and ``exact_prefills``
@@ -90,7 +98,8 @@ from ..kernels.paged_attention.ops import (paged_attention,
 from ..kv import (BranchBlocks, OutOfPagesError, PageAllocator, PrefixCache,
                   tree_decode_map)
 from ..models.attention import _project_qkv, _rotate
-from ..models.layers import apply_norm, embed_tokens, unembed
+from ..models.layers import (apply_norm, embed_tokens, positions_for,
+                             sinusoidal_embedding, unembed)
 from ..models.mamba2 import init_mamba2_state, mamba2_decode, mamba2_forward
 from ..models.model import Model, layer_slices
 from .sampling import SamplingParams, sample
@@ -303,8 +312,6 @@ class Engine:
         assert cfg.mixed_step_kernel in ("fused", "decode"), \
             cfg.mixed_step_kernel
         assert cfg.decode_kernel in ("paged", "tree"), cfg.decode_kernel
-        # the reference's configuration errors come before the check for
-        # options of later slices
         if cfg.decode_kernel == "tree" and cfg.mixed_step_kernel == "decode":
             raise ValueError(
                 "decode_kernel='tree' requires mixed_step_kernel='fused' — "
@@ -322,11 +329,6 @@ class Engine:
                 "synchronous exact-length admission has no chunk lanes to "
                 "budget (and a capacity > 1 would let the scheduler drain "
                 "its whole arrival queue in one tick)")
-        for later, what in ((mc.uses_moe, "MoE layers"),
-                            (mc.pos_embedding in ("mrope", "sinusoidal"),
-                             f"{mc.pos_embedding} positions")):
-            if later:
-                raise NotImplementedError(f"{what}: not ported yet")
         if mc.uses_attention:
             assert not mc.sliding_window, \
                 "paged engine serves full-attention configs"
@@ -990,11 +992,16 @@ class Engine:
                 + [np.arange(bk) < chunk_lens[i]
                    for i, bk in enumerate(lane_buckets)])
             page_of = np.where(write_ok, page_of, cfg.num_pages)
+        # the tables the kernels read: a sentinel entry reads page
+        # num_pages - 1, as the reference's gather clamps it, never the
+        # spare page that the dropped writes (and a graph's warm-up) fill
+        last = cfg.num_pages - 1
         parts = [tokens, positions, page_of, positions % ps, lengths + 1,
-                 block_tables.reshape(-1)]
+                 np.minimum(block_tables, last).reshape(-1)]
         if self._tree_on:
             rg, sbt, sl, bbt = tree
-            parts += [rg, sl, sbt.reshape(-1), bbt.reshape(-1)]
+            parts += [rg, sl, np.minimum(sbt, last).reshape(-1),
+                      np.minimum(bbt, last).reshape(-1)]
         if mc.uses_ssm:
             parts.append(slot_valid)
         parts.append(np.asarray(chunk_lens, np.int32).reshape(-1))
@@ -1039,9 +1046,11 @@ class Engine:
         shape; ``lane_state`` the lanes' stacked (conv, ssd) per layer.
 
         Order, as the reference: CoW copies (every step: sentinel pairs
-        copy the spare page onto itself), then per layer norm -> the
-        mixer -> MLP; then the final norm, unembed and sampling. The
-        attention mixer runs QKV -> RoPE -> K/V page writes of every row
+        copy the spare page onto itself), the embedding (plus the
+        sinusoidal one of each row's position, audio), then per layer
+        norm -> the mixer -> MLP or MoE (over all rows); then the final
+        norm, unembed and sampling. The attention mixer runs QKV -> RoPE
+        (M-RoPE over three equal streams, vlm) -> K/V page writes of every row
         -> attention (K1, or K3 over the tree map, for the decode rows; K2
         once over all lanes with the "fused" kernel, reading each lane's
         pos0 and length on the device) -> wo. CoW runs before attention,
@@ -1091,13 +1100,17 @@ class Engine:
             new_conv, new_ssd = [], []
 
         x = embed_tokens(mc, p["embed"], tok_d[:, None])      # [B, 1, D]
+        if mc.pos_embedding == "sinusoidal":
+            x = x + sinusoidal_embedding(pos_d, mc.d_model)[:, None].to(
+                x.dtype)
+        rot_pos = positions_for(mc, pos_d[:, None])    # [B, 1] or [B, 1, 3]
         for layer, lp in enumerate(self._layers):
             h = apply_norm(mc, lp["norm1"], x)
             mix = None
             if mc.uses_attention:
                 kp, vp = kp_all[layer], vp_all[layer]  # [kv, P + 1, ps, hd]
                 q, k, v = _project_qkv(mc, lp["attn"], h)
-                q, k = _rotate(mc, q, k, pos_d[:, None])
+                q, k = _rotate(mc, q, k, rot_pos)
                 # every row's K/V lands before any row attends
                 kp[:, page_i, slot_i] = k[:, 0].transpose(0, 1)
                 vp[:, page_i, slot_i] = v[:, 0].transpose(0, 1)
@@ -1140,7 +1153,9 @@ class Engine:
                     new_ssd.append(c_ssd.to(ssd_l.dtype))
                     y = torch.cat([y, y_ch.reshape(B - nS, 1, -1)], 0)
                 mix = y if mix is None else mix + y
-            x = self.model._finish_layer(lp, x, mix)
+            # the MLP or MoE block over all B rows: empty slots and pad
+            # rows count toward the experts' capacity, as the reference's
+            x, _ = self.model._finish_layer(lp, x, mix)
         x = apply_norm(mc, p["final_norm"], x)
         hidden = x[:, 0]
         logits = unembed(mc, p["embed"], hidden)

@@ -28,6 +28,7 @@ device: recorded launches times replays plus the eager steps' own.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -127,7 +128,11 @@ class StepGraph:
         return self.outputs
 
     def _capture(self) -> None:
-        """Warm the body up on the inert inputs, then capture it."""
+        """Warm the body up on the inert inputs, then capture it. Python's
+        cyclic collector is run before the capture and held off during
+        it: a dead engine's graphs, freed by a collection that the
+        capture's own allocations set off, would be destroyed mid-capture,
+        which CUDA forbids and which invalidates the capture."""
         t0 = time.perf_counter()
         rng = self._gen.get_state() if self._gen is not None else None
         self._body(self.dev, self.lane_state)
@@ -138,8 +143,15 @@ class StepGraph:
         if self._gen is not None:
             graph.register_generator_state(self._gen)
         before = launch_counts()
-        with torch.cuda.graph(graph, pool=self._pool):
-            out = self._body(self.dev, self.lane_state)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                out = self._body(self.dev, self.lane_state)
+        finally:
+            if collecting:
+                gc.enable()
         self.recorded = _since(before)
         torch.cuda.synchronize()
         self.graph, self.outputs = graph, tuple(out)

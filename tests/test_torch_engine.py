@@ -5,7 +5,10 @@ numpy -> ``params_from_numpy``) and greedy sampling, and are driven by
 the same calls. Tokens must be equal; prefill logits and the decode rows'
 hidden states must agree to 1e-4 (fp32, two frameworks summing in
 different orders through 2 layers and an LM head); both must return
-every page. The port's CPU path runs the plain versions of K1/K2.
+every page. The port's CPU path runs the plain versions of K1/K2. The
+forked-branch, exact and tree cases also run the smoke variants of the
+MoE, vlm and audio configs (``repro.configs.smoke``: 2 layers, d_model
+256, 4 experts top-2 at the configs' own capacity factor).
 """
 import dataclasses
 
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from conftest import FAMILY_CONFIGS, tiny_config
+from repro.configs import smoke
 from repro.models import Model as JModel
 from repro.serving import Engine as JEngine
 from repro.serving import EngineConfig as JConfig
@@ -24,11 +28,15 @@ from repro_torch.models import Model, ModelConfig, params_from_numpy
 from repro_torch.serving import Engine, EngineConfig, SamplingParams
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+# the smoke variants of the MoE, vlm and audio configs
+SMOKE = ["dbrx-132b", "qwen3-moe-235b-a22b", "qwen2-vl-72b",
+         "musicgen-medium"]
 
 
-def _pair(cfg_kw=None, **ecfg):
-    """(jax engine, port engine) over equal weights, greedy."""
-    cfg = tiny_config(**(cfg_kw or {}))
+def _pair(cfg_kw=None, cfg=None, **ecfg):
+    """(jax engine, port engine) over equal weights, greedy: the tiny
+    config with ``cfg_kw``, or ``cfg``."""
+    cfg = cfg or tiny_config(**(cfg_kw or {}))
     jm = JModel(cfg)
     jp = jm.init_params(jax.random.PRNGKey(0))
     tm = Model(ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
@@ -63,13 +71,21 @@ def _fork_and_decode(eng, prompt, n_branches, steps):
     return out
 
 
+def _family(name):
+    """``_pair``'s config of a conftest family or a smoke variant."""
+    if name in SMOKE:
+        return dict(cfg=smoke(name))
+    return dict(cfg_kw=FAMILY_CONFIGS[name])
+
+
 @pytest.mark.parametrize("family", ["dense", "dense_bias", "gemma_like",
-                                    "nemotron_like", "stablelm_like"])
+                                    "nemotron_like", "stablelm_like"]
+                         + SMOKE)
 def test_forked_branches_match_jax(family):
     """Chunked admission of a 13-token prompt (chunks 8 + 5, a partial
     last page), three forked branches, 10 greedy steps across page
     boundaries with CoW of the shared partial page."""
-    je, te = _pair(FAMILY_CONFIGS[family])
+    je, te = _pair(**_family(family))
     prompt = [2, 5, 9, 13, 7, 3, 11, 4, 8, 6, 10, 12, 14]
     jt, jl, jh = _fork_and_decode(je, prompt, 3, 10)
     tt, tl, th = _fork_and_decode(te, prompt, 3, 10)
@@ -184,13 +200,18 @@ def test_abort_and_harvest_ownership():
 
 @pytest.mark.parametrize("later", ["moe", "vlm", "audio"])
 def test_later_slices_raise(later):
-    """Families of later slices raise NotImplementedError instead of
-    running a half-ported path."""
-    cfg = ModelConfig(**dataclasses.asdict(tiny_config(
-        **FAMILY_CONFIGS[later])))
-    model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(model, {"layers": {}}, EngineConfig())
+    """The families that raised ``NotImplementedError`` before they were
+    ported (MoE layers, M-RoPE, sinusoidal positions) now serve at the
+    tiny widths: a 13-token prompt, three forked branches and 10 greedy
+    steps give the reference's tokens, prefill logits and hidden states."""
+    je, te = _pair(FAMILY_CONFIGS[later])
+    prompt = [2, 5, 9, 13, 7, 3, 11, 4, 8, 6, 10, 12, 14]
+    jt, jl, jh = _fork_and_decode(je, prompt, 3, 10)
+    tt, tl, th = _fork_and_decode(te, prompt, 3, 10)
+    assert tt == jt
+    np.testing.assert_allclose(tl, jl, **TOL)
+    np.testing.assert_allclose(th, jh, **TOL)
+    assert te.allocator.used_pages == 0
 
 
 # ------------------------------------------ prefix cache and tree decode
@@ -254,11 +275,15 @@ def _kv_of(eng, blocks):
     return out
 
 
-@pytest.mark.parametrize("mode", sorted(CACHE_TREE))
+@pytest.mark.parametrize("mode", sorted(CACHE_TREE)
+                         + [f"cache_tree@{arch}" for arch in SMOKE])
 def test_cache_and_tree_match_jax(mode):
     """Port vs JAX with the prefix cache, tree decode, or both: equal
-    greedy tokens and warm hits, logits and hidden states within 1e-4."""
-    je, te = _pair(max_slots=8, **CACHE_TREE[mode])
+    greedy tokens and warm hits, logits and hidden states within 1e-4
+    (``mode@arch``: on a smoke variant)."""
+    mode, _, arch = mode.partition("@")
+    je, te = _pair(**(_family(arch) if arch else {}), max_slots=8,
+                   **CACHE_TREE[mode])
     jt, jl, jh, _, jc = _header_requests(je)
     tt, tl, th, _, tc = _header_requests(te)
     assert tt == jt
@@ -718,13 +743,14 @@ def _ssm_close(a, b, **tol):
 EXACT_FAMILIES = ["dense", "ssm", "hybrid"]
 
 
-@pytest.mark.parametrize("family", EXACT_FAMILIES)
+@pytest.mark.parametrize("family", EXACT_FAMILIES + SMOKE)
 @pytest.mark.parametrize("s", [5, 13])
 def test_exact_prefill_matches_jax(family, s):
     """``prefill(exact=True)``: the reference's last logits, pages, page
     contents (K/V of every prompt token) and final (conv, ssd) state; one
-    exact pass each, no mixed step."""
-    je, te = _pair(FAMILY_CONFIGS[family])
+    exact pass each, no mixed step. Under MoE the pass's rows are exactly
+    the prompt's, as the reference's per-length program."""
+    je, te = _pair(**_family(family))
     prompt = [int(x) for x in np.random.default_rng(s).integers(2, 97, s)]
     jb, jl, js = je.prefill(prompt, exact=True)
     tb, tl, ts = te.prefill(prompt, exact=True)

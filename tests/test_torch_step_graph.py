@@ -47,10 +47,12 @@ TOL_PALLAS = dict(atol=2e-4, rtol=0)
 BASE = dict(page_size=4, num_pages=96, max_slots=4, max_pages_per_branch=16,
             eos_id=1, seed=0, prefill_chunk=8)
 # the engines of these tests: per-branch decode, the tree map with the
-# prefix cache, and the two SSM families
+# prefix cache, the two SSM families, and MoE, M-RoPE (vlm) and
+# sinusoidal positions (audio)
 KINDS = {"dense": ("dense", {}),
          "tree": ("dense", dict(decode_kernel="tree", prefix_cache=True)),
-         "ssm": ("ssm", {}), "hybrid": ("hybrid", {})}
+         "ssm": ("ssm", {}), "hybrid": ("hybrid", {}),
+         "moe": ("moe", {}), "vlm": ("vlm", {}), "audio": ("audio", {})}
 
 
 def _port(kind, temperature=0.0, **ecfg):
@@ -296,9 +298,9 @@ def _variants(eng):
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_step_body_runs_on_fake_tensors(kind):
     """Every declared variant's body runs with its inputs as fake tensors
-    (``FakeTensorMode``: any host read of a value raises) and gives
-    outputs of the variant's shapes; the engine's real state is left
-    bit-equal."""
+    (``FakeTensorMode``: any host read of a value raises, the MoE
+    dispatch's included) and gives outputs of the variant's shapes; the
+    engine's real state is left bit-equal."""
     eng = _port(kind, step_token_budget=16)
     state = {k: v.clone() for k, v in eng.state.items()}
     nS, V = eng.cfg.max_slots, eng.model.cfg.vocab_size
@@ -517,3 +519,25 @@ def test_graph_replay_matches_eager_on_card(cuda, kind):
             assert 0 < eng.graphs_captured <= len(eng.step_variants())
     assert runs[0][0] == runs[1][0]
     np.testing.assert_array_equal(runs[0][2], runs[1][2])
+
+
+@pytest.mark.gpu
+def test_capture_survives_dead_engines_graphs(cuda):
+    """A dead engine whose graphs sit in an unreachable reference cycle
+    (engine -> step graph -> bound body -> engine) is collected before
+    the next capture, not during it: destroying a graph mid-capture is
+    forbidden and would invalidate the capture."""
+    import gc
+    for _ in range(3):
+        eng = _port("moe")
+        model = Model(eng.model.cfg, device=cuda)
+        params = _to(eng.params, cuda)
+        model.load_params(params)
+        eng = Engine(model, params, eng.cfg)
+        blocks, lg, _ = eng.prefill([3, 1, 4, 1, 5])
+        eng.spawn_branch(0, blocks, lg, None, 5)
+        for _ in range(3):
+            eng.decode_step()
+        assert eng.graphs_captured >= 1
+        del eng                    # a cycle: left to the collector
+    gc.collect()
