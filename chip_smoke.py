@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                (the time of each source, ptxas's registers and spills,
                and the tensor-core instructions in the SASS per kernel;
                the bf16 kernels of K2 and K4 must hold HMMA and spill
-               nothing);
+               nothing; one line sums up the registers and spill bytes
+               of the ten head_dim-256 instantiations of K1, K2, K3 and
+               K5);
   3. kernels — K1 (paged flash-decode; bf16 on the split-key mma.sync
                decode core), K2 (paged flash-prefill), both
                passes of K3 (tree decode; the shared pass's split partials
@@ -132,11 +134,38 @@ Phases, in order; any failure raises and the script exits non-zero:
                its 80 layers) and musicgen-medium (sinusoidal positions;
                full width and depth), 2 requests, n=4, max 48 tokens,
                the engine feeding text token ids (the vision and codec
-               frontends are stubbed in the configs).
+               frontends are stubbed in the configs);
+ 12. gemma   — gemma-7b at full width and depth (28 layers, d_model 3072,
+               16/16 heads of 256, GeGLU, a tied vocabulary of 256,000;
+               bf16, random weights from a seed): the head_dim-256
+               kernels on the serve path, three runs on one set of
+               weights. Phase 5's traffic (K1 every step, K2 once per
+               layer per mixed step), then greedy eager against graphs;
+               phase 6's shared-header traffic with the prefix cache and
+               tree decode (K3 carries every decode row, K1 never), then
+               greedy eager against graphs; phase 7's exact admission
+               (K5 in all 28 layers per admission) and ``Model.prefill``
+               of 4,096 tokens. Each run: 4/4 requests, no fault or leaked
+               page, finite hidden states, replays = decode steps; tokens
+               identical and logit difference 0.0 eager against graphs.
+               Prints each run's step p50 beside the bound from the bytes
+               a step streams, the peak memory and each variant's capture
+               time.
 
-Phases 5, 6 (tree and paged), 7 (its decode steps), 8, 10 and 11 serve
-through the step graphs; a capture or replay that fails raises, and
-nothing falls back to the eager step.
+Phase 3 also holds the head_dim-256 instantiations of K1, K2, both K3
+passes and K5 at gemma-7b's serve shapes (16/16 heads of 256, group 1):
+K1's ragged lengths and a row across two key splits, K2's four lanes in
+one launch (each bit-equal alone), K3's topologies, K5 at S = 272 and
+4096, non-causal, with true_len and through the ring; the NaN
+bit-equality checks; each timed beside its bound and one SDPA call.
+Phase 4 adds gemma-7b's smoke widths at head_dim 256 (per-branch, cache
+and tree, exact; and ``Model``). The JSON line lists the head_dim-256
+kernels as rows of their own (``<name>_hd256``), their launches from
+phase 12.
+
+Phases 5, 6 (tree and paged), 7 (its decode steps), 8, 10, 11 and 12
+serve through the step graphs; a capture or replay that fails raises,
+and nothing falls back to the eager step.
 
 Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
@@ -147,6 +176,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import itertools
 import json
 import math
 import re
@@ -430,6 +460,7 @@ def phase_build():
     for name, t in sorted(build.build_seconds.items()):
         print(f"[build] {name}: nvcc done after {t:.1f} s")
     spills = {}     # the bf16 tensor-core kernels of K2 and K4
+    wide = {}       # the head_dim-256 instantiations: registers, spills
     for name, log in sorted(build.build_log.items()):
         fn = "?"
         for line in log.splitlines():
@@ -439,10 +470,22 @@ def phase_build():
                 print(f"[build] {name}: {fn}: {line.strip()}")
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", line)
+                r = re.search(r"Used (\d+) registers", line)
+                if re.search(rf"[<, ]{WIDE}[,>]", fn) and (m or r):
+                    row = wide.setdefault(f"{name}: {fn}", {})
+                    if m:
+                        row["spill_bytes"] = int(m[1]) + int(m[2])
+                    if r:
+                        row["registers"] = int(r[1])
                 if m and any(k in fn for k in TENSOR_K2_K4.values()):
                     spills[fn] = int(m[1]) + int(m[2])
     for fn, n in sorted(spills.items()):
         print(f"[build] {fn}: {n} bytes of spill stores and loads")
+    print(f"[build] the head_dim-{WIDE} instantiations (registers, spill "
+          f"stores + loads in bytes): " + json.dumps(wide))
+    if len(build.build_log) == len(build.SOURCES):   # all built here
+        check(len(wide) == 10, f"expected 10 head_dim-{WIDE} kernels, "
+                               f"found {sorted(wide)}")
     check(all(n == 0 for n in spills.values()),
           f"a bf16 kernel of K2 or K4 spills: {spills}")
     # the tensor-core instructions in the built code: warpgroup MMAs
@@ -496,12 +539,21 @@ RAGGED = [0, 512, 1, 15, 16, 17, 33, 100, 255, 256, 257, 300, 400, 450, 500,
 RAGGED_2K = [0, 2048, 1, 1023, 1024, 1025, 2047, 1500]
 
 
-# the families served in phases 10-11, by their configs' attention
+# the families served in phases 10-12, by their configs' attention
 # shapes: qwen3-moe-235b-a22b (64 query heads over 4 KV heads of 128: a
 # GQA group of 16, one m16 tile), qwen2-vl-72b (64 over 8: group 8),
-# musicgen-medium (24 over 24 of 64: group 1, one row padded to 16)
+# musicgen-medium (24 over 24 of 64: group 1, one row padded to 16),
+# gemma-7b (16 over 16 of 256: group 1, the head_dim-256 instantiations)
 FAMILY_ARCHS = {"qwen3-moe": "qwen3-moe-235b-a22b",
-                "qwen2-vl": "qwen2-vl-72b", "musicgen": "musicgen-medium"}
+                "qwen2-vl": "qwen2-vl-72b", "musicgen": "musicgen-medium",
+                "gemma": "gemma-7b"}
+WIDE = 256      # the head_dim whose kernels get rows of their own
+
+
+def kernel_key(name: str, hd: int) -> str:
+    """The JSON line's kernel name of a case: the head_dim-256
+    instantiations are rows of their own."""
+    return f"{name}_hd{WIDE}" if hd == WIDE else name
 
 
 def family_shapes(base: dict) -> dict:
@@ -552,7 +604,9 @@ def phase_kernels(torch):
     # 24 query heads per KV head: two 16-head slices of the bf16 kernel
     g24 = dict(q_heads=48, kv_heads=2, hd=64, ps=16, width=32,
                pool_pages=4097)
-    errs = {"paged_decode": [], "paged_prefill": []}
+    errs = {k: [] for k in ("paged_decode", "paged_prefill",
+                            kernel_key("paged_decode", WIDE),
+                            kernel_key("paged_prefill", WIDE))}
     fam = family_shapes(r1)
 
     # 128-page tables (2,048 keys): two key splits, a cluster of 2 CTAs
@@ -567,6 +621,11 @@ def phase_kernels(torch):
                                         fam["qwen2-vl"], RAGGED),
                                        ("musicgen group1",
                                         fam["musicgen"], RAGGED),
+                                       ("gemma hd256 group1",
+                                        fam["gemma"], RAGGED),
+                                       ("gemma hd256 2 splits",
+                                        dict(fam["gemma"], width=128),
+                                        RAGGED_2K),
                                        ("r1 2 splits", r1_2k, RAGGED_2K),
                                        ("hd32 2 splits", dict(t32, width=128),
                                         RAGGED_2K)):
@@ -583,7 +642,7 @@ def phase_kernels(torch):
             check(bool((out[0] == 0).all()), "K1 length-0 row is not zero")
             check(torch.equal(out, clean), "K1 output moved with the NaN "
                   "in stale or unowned pages")
-            errs["paged_decode"].append(_compare(
+            errs[kernel_key("paged_decode", shape["hd"])].append(_compare(
                 torch, f"K1 {shape_name} {dn} B={len(lengths)}", out, ref,
                 dn))
     k2_cases = [(r1, t, pos0, valid) for t in (32, 64) for pos0 in (0, 37, 448)
@@ -600,7 +659,7 @@ def phase_kernels(torch):
             ref = paged_flash_prefill_ref(*args)
             torch.cuda.synchronize()
             check(bool((out[valid:] == 0).all()), "K2 pad rows are not zero")
-            errs["paged_prefill"].append(_compare(
+            errs[kernel_key("paged_prefill", shape["hd"])].append(_compare(
                 torch, f"K2 H={shape['q_heads']} kv={shape['kv_heads']} "
                 f"hd={shape['hd']} T={t} pos0={pos0} valid={valid} {dn}",
                 out, ref, dn))
@@ -609,9 +668,10 @@ def phase_kernels(torch):
     # launched alone, and bit-equal with the NaN past each lane's horizon
     # taken out of the pools
     lanes = [(0, 17), (37, 32), (256, 1), (496, 9)]
-    for dn, dt in dtypes.items():
+    for (shape_name, shape), (dn, dt) in itertools.product(
+            (("r1", r1), ("gemma hd256", fam["gemma"])), dtypes.items()):
         q, kp, vp, bt, pos, lens = k2_lanes_inputs(
-            torch, gen, dev, bucket=32, lanes=lanes, dtype=dt, **r1)
+            torch, gen, dev, bucket=32, lanes=lanes, dtype=dt, **shape)
         out = paged_flash_prefill_lanes_fwd(q, kp, vp, bt, pos, lens,
                                             (32,) * 4)
         ref = paged_flash_prefill_lanes_ref(q, kp, vp, bt, pos, lens,
@@ -620,8 +680,8 @@ def phase_kernels(torch):
                                               vp.nan_to_num(), bt, pos, lens,
                                               (32,) * 4)
         torch.cuda.synchronize()
-        errs["paged_prefill"].append(_compare(
-            torch, f"K2 4 lanes of 32 at pos0 "
+        errs[kernel_key("paged_prefill", shape["hd"])].append(_compare(
+            torch, f"K2 {shape_name} 4 lanes of 32 at pos0 "
             f"{[p for p, _ in lanes]} valid {[v for _, v in lanes]} {dn}",
             out, ref, dn))
         check(torch.equal(out, clean), "K2 output moved with the NaN past "
@@ -634,8 +694,9 @@ def phase_kernels(torch):
                   f"K2 lane {i} of 4 differs from the lane launched alone")
             check(bool((out[rows][valid:] == 0).all()),
                   f"K2 lane {i}: pad rows are not zero")
-        print(f"[kernels] K2 4 lanes {dn}: each lane bit-equal alone, "
-              "bit-equal without the NaN, pad rows zeros: ok")
+        print(f"[kernels] K2 {shape_name} 4 lanes {dn}: each lane "
+              "bit-equal alone, bit-equal without the NaN, pad rows zeros: "
+              "ok")
 
     # timing at the serve phase's shapes (bf16): 16 decode rows whose
     # contexts run from the prompt (11-17 tokens) to prompt + 96; one
@@ -716,6 +777,33 @@ def phase_kernels(torch):
     }
     print("[kernels] K1 at qwen3-moe's serve shape: "
           + json.dumps(k1["moe_serve"]))
+    # K1 at gemma-7b's serve shape (phase 12): the same 16 decode lengths,
+    # 16 query heads over 16 KV heads of 256 (the head_dim-256 kernel)
+    gm = fam["gemma"]
+    q, kp, vp, bt, ln = k1_inputs(torch, gen, dev, lengths=lengths,
+                                  dtype=torch.bfloat16, **gm)
+    kc = gather_pages(kp, bt).nan_to_num()
+    vc = gather_pages(vp, bt).nan_to_num()
+    bytes_, ops = k1_bytes_ops(lengths, H=gm["q_heads"], kv=gm["kv_heads"],
+                               hd=gm["hd"])
+    sdpa = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True))
+    k1_wide = {
+        **kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, bt,
+                                                          ln)),
+        "plain_ms": time_ms(torch, lambda: paged_attention_decode_ref(
+            q, kp, vp, bt, ln)),
+        "library_ms": sdpa["ms"], "library": sdpa,
+        "bytes": bytes_, "ops": ops,
+        "shape": f"B=16 H=16 kv=16 hd=256 ps=16 W=32 bf16, lengths "
+                 f"{min(lengths)}..{max(lengths)} (sum {sum(lengths)}), "
+                 f"{k1_splits(torch, ps, gm['width'])}",
+    }
+    print(f"[kernels] K1 hd256 at gemma-7b's serve shape: ms "
+          f"{k1_wide['ms']:.4f} (SDPA {sdpa['ms']:.4f}), queued_ms "
+          f"{k1_wide['queued_ms']:.4f} (SDPA {sdpa['queued_ms']:.4f}), "
+          f"host_us {k1_wide['host_us']:.1f} (SDPA {sdpa['host_us']:.1f}), "
+          f"bound {bound(bytes_, ops, 'bf16')[0]:.6f}")
     # 2 rows at 2,048 tokens over 128-page tables: 2 key splits, the
     # case the cluster split is for (few rows, long tables)
     long_lens = [2048] * 2
@@ -742,7 +830,8 @@ def phase_kernels(torch):
     k2_rows = {}
     for name, shape, t, pos0, valid in (
             ("serve", r1, 32, 0, 17), ("header", r1, 64, 192, 64),
-            ("moe_serve", fam["qwen3-moe"], 32, 0, 17)):
+            ("moe_serve", fam["qwen3-moe"], 32, 0, 17),
+            ("gemma_serve", fam["gemma"], 32, 0, 17)):
         H, kv, hd = shape["q_heads"], shape["kv_heads"], shape["hd"]
         q, kp, vp, bt, _, _ = k2_inputs(torch, gen, dev, t=t, pos0=pos0,
                                         valid_len=valid,
@@ -774,7 +863,9 @@ def phase_kernels(torch):
         k2_rows[name] = row
     k2 = dict(k2_rows["serve"], header_chunk=k2_rows["header"],
               moe_serve=k2_rows["moe_serve"])
-    return errs, {"paged_decode": k1, "paged_prefill": k2}
+    return errs, {"paged_decode": k1, "paged_prefill": k2,
+                  kernel_key("paged_decode", WIDE): k1_wide,
+                  kernel_key("paged_prefill", WIDE): k2_rows["gemma_serve"]}
 
 
 def phase_tree_kernels(torch):
@@ -801,7 +892,9 @@ def phase_tree_kernels(torch):
     qw = dict(r1, q_heads=14, kv_heads=2, hd=64)
     t32 = dict(r1, q_heads=4, kv_heads=2, hd=32)
     fam = family_shapes(r1)
-    errs = {"paged_tree_shared": [], "paged_tree_branch": []}
+    errs = {kernel_key(k, hd): [] for k in ("paged_tree_shared",
+                                            "paged_tree_branch")
+            for hd in (128, WIDE)}
 
     def serve_topology():
         # 16 rows in 2 groups of 8, a 16-page span, suffixes of 1-6 pages
@@ -845,7 +938,17 @@ def phase_tree_kernels(torch):
               [37, 0, 1]),
              ("qwen3-moe ragged", fam["qwen3-moe"], [(2, RAGGED)], []),
              ("qwen2-vl serve", fam["qwen2-vl"], *serve_topology()),
-             ("qwen2-vl ragged", fam["qwen2-vl"], [(2, RAGGED)], [])]
+             ("qwen2-vl ragged", fam["qwen2-vl"], [(2, RAGGED)], []),
+             # gemma-7b's 16/16 heads of 256 (group 1; the head_dim-256
+             # instantiations): the serve topology, the edges, K1's
+             # ragged lengths in one group, suffixes across two key splits
+             ("gemma hd256 serve", fam["gemma"], *serve_topology()),
+             ("gemma hd256 edges", fam["gemma"],
+              [(4, [4 * 16 + 5, 2 * 16 + 3, 0, 4 * 16]), (2, [2 * 16 + 9])],
+              [37, 0, 1]),
+             ("gemma hd256 ragged", fam["gemma"], [(2, RAGGED)], []),
+             ("gemma hd256 2 splits", dict(fam["gemma"], width=128),
+              [(2, [32 + 2016, 32 + 1000, 3])], [1025, 0])]
     for name, shape, groups, singles in cases:
         for dn, dt in dtypes.items():
             args = k3_inputs(torch, gen, dev, groups=groups, singles=singles,
@@ -875,33 +978,119 @@ def phase_tree_kernels(torch):
                 m[:, grouped], l[:, grouped], acc[:, grouped])
             tag = f"{name} {dn} B={q.shape[0]} n_split={m.shape[0]} of " \
                 f"{keys} keys"
-            errs["paged_tree_shared"].append(_compare(
-                torch, f"K3 shared {tag}",
-                torch.cat([m_k[..., None], l_k[..., None], acc_k], -1),
-                torch.cat([m_r[grouped, :, None], l_r[grouped, :, None],
-                           acc_r[grouped]], -1), dn))
-            errs["paged_tree_branch"].append(_compare(
-                torch, f"K3 branch (output) {tag}", out, ref, dn))
+            errs[kernel_key("paged_tree_shared", shape["hd"])].append(
+                _compare(torch, f"K3 shared {tag}",
+                         torch.cat([m_k[..., None], l_k[..., None], acc_k],
+                                   -1),
+                         torch.cat([m_r[grouped, :, None],
+                                    l_r[grouped, :, None], acc_r[grouped]],
+                                   -1), dn))
+            errs[kernel_key("paged_tree_branch", shape["hd"])].append(
+                _compare(torch, f"K3 branch (output) {tag}", out, ref, dn))
 
-    # timing at the tree serve's shape (bf16)
-    groups, _ = serve_topology()
-    args = k3_inputs(torch, gen, dev, groups=groups, singles=[],
-                     dtype=torch.bfloat16, **r1)
-    q, kp, vp, rg, sbt, sl, bbt, ln = args
+    def serve_rows(shape):
+        """Both passes at the tree serve's topology on ``shape`` (bf16),
+        as the engine calls them (splits from the table's shape), each
+        beside its plain version, the bound from what it needs and SDPA
+        over K/V gathered beforehand. Returns (shared row, branch row,
+        the inputs and the shared pass's result)."""
+        groups, _ = serve_topology()
+        args = k3_inputs(torch, gen, dev, groups=groups, singles=[],
+                         dtype=torch.bfloat16, **shape)
+        q, kp, vp, rg, sbt, sl, bbt, ln = args
+        H, kv, hd, ps = (shape[k] for k in ("q_heads", "kv_heads", "hd",
+                                            "ps"))
+        B, span = q.shape[0], 256
+        suffix = [n - span for n in ln.tolist()]
+        part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
+        n_split = part.shape[0]
+        both = kernel_ms(torch, lambda: paged_tree_branch_fwd(
+            q, kp, vp, rg, sl, bbt, ln, *paged_tree_shared_fwd(
+                q, kp, vp, rg, sbt, sl, ln)))
+        heads = f"H={H} kv={kv} hd={hd} ps=16 W=32 bf16"
+        # library yardsticks over K/V gathered beforehand: the members of
+        # each group against their shared span; each row against its
+        # suffix
+        ks = gather_pages(kp, sbt[:2, :span // ps]).nan_to_num()
+        vs = gather_pages(vp, sbt[:2, :span // ps]).nan_to_num()
+        qs = q.reshape(2, 8, H, hd).transpose(1, 2)          # [2, H, 8, hd]
+        kb = gather_pages(kp, bbt).nan_to_num()               # [B, kv, S, hd]
+        vb = gather_pages(vp, bbt).nan_to_num()
+        mask = (torch.arange(kb.shape[2], device=dev)[None, :]
+                < torch.tensor(suffix, device=dev)[:, None])[:, None, None, :]
+        common = 4 * B + B * 4 + 2 * 4   # lengths, row_group, shared_lens
+        one_set = B * H * (hd + 2) * 4   # one set of fp32 (m, l, acc)
+        sdpa = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, enable_gqa=True))
+        shared = {
+            **kernel_ms(torch, lambda: paged_tree_shared_fwd(
+                q, kp, vp, rg, sbt, sl, ln)),
+            "plain_ms": time_ms(torch, lambda: tree_shared_partials_ref(
+                q, kp, vp, rg, sbt, sl, ln)),
+            "library_ms": sdpa["ms"], "library": sdpa,
+            # what the function needs: the two spans' K/V once, q in, one
+            # set of fp32 (m, l, acc) out, the span's table entries of each
+            # group (the other splits' partials are traffic of this design,
+            # in "shape", not in the bound)
+            "bytes": tree_decode_bytes_read(2 * span, [], 1, kv, hd,
+                                            path="tree", itemsize=2)
+            + B * H * hd * 2 + one_set + 2 * (span // ps) * 4 + common,
+            "ops": 4 * B * span * H * hd,
+            "shape": "B=16 in 2 groups of 8, shared span 256 tokens (16 "
+                     f"pages), {heads}, n_split={n_split} of {split_keys} "
+                     f"keys (from the table's shape; the splits write "
+                     f"{n_split * one_set} bytes of fp32 partials)",
+            "both_passes_queued_ms": both["queued_ms"],
+        }
+        print(f"[kernels] K3 shared pass at the tree serve shape, {heads}: "
+              f"ms {shared['ms']:.4f} (SDPA {sdpa['ms']:.4f}), queued_ms "
+              f"{shared['queued_ms']:.4f} (SDPA {sdpa['queued_ms']:.4f}), "
+              f"host_us {shared['host_us']:.1f} (SDPA "
+              f"{sdpa['host_us']:.1f})")
+
+        def branch_bytes_ops(suffix):
+            # the suffixes' K/V once, q and one set of shared partials in,
+            # the output out, the suffix table entries followed
+            followed = sum(-(-n // ps) for n in suffix)
+            return (tree_decode_bytes_read(0, suffix, 1, kv, hd, path="tree",
+                                           itemsize=2)
+                    + B * H * hd * 2 + one_set + B * H * hd * 2
+                    + followed * 4 + common, 4 * sum(suffix) * H * hd)
+
+        sdpa_b = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True))
+        bytes_, ops = branch_bytes_ops(suffix)
+        branch = {
+            **kernel_ms(torch, lambda: paged_tree_branch_fwd(
+                q, kp, vp, rg, sl, bbt, ln, part, split_keys)),
+            "plain_ms": time_ms(torch, lambda: tree_branch_merge_ref(
+                q, kp, vp, rg, sl, bbt, ln,
+                *tree_merge_splits_ref(*unpack_partials(part)))),
+            "library_ms": sdpa_b["ms"], "library": sdpa_b,
+            "bytes": bytes_, "ops": ops,
+            "shape": f"B=16, suffixes {min(suffix)}..{max(suffix)} tokens "
+                     f"(sum {sum(suffix)}), {heads}, merging {n_split} "
+                     f"shared splits; {k1_splits(torch, ps, shape['width'])}",
+        }
+        print(f"[kernels] K3 branch pass at the tree serve shape, {heads}: "
+              f"ms {branch['ms']:.4f} (SDPA {sdpa_b['ms']:.4f}), queued_ms "
+              f"{branch['queued_ms']:.4f} (SDPA {sdpa_b['queued_ms']:.4f}), "
+              f"host_us {branch['host_us']:.1f} (SDPA "
+              f"{sdpa_b['host_us']:.1f})")
+        return shared, branch, dict(args=args, part=part,
+                                    split_keys=split_keys, suffix=suffix,
+                                    both=both, bytes_ops=branch_bytes_ops)
+
+    # timing at the tree serve's shape (bf16): r1-distill-14b's heads,
+    # then gemma-7b's (the head_dim-256 kernels; phase 12)
+    shared, branch, r1_in = serve_rows(r1)
+    q, kp, vp, rg, sbt, sl, bbt, ln = r1_in["args"]
     H, kv, hd, ps = r1["q_heads"], r1["kv_heads"], r1["hd"], r1["ps"]
-    B = q.shape[0]
-    lens = ln.tolist()
-    span = 256
-    suffix = [n - span for n in lens]
-    # the K3 calls as the engine makes them: splits from the table's shape
-    part, split_keys = paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
-    n_split = part.shape[0]
+    span, suffix = 256, r1_in["suffix"]
+    n_split, split_keys = r1_in["part"].shape[0], r1_in["split_keys"]
     full = tree_full_tables(rg, sbt, sl, bbt, ps)
     k1_ms = kernel_ms(torch, lambda: paged_attention_decode(q, kp, vp, full,
                                                             ln))
-    k3_ms = kernel_ms(torch, lambda: paged_tree_branch_fwd(
-        q, kp, vp, rg, sl, bbt, ln, *paged_tree_shared_fwd(
-            q, kp, vp, rg, sbt, sl, ln)))
     # against the layout the longest span as a host int gave before the
     # step was captured (8 splits of 32 keys over a 256-token span)
     span_keys, span_n = 32, span // 32
@@ -911,10 +1100,10 @@ def phase_tree_kernels(torch):
     shared_span_ms = kernel_ms(torch, lambda: paged_tree_shared_split_fwd(
         q, kp, vp, rg, sbt, sl, ln, span_keys, span_n))
     print(f"[kernels] K3 both passes at the tree serve shape, queued_ms: "
-          f"{k3_ms['queued_ms']:.4f} at the shape-only {n_split} splits "
-          f"of {split_keys} keys, {k3_span_ms['queued_ms']:.4f} at the "
-          f"host span's {span_n} splits of {span_keys} keys; the shared "
-          f"pass alone {shared_span_ms['queued_ms']:.4f} at {span_n}")
+          f"{r1_in['both']['queued_ms']:.4f} at the shape-only {n_split} "
+          f"splits of {split_keys} keys, {k3_span_ms['queued_ms']:.4f} at "
+          f"the host span's {span_n} splits of {span_keys} keys; the "
+          f"shared pass alone {shared_span_ms['queued_ms']:.4f} at {span_n}")
     # the reference's byte model at token granularity, per fork group
     kv_bytes = {path: sum(tree_decode_bytes_read(
         span, suffix[g * 8:(g + 1) * 8], 1, kv, hd, path=path, itemsize=2)
@@ -923,81 +1112,16 @@ def phase_tree_kernels(torch):
           f"suffixes {min(suffix)}..{max(suffix)} tokens, bf16): K1 over "
           f"the rebuilt full tables {k1_ms['ms']:.4f} ms (queued "
           f"{k1_ms['queued_ms']:.4f} ms); K3 both passes "
-          f"{k3_ms['ms']:.4f} ms (queued {k3_ms['queued_ms']:.4f} ms); "
+          f"{r1_in['both']['ms']:.4f} ms (queued "
+          f"{r1_in['both']['queued_ms']:.4f} ms); "
           f"K/V bytes per-branch {kv_bytes['branch']} "
           f"({kv_bytes['branch'] / HBM_BYTES_PER_S * 1e6:.2f} us), tree "
           f"{kv_bytes['tree']} "
           f"({kv_bytes['tree'] / HBM_BYTES_PER_S * 1e6:.2f} us)")
-    # library yardsticks over K/V gathered beforehand: the members of each
-    # group against their shared span; each row against its suffix
-    ks = gather_pages(kp, sbt[:2, :span // ps]).nan_to_num()  # [2, kv, S, hd]
-    vs = gather_pages(vp, sbt[:2, :span // ps]).nan_to_num()
-    qs = q.reshape(2, 8, H, hd).transpose(1, 2)              # [2, H, 8, hd]
-    kb = gather_pages(kp, bbt).nan_to_num()                   # [B, kv, S, hd]
-    vb = gather_pages(vp, bbt).nan_to_num()
-    mask = (torch.arange(kb.shape[2], device=dev)[None, :]
-            < torch.tensor(suffix, device=dev)[:, None])[:, None, None, :]
-    common = 4 * B + B * 4 + 2 * 4     # lengths, row_group, shared_lens
-    one_set = B * H * (hd + 2) * 4     # one set of fp32 (m, l, acc)
-    sdpa = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, enable_gqa=True))
-    shared = {
-        **kernel_ms(torch, lambda: paged_tree_shared_fwd(
-            q, kp, vp, rg, sbt, sl, ln)),
-        "plain_ms": time_ms(torch, lambda: tree_shared_partials_ref(
-            q, kp, vp, rg, sbt, sl, ln)),
-        "library_ms": sdpa["ms"],
-        # what the function needs: the two spans' K/V once, q in, one set
-        # of fp32 (m, l, acc) out, the span's table entries of each group
-        # (the other splits' partials are traffic of this design, in
-        # "shape", not in the bound)
-        "bytes": tree_decode_bytes_read(2 * span, [], 1, kv, hd,
-                                        path="tree", itemsize=2)
-        + B * H * hd * 2 + one_set + 2 * (span // ps) * 4 + common,
-        "ops": 4 * B * span * H * hd,
-        "shape": "B=16 in 2 groups of 8, shared span 256 tokens (16 pages),"
-                 f" H=40 kv=8 hd=128 ps=16 W=32 bf16, n_split={n_split} "
-                 f"of {split_keys} keys (from the table's shape; the splits "
-                 f"write {n_split * one_set} bytes of fp32 partials)",
-        "host_span_layout": {"n_split": span_n, "split_keys": span_keys,
-                             "queued_ms": shared_span_ms["queued_ms"],
-                             "both_passes_queued_ms":
-                                 k3_span_ms["queued_ms"]},
-        "both_passes_queued_ms": k3_ms["queued_ms"],
-    }
-    print(f"[kernels] K3 shared pass at the tree serve shape: ms "
-          f"{shared['ms']:.4f} (SDPA {sdpa['ms']:.4f}), queued_ms "
-          f"{shared['queued_ms']:.4f} (SDPA {sdpa['queued_ms']:.4f}), "
-          f"host_us {shared['host_us']:.1f} (SDPA {sdpa['host_us']:.1f})")
-    def branch_bytes_ops(suffix):
-        # the suffixes' K/V once, q and one set of shared partials in, the
-        # output out, the suffix table entries followed
-        followed = sum(-(-n // ps) for n in suffix)
-        return (tree_decode_bytes_read(0, suffix, 1, kv, hd, path="tree",
-                                       itemsize=2)
-                + B * H * hd * 2 + one_set + B * H * hd * 2
-                + followed * 4 + common, 4 * sum(suffix) * H * hd)
-
-    sdpa_b = kernel_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True))
-    bytes_, ops = branch_bytes_ops(suffix)
-    branch = {
-        **kernel_ms(torch, lambda: paged_tree_branch_fwd(
-            q, kp, vp, rg, sl, bbt, ln, part, split_keys)),
-        "plain_ms": time_ms(torch, lambda: tree_branch_merge_ref(
-            q, kp, vp, rg, sl, bbt, ln,
-            *tree_merge_splits_ref(*unpack_partials(part)))),
-        "library_ms": sdpa_b["ms"],
-        "bytes": bytes_, "ops": ops,
-        "shape": f"B=16, suffixes {min(suffix)}..{max(suffix)} tokens (sum "
-                 f"{sum(suffix)}), H=40 kv=8 hd=128 ps=16 W=32 bf16, "
-                 f"merging {n_split} shared splits; "
-                 f"{k1_splits(torch, ps, r1['width'])}",
-    }
-    print(f"[kernels] K3 branch pass at the tree serve shape: ms "
-          f"{branch['ms']:.4f} (SDPA {sdpa_b['ms']:.4f}), queued_ms "
-          f"{branch['queued_ms']:.4f} (SDPA {sdpa_b['queued_ms']:.4f}), "
-          f"host_us {branch['host_us']:.1f} (SDPA {sdpa_b['host_us']:.1f})")
+    shared["host_span_layout"] = {
+        "n_split": span_n, "split_keys": span_keys,
+        "queued_ms": shared_span_ms["queued_ms"],
+        "both_passes_queued_ms": k3_span_ms["queued_ms"]}
     # the long-context row: the same 256-token span, suffixes of 240-256
     # tokens (each row spans two of the branch pass's key splits)
     long_groups = [(16, (span + torch.randint(240, 257, (8,),
@@ -1012,7 +1136,7 @@ def phase_tree_kernels(torch):
     vb = gather_pages(vp, bbt).nan_to_num()
     mask = (torch.arange(kb.shape[2], device=dev)[None, :]
             < torch.tensor(suffix, device=dev)[:, None])[:, None, None, :]
-    bytes_, ops = branch_bytes_ops(suffix)
+    bytes_, ops = r1_in["bytes_ops"](suffix)
     branch["long"] = {
         **kernel_ms(torch, lambda: paged_tree_branch_fwd(
             q, kp, vp, rg, sl, bbt, ln, part, split_keys)),
@@ -1025,7 +1149,10 @@ def phase_tree_kernels(torch):
     }
     print("[kernels] K3 branch long-context row: "
           + json.dumps(branch["long"]))
-    return errs, {"paged_tree_shared": shared, "paged_tree_branch": branch}
+    shared_wide, branch_wide, _ = serve_rows(fam["gemma"])
+    return errs, {"paged_tree_shared": shared, "paged_tree_branch": branch,
+                  kernel_key("paged_tree_shared", WIDE): shared_wide,
+                  kernel_key("paged_tree_branch", WIDE): branch_wide}
 
 
 def ssd_inputs(torch, gen, dev, *, b, s, h, p, n, dtype, state=False):
@@ -1225,7 +1352,6 @@ def phase_flash_kernels(torch):
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(5)
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
-    errs = []
 
     def inputs(b, s, h, kv, hd, dtype):
         return [torch.randn((b, s, n, hd), generator=gen, device=dev).to(dtype)
@@ -1250,14 +1376,29 @@ def phase_flash_kernels(torch):
              ("qwen3-moe group16 true_len=13 S=40", 1, 40, 64, 4, 128, True,
               13),
              ("qwen2-vl group8 S=272", 1, 272, 64, 8, 128, True, None),
-             ("musicgen group1 S=100", 2, 100, 24, 24, 64, True, None)]
+             ("musicgen group1 S=100", 2, 100, 24, 24, 64, True, None),
+             # gemma-7b's 16/16 heads of 256 (phase 12; the head_dim-256
+             # instantiations): its exact admission and Model.prefill
+             # lengths, non-causal, true_len, 16 key tiles through the ring
+             ("gemma hd256 S=272", 1, 272, 16, 16, 256, True, None),
+             ("gemma hd256 S=4096", 1, 4096, 16, 16, 256, True, None),
+             ("gemma hd256 non-causal S=272", 1, 272, 16, 16, 256, False,
+              None),
+             ("gemma hd256 true_len=200 S=272", 1, 272, 16, 16, 256, True,
+              200),
+             ("gemma hd256 true_len=997 S=1000", 1, 1000, 16, 16, 256, True,
+              997),
+             ("hd256 group4 non-causal true_len=13 S=48", 2, 48, 8, 2, 256,
+              False, 13)]
+    errs = {kernel_key("flash_prefill", hd): [] for hd in (128, WIDE)}
     for name, b, s, h, kv, hd, causal, tl in cases:
         for dn, dt in dtypes.items():
             q, k, v = inputs(b, s, h, kv, hd, dt)
             out = flash_prefill(q, k, v, causal, tl)
             ref = flash_prefill_ref(q, k, v, causal, tl)
             torch.cuda.synchronize()
-            errs.append(_compare(torch, f"K5 {name} {dn}", out, ref, dn))
+            errs[kernel_key("flash_prefill", hd)].append(
+                _compare(torch, f"K5 {name} {dn}", out, ref, dn))
             if tl is not None:
                 check(bool((out[:, tl:] == 0).all()),
                       "K5 rows past true_len are not exact zeros")
@@ -1269,11 +1410,11 @@ def phase_flash_kernels(torch):
             del q, k, v, out, ref
 
     timing = {}
-    for s in (272, 4096):
-        h, kv, hd = 40, 8, 128
+    for s, h, kv, hd in ((272, 40, 8, 128), (4096, 40, 8, 128),
+                         (272, 16, 16, WIDE), (4096, 16, 16, WIDE)):
         q, k, v = inputs(1, s, h, kv, hd, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))   # [B, H, S, hd]
-        timing[s] = {
+        timing[s, hd] = {
             **kernel_ms(torch, lambda: flash_prefill(q, k, v)),
             "plain_ms": time_ms(torch, lambda: flash_prefill_ref(q, k, v),
                                 n=10 if s > 1024 else 50),
@@ -1283,11 +1424,16 @@ def phase_flash_kernels(torch):
             # q, k, v in once, o out once
             "bytes": 2 * (2 * h + 2 * kv) * s * hd,
             "ops": flash_flops(s, h, hd, True),
-            "shape": f"B=1 S={s} H=40 kv=8 hd=128 causal bf16",
+            "shape": f"B=1 S={s} H={h} kv={kv} hd={hd} causal bf16",
         }
         del q, k, v, qt, kt, vt
-    return {"flash_prefill": errs}, {"flash_prefill": timing[272]}, \
-        timing[4096]
+    wide = dict(timing[272, WIDE], S4096=timing[4096, WIDE])
+    print("[kernels] K5 hd256 at gemma-7b's shapes: "
+          + json.dumps({"S=272": timing[272, WIDE],
+                        "S=4096": timing[4096, WIDE]}))
+    return errs, {"flash_prefill": timing[272, 128],
+                  kernel_key("flash_prefill", WIDE): wide}, \
+        timing[4096, 128]
 
 
 def _parity_scenario(torch, eng, vocab: int):
@@ -1340,7 +1486,7 @@ def _tiny_family(arch: str):
     """The tests' ssm/hybrid widths (``tests/conftest.py`` FAMILY_CONFIGS):
     2 layers, d_model 64, 4 SSD heads of 32, state 16, chunk 8; the
     hybrid's 4/2 attention heads are 64 wide (the tests' 16 is below the
-    32, 64 or 128 that K1-K3 take)."""
+    32, 64, 128 or 256 that K1-K3 take)."""
     from repro_torch.models import ModelConfig
     attn = dict(d_ff=0) if arch == "ssm" else dict(d_ff=128, head_dim=64)
     return ModelConfig(name=f"tiny-{arch}", arch_type=arch, num_layers=2,
@@ -1388,7 +1534,9 @@ def phase_parity(torch):
     tree, exact), qwen2-vl-72b (M-RoPE) and musicgen-medium (sinusoidal
     positions); for MoE the smallest top-k router margin of the CPU run
     is printed (a card/CPU flip of experts below ~1e-5 would be a near
-    tie, not a port fault)."""
+    tie, not a port fault). gemma-7b's smoke widths at its own head_dim
+    of 256 (4/4 heads; the head_dim-256 kernels): per-branch, cache and
+    tree, exact."""
     from repro_torch.configs import smoke
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.paged_attention import tree_decode
@@ -1403,7 +1551,9 @@ def phase_parity(torch):
                         (smoke("qwen3-moe-235b-a22b"),
                          ({}, cache_tree, exact)),
                         (smoke("qwen2-vl-72b"), ({},)),
-                        (smoke("musicgen-medium"), ({},))):
+                        (smoke("musicgen-medium"), ({},)),
+                        (smoke("gemma-7b").replace(head_dim=WIDE),
+                         ({}, cache_tree, exact))):
         cpu_model = Model(cfg, device="cpu")
         params = cpu_model.init_params(torch.Generator().manual_seed(0))
         gpu_model = Model(cfg, device=DEVICE)
@@ -1434,7 +1584,8 @@ def phase_parity(torch):
                       + [float((a - b).abs().max())
                          for a, b in zip(s_cpu, s_gpu)])
             ok = t_cpu == t_gpu and err <= 1e-4 and c_cpu == c_gpu
-            name = cfg.arch_type + ": " + (", ".join(
+            name = (cfg.arch_type if cfg.resolved_head_dim != WIDE else
+                    f"{cfg.name} head_dim {WIDE}") + ": " + (", ".join(
                 f"{k}={v}" for k, v in extra.items()) or "defaults")
             print(f"[parity] {name}: greedy tokens equal: {t_cpu == t_gpu}; "
                   f"max abs err of prefill logits / hidden"
@@ -1474,16 +1625,18 @@ def phase_parity(torch):
 def _model_parity(torch):
     """``Model.prefill`` + ``decode_step`` over the dense cache on the card
     against the CPU, fp32, greedy: r1-distill-14b's smoke widths (K5 in
-    every layer of the prefill) and the same with an 8-token sliding
-    window (a ring cache, the ported ``_attend``), a 20-token prompt and
-    8 steps."""
+    every layer of the prefill), the same with an 8-token sliding window
+    (a ring cache, the ported ``_attend``) and gemma-7b's at head_dim 256
+    (K5's head_dim-256 kernel), a 20-token prompt and 8 steps."""
     from repro_torch.configs import smoke
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.models import Model
     base = smoke("r1-distill-14b")
     prompt = [int(x) for x in (np.arange(20) * 7 + 3) % base.vocab_size]
     for name, cfg in (("dense", base),
-                      ("swa", base.replace(sliding_window=8))):
+                      ("swa", base.replace(sliding_window=8)),
+                      (f"gemma head_dim {WIDE}",
+                       smoke("gemma-7b").replace(head_dim=WIDE))):
         runs = []
         for dev in ("cpu", DEVICE):
             model = Model(cfg, device=dev)
@@ -1706,7 +1859,8 @@ def _serve_setup(torch, model, params, *, shared_header: bool,
     return engine, sch
 
 
-def _serve_shared_header(torch, model, params, decode_kernel: str):
+def _serve_shared_header(torch, model, params, decode_kernel: str,
+                         tag: str = "serve-tree"):
     """One serve of phase 6's traffic (``_serve_setup`` with the shared
     header) with ``decode_kernel``. Launch counters are zeroed just
     before the run and read just after. Returns (summary line,
@@ -1761,7 +1915,7 @@ def _serve_shared_header(torch, model, params, decode_kernel: str):
         "used_pages": engine.allocator.used_pages,
         "graphs": _graph_stats(engine),
     }
-    print("[serve-tree] " + json.dumps(line))
+    print(f"[{tag}] " + json.dumps(line))
     _check_graphs(engine, f"the {decode_kernel} serve")
     check(metrics["completed_requests"] == 4
           and metrics["unfinished_requests"] == 0,
@@ -1785,6 +1939,18 @@ def phase_tree_serve(torch, model, params):
     whose launches are counted), then the same traffic with per-branch
     decode for the step-time comparison inside this one call."""
     line, launches = _serve_shared_header(torch, model, params, "tree")
+    _check_tree_launches(model, line, launches)
+    paged, _ = _serve_shared_header(torch, model, params, "paged")
+    print(f"[serve-tree] step p50 tree {line['step_ms_p50']} ms vs paged "
+          f"{paged['step_ms_p50']} ms on the same traffic "
+          f"({line['step_ms_p50'] / paged['step_ms_p50'] - 1:+.1%})")
+    return launches, paged["step_ms_p50"]
+
+
+def _check_tree_launches(model, line: dict, launches: dict) -> None:
+    """The tree path's kernels in a tree serve: K3 carries every decode
+    row (its branch pass once per layer per decode step), K1 never; K3's
+    shared pass and K2 launch."""
     check(launches["paged_decode"] == 0, "K1 launched in the tree run")
     check(launches["paged_tree_branch"]
           == model.cfg.num_layers * line["decode_steps"],
@@ -1792,11 +1958,6 @@ def phase_tree_serve(torch, model, params):
     check(launches["paged_tree_shared"] > 0
           and launches["paged_prefill"] > 0,
           f"a kernel of the tree path never launched: {launches}")
-    paged, _ = _serve_shared_header(torch, model, params, "paged")
-    print(f"[serve-tree] step p50 tree {line['step_ms_p50']} ms vs paged "
-          f"{paged['step_ms_p50']} ms on the same traffic "
-          f"({line['step_ms_p50'] / paged['step_ms_p50'] - 1:+.1%})")
-    return launches, paged["step_ms_p50"]
 
 
 def _shared_header_prompts(seed: int = 0):
@@ -1809,7 +1970,8 @@ def _shared_header_prompts(seed: int = 0):
     return [header + p.prompt_tokens() for p in probs], probs
 
 
-def phase_exact_serve(torch, model, params, paged_p50: float):
+def phase_exact_serve(torch, model, params, paged_p50: float,
+                      tag: str = "serve-exact"):
     """Phase 7: phase 6's traffic (4 requests every 8 steps, 256-token
     shared header + problem) on the same weights with
     ``chunked_prefill=False``: the cache off, per-branch decode, phase 5's
@@ -1818,7 +1980,8 @@ def phase_exact_serve(torch, model, params, paged_p50: float):
     0). Then ``Model.prefill`` of one seeded 4,096-token prompt (K5 48
     times) and 8 ``decode_step``s over its dense cache, and the first
     token's logits of one prompt by exact against chunked admission
-    (printed, not gated in bf16). Returns the K5 launches of the serve."""
+    (printed, not gated in bf16). Phase 12 runs it on gemma-7b (28
+    layers). Returns the serve's line (its launches included)."""
     from repro_torch.core import OraclePRM, Scheduler, SchedulerConfig
     from repro_torch.core.scheduler import percentile_latency
     from repro_torch.data import tasks
@@ -1961,14 +2124,14 @@ def phase_exact_serve(torch, model, params, paged_p50: float):
         "cache_gb": round(sum(t.numel() * t.element_size()
                               for t in cache.values()) / 1e9, 3),
         "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2)}
-    print("[serve-exact] " + json.dumps(line))
-    print(f"[serve-exact] step p50 exact {line['step_ms_p50']} ms vs phase "
-          f"6 paged {paged_p50} ms "
+    print(f"[{tag}] " + json.dumps(line))
+    print(f"[{tag}] step p50 exact {line['step_ms_p50']} ms vs the paged "
+          f"serve of the shared-header traffic {paged_p50} ms "
           f"({line['step_ms_p50'] / paged_p50 - 1:+.1%})")
     check(k5_4096 == L, f"Model.prefill launched K5 {k5_4096} times")
     check(finite, "non-finite logits from Model.prefill/decode_step")
     del cache, lg
-    return launches["flash_prefill"]
+    return line
 
 
 def phase_ssm_serve(torch):
@@ -2206,33 +2369,17 @@ def _step_bytes(model, params) -> int:
             + head.numel() * head.element_size())
 
 
-def phase_family_serve(torch, tag: str, arch: str, num_layers: int = 0, *,
-                       n: int = 8, num_requests: int = 4,
-                       max_tokens: int = 96) -> dict:
-    """Phases 10-11: ``arch`` at full width, its depth cut to
-    ``num_layers`` (0: full depth), bf16, random weights from seed 0,
-    behind the SART scheduler through ``run_serving`` (requests every 8
-    steps, window 8, OraclePRM noise 0.05, temperature 0.9) on the
-    launcher's engine config, through the step graphs. Counters are
-    zeroed just before the serve and read just after: K1 and K2 must
-    launch, K2 once per layer per mixed step; replays must equal decode
-    steps, every request complete with no fault or leaked page, hidden
-    states be finite. Then the same traffic greedy, eagerly and through
-    the graphs on the same weights: tokens identical at every step and
-    the largest logit difference on the rows that carry a result 0.0.
-    Prints the step p50 beside the bound from the bytes a step streams,
-    the peak memory, the capture seconds per variant and the phase's
-    seconds; frees the model. Returns the serve's line."""
+def _full_width_model(torch, tag: str, arch: str, num_layers: int = 0):
+    """``arch`` at full width, its depth cut to ``num_layers`` (0: full
+    depth), bf16, random weights from seed 0, after the earlier phases'
+    models and pools are freed. Prints its shape and the bound from the
+    bytes a decode step streams. Returns (model, params, full config,
+    step bytes, bound ms)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_prefill import flash_prefill, paged_prefill
-    from repro_torch.kernels.paged_attention import (paged_attention,
-                                                     tree_decode)
-    from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.launch.serve import run_serving
     from repro_torch.models import Model
     gc.collect()                 # the earlier phases' models and pools
     torch.cuda.empty_cache()
-    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
     full = get_config(arch)
     cfg = full.replace(num_layers=num_layers) if num_layers else full
     model = Model(cfg, dtype=torch.bfloat16, device=DEVICE)
@@ -2250,8 +2397,72 @@ def phase_family_serve(torch, tag: str, arch: str, num_layers: int = 0, *,
           + f", vocab {cfg.vocab_size}, {cfg.pos_embedding} positions; "
           f"{step_bytes / 1e9:.2f} GB of bf16 weights a step streams, bound "
           f"{bound_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; random "
-          f"weights in {time.perf_counter() - t_phase:.1f} s")
+          f"weights in {time.perf_counter() - t0:.1f} s")
+    return model, params, full, step_bytes, bound_ms
 
+
+def phase_family_serve(torch, tag: str, arch: str, num_layers: int = 0, *,
+                       n: int = 8, num_requests: int = 4,
+                       max_tokens: int = 96) -> dict:
+    """Phases 10-11: ``arch`` at full width, its depth cut to
+    ``num_layers`` (0: full depth), bf16, random weights from seed 0, on
+    ``_family_serve``'s run and checks; prints the phase's seconds and
+    frees the model. Returns the serve's line."""
+    t_phase = time.perf_counter()
+    model, params, full, step_bytes, bound_ms = _full_width_model(
+        torch, tag, arch, num_layers)
+    line = _family_serve(torch, tag, model, params, full, step_bytes,
+                         bound_ms, n=n, num_requests=num_requests,
+                         max_tokens=max_tokens)
+    del model, params
+    line["phase_s"] = time.perf_counter() - t_phase
+    print(f"[{tag}] {line['model']}: phase {line['phase_s']:.1f} s")
+    return line
+
+
+def _eager_vs_graphs(torch, tag: str, model, params, **traffic) -> dict:
+    """The same traffic (``_serve_recorded``) greedy, eagerly and through
+    the graphs on the same weights: tokens identical at every step and
+    the largest logit difference on the rows that carry a result 0.0,
+    both checked. Returns the comparison."""
+    eager, t_e, l_e = _serve_recorded(torch, model, params, eager=True,
+                                      **traffic)
+    graph, t_g, l_g = _serve_recorded(torch, model, params, eager=False,
+                                      **traffic)
+    same = t_e == t_g
+    err = (max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(l_e, l_g))
+           if len(l_e) == len(l_g) else float("nan"))
+    out = {"tokens_identical": same, "decode_steps": len(t_g),
+           "logits_max_abs_diff": err,
+           "step_ms_p50": {"eager": eager["step_ms_p50"],
+                           "graphs": graph["step_ms_p50"]}}
+    print(f"[{tag}] eager against graphs, greedy: " + json.dumps(out))
+    check(same, f"{tag}: graph steps gave other tokens than eager steps")
+    check(err == 0.0, f"{tag}: graph and eager logits differ by {err} on "
+                      "the rows that carry a result")
+    return out
+
+
+def _family_serve(torch, tag: str, model, params, full, step_bytes: int,
+                  bound_ms: float, *, n: int = 8, num_requests: int = 4,
+                  max_tokens: int = 96) -> dict:
+    """Behind the SART scheduler through ``run_serving`` (requests every 8
+    steps, window 8, OraclePRM noise 0.05, temperature 0.9) on the
+    launcher's engine config, through the step graphs. Counters are
+    zeroed just before the serve and read just after: K1 and K2 must
+    launch, K2 once per layer per mixed step; replays must equal decode
+    steps, every request complete with no fault or leaked page, hidden
+    states be finite. Then ``_eager_vs_graphs`` on the same traffic.
+    Prints the step p50 beside the bound from the bytes a step streams,
+    the peak memory and the capture seconds per variant. Returns the
+    serve's line."""
+    from repro_torch.kernels.flash_prefill import flash_prefill, paged_prefill
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     tree_decode)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.serve import run_serving
+    cfg = model.cfg
     paged_attention.launches = 0
     paged_prefill.launches = 0
     tree_decode.shared_launches = tree_decode.branch_launches = 0
@@ -2314,30 +2525,71 @@ def phase_family_serve(torch, tag: str, arch: str, num_layers: int = 0, *,
               if k not in ("paged_decode", "paged_prefill")),
           f"{tag}: a kernel off the path launched: {launches}")
     del engine
-
-    traffic = dict(n=n, num_requests=num_requests, max_tokens=max_tokens)
-    eager, t_e, l_e = _serve_recorded(torch, model, params, eager=True,
-                                      shared_header=False, **traffic)
-    graph, t_g, l_g = _serve_recorded(torch, model, params, eager=False,
-                                      shared_header=False, **traffic)
-    same = t_e == t_g
-    err = (max(float((a.float() - b.float()).abs().max())
-               for a, b in zip(l_e, l_g))
-           if len(l_e) == len(l_g) else float("nan"))
-    line["eager_vs_graphs"] = {
-        "tokens_identical": same, "decode_steps": len(t_g),
-        "logits_max_abs_diff": err,
-        "step_ms_p50": {"eager": eager["step_ms_p50"],
-                        "graphs": graph["step_ms_p50"]}}
-    print(f"[{tag}] eager against graphs, greedy: "
-          + json.dumps(line["eager_vs_graphs"]))
-    check(same, f"{tag}: graph steps gave other tokens than eager steps")
-    check(err == 0.0, f"{tag}: graph and eager logits differ by {err} on "
-                      "the rows that carry a result")
-    del model, params, l_e, l_g
-    line["phase_s"] = time.perf_counter() - t_phase
-    print(f"[{tag}] {cfg.name}: phase {line['phase_s']:.1f} s")
+    line["eager_vs_graphs"] = _eager_vs_graphs(
+        torch, tag, model, params, shared_header=False, n=n,
+        num_requests=num_requests, max_tokens=max_tokens)
     return line
+
+
+def phase_gemma_serve(torch) -> dict:
+    """Phase 12: gemma-7b at full width and depth (28 layers, d_model
+    3072, 16/16 heads of 256, GeGLU, a tied vocabulary of 256,000), bf16,
+    random weights from seed 0: the head_dim-256 kernels on the serve
+    path. Three runs on one set of weights, each on run_serving's engine
+    config through the step graphs, its counters zeroed just before and
+    read just after: (1) phase 5's traffic (``_family_serve``: K1 every
+    step, K2 once per layer per mixed step; then greedy eager against
+    graphs); (2) phase 6's shared-header traffic with
+    ``prefix_cache=True, decode_kernel="tree"`` (K3 carries every decode
+    row, K1 never; then greedy eager against graphs); (3) phase 7's
+    exact admission (K5 in all 28 layers of each admission) and
+    ``Model.prefill`` of 4,096 tokens. Each run: every request completes
+    with no fault or leaked page, finite hidden states, replays equal
+    decode steps. Prints each run's step p50 beside the bound from the
+    bytes a step streams, the peak memory and each variant's capture
+    time. Returns the launches of each head_dim-256 kernel on its run."""
+    t_phase = time.perf_counter()
+    tag = "serve-gemma"
+    model, params, full, step_bytes, bound_ms = _full_width_model(
+        torch, tag, "gemma-7b")
+    check(model.cfg.resolved_head_dim == WIDE
+          and model.cfg.num_layers == full.num_layers,
+          f"{tag}: not gemma-7b at full depth and head_dim {WIDE}")
+    serve = _family_serve(torch, tag, model, params, full, step_bytes,
+                          bound_ms)
+    tree, tree_launches = _serve_shared_header(torch, model, params, "tree",
+                                               tag=tag)
+    _check_tree_launches(model, tree, tree_launches)
+    tree["eager_vs_graphs"] = _eager_vs_graphs(
+        torch, tag, model, params, shared_header=True, decode_kernel="tree")
+    exact = phase_exact_serve(torch, model, params, tree["step_ms_p50"],
+                              tag=tag)
+    runs = {
+        run: {"step_ms_p50": line["step_ms_p50"],
+              "over_bound": line["step_ms_p50"] / bound_ms,
+              "peak_mem_gb": line["peak_mem_gb"],
+              "capture_s": line["graphs"]["capture_s"],
+              "replays": line["graphs"]["replays"],
+              "decode_steps": line["graphs"]["decode_steps"]}
+        for run, line in (("serve", serve), ("tree", tree),
+                          ("exact", exact))}
+    summary = {"model": full.name, "num_layers": full.num_layers,
+               "head_dim": WIDE, "bound_ms": bound_ms,
+               "step_gb": step_bytes / 1e9, "runs": runs,
+               "model_prefill_4096": exact["model_prefill_4096"],
+               "phase_s": time.perf_counter() - t_phase}
+    print(f"[{tag}] " + json.dumps(summary))
+    del model, params
+    return {kernel_key("paged_decode", WIDE): serve["launches"][
+                "paged_decode"],
+            kernel_key("paged_prefill", WIDE): serve["launches"][
+                "paged_prefill"],
+            kernel_key("paged_tree_shared", WIDE): tree_launches[
+                "paged_tree_shared"],
+            kernel_key("paged_tree_branch", WIDE): tree_launches[
+                "paged_tree_branch"],
+            kernel_key("flash_prefill", WIDE): exact["launches"][
+                "flash_prefill"]}
 
 
 def _step_stats(engine, wall: float) -> dict:
@@ -2349,15 +2601,17 @@ def _step_stats(engine, wall: float) -> dict:
 
 def phase_profile(torch, out_dir: Path) -> None:
     """Phase 5's traffic (4 requests, n=8, 96 tokens, temperature 0.9) on
-    r1-distill-14b, on mamba2-130m (phase 8) and on qwen3-moe-235b-a22b
-    at 8 of its 94 layers (phase 10), each served eagerly
+    r1-distill-14b, on mamba2-130m (phase 8), on qwen3-moe-235b-a22b at
+    8 of its 94 layers (phase 10) and on gemma-7b (phase 12), each served
+    eagerly
     (``Engine.eager()``) and through the step graphs: per mode one plain
     serve, for step times (the graph run captures its variants), then the
     same engine again, its graphs captured, under torch.profiler tracing
     device activity only (no host ops, so the trace adds little to the
     host side), for device time by kernel, the device's busy share of
     that run's own wall time and the device kernels per decode step. The
-    tables go to ``out_dir/profile_serve[_ssm|_moe]_{eager,graphs}.txt``."""
+    tables go to
+    ``out_dir/profile_serve[_ssm|_moe|_gemma]_{eager,graphs}.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -2366,7 +2620,8 @@ def phase_profile(torch, out_dir: Path) -> None:
     for arch, stem, layers in (("r1-distill-14b", "profile_serve", 0),
                                ("mamba2-130m", "profile_serve_ssm", 0),
                                ("qwen3-moe-235b-a22b", "profile_serve_moe",
-                                8)):
+                                8),
+                               ("gemma-7b", "profile_serve_gemma", 0)):
         gc.collect()
         torch.cuda.empty_cache()
         cfg = get_config(arch)
@@ -2389,8 +2644,10 @@ def phase_profile(torch, out_dir: Path) -> None:
                 steps0 = engine.decode_steps_executed
                 replays0 = engine.graph_replays
                 engine.step_seconds.clear()
-                _, sch = _serve_setup(torch, model, params,
-                                      shared_header=False, engine=engine)
+                # (no name for the engine returned again: a name left
+                # bound would keep this model alive into the next one's)
+                sch = _serve_setup(torch, model, params,
+                                   shared_header=False, engine=engine)[1]
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     sch.run(max_steps=2_000_000)
@@ -2439,7 +2696,8 @@ def main() -> int:
                     help="stop after the kernel checks (prints no result)")
     ap.add_argument("--profile", metavar="DIR",
                     help="profile the serve phases' traffic (r1-distill-14b"
-                         ", mamba2-130m, qwen3-moe-235b-a22b at 8 layers) "
+                         ", mamba2-130m, qwen3-moe-235b-a22b at 8 layers, "
+                         "gemma-7b) "
                          "instead of the checks, writing "
                          "the tables under DIR (prints no result)")
     ap.add_argument("--tree-pairs", type=int, metavar="N",
@@ -2484,8 +2742,8 @@ def main() -> int:
     tree_run, paged_p50 = phase_tree_serve(torch, model, params)
     for name in ("paged_tree_shared", "paged_tree_branch"):
         launches[name] = tree_run[name]
-    launches["flash_prefill"] = phase_exact_serve(torch, model, params,
-                                                  paged_p50)
+    launches["flash_prefill"] = phase_exact_serve(
+        torch, model, params, paged_p50)["launches"]["flash_prefill"]
     del model, params
     launches["ssd_scan"] = phase_ssm_serve(torch)["ssd_scan"]
     phase_graphs(torch)
@@ -2495,6 +2753,8 @@ def main() -> int:
     for arch, layers in (("qwen2-vl-72b", 8), ("musicgen-medium", 0)):
         phase_family_serve(torch, "serve-family", arch, layers, n=4,
                            num_requests=2, max_tokens=48)
+    # phase 12: gemma-7b at full width and depth, the head_dim-256 kernels
+    launches.update(phase_gemma_serve(torch))
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
             "K/V (a yardstick; the port never calls it)")
@@ -2527,6 +2787,11 @@ def main() -> int:
                           "enable_gqa=True) on the same q, k, v (a "
                           "yardstick; the port never calls it)"),
     }
+    # the head_dim-256 instantiations (gemma-7b, phase 12): rows of their
+    # own, timed at gemma-7b's serve shapes
+    meta.update({kernel_key(name, WIDE): meta[name] for name in
+                 ("paged_decode", "paged_prefill", "paged_tree_shared",
+                  "paged_tree_branch", "flash_prefill")})
     kernels = []
     for name, (source, replaces, tol, library) in meta.items():
         tm = timing[name]
@@ -2545,7 +2810,8 @@ def main() -> int:
                                           "long_context_few_rows"),
                                          ("header_chunk", "header_chunk"),
                                          ("moe_serve",
-                                          "qwen3_moe_serve_shape"))
+                                          "qwen3_moe_serve_shape"),
+                                         ("S4096", "S4096"))
                if k in tm},
         })
         if moe_line["launches"].get(name):

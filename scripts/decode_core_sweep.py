@@ -52,13 +52,16 @@ VARIANTS = {
                         "    used = grouped ? min(a.shared_n,",
                         "    used = false ? min(a.shared_n,"),
     "three_stage": ("paged_decode_mma.cuh",
-                    "return split_keys > kWarps * tile::kKeys ? 2 : 1;",
-                    "return split_keys > 2 * kWarps * tile::kKeys ? 3\n"
+                    "return split_keys > kWarps * tile::kKeys ? "
+                    "max_stages<HD>() : 1;",
+                    "return split_keys > 2 * kWarps * tile::kKeys ? "
+                    "max_stages<HD>()\n"
                     "         : split_keys > kWarps * tile::kKeys ? 2 : 1;",
-                    "constexpr int kMaxStages = 2;",
-                    "constexpr int kMaxStages = 3;"),
+                    "return Layout<HD>::bytes(2) <= kMaxSmem ? 2 : 1;",
+                    "return Layout<HD>::bytes(3) <= kMaxSmem ? 3 : 1;"),
     "gather_unroll2": ("paged_decode_mma.cuh",
-                       "#pragma unroll\n        for (int it = 0; it < kChunks;",
+                       "#pragma unroll (kGatherUnroll)\n"
+                       "        for (int it = 0; it < kChunks;",
                        "#pragma unroll 2\n        for (int it = 0; it < kChunks;"),
     "carveout": ("paged_decode_mma.cuh",
                  "    smem_raised<HD, kBranch> = true;",
@@ -66,7 +69,8 @@ VARIANTS = {
                  "SharedMemoryCarveout, 100);\n"
                  "    smem_raised<HD, kBranch> = true;"),
     "one_stage": ("paged_decode_mma.cuh",
-                  "return split_keys > kWarps * tile::kKeys ? 2 : 1;",
+                  "return split_keys > kWarps * tile::kKeys ? "
+                  "max_stages<HD>() : 1;",
                   "return 1;"),
     "min3": ("paged_decode_mma.cuh",
              "__global__ void __launch_bounds__(kThreads)\n"

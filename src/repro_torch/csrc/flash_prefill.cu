@@ -30,6 +30,9 @@
 // holds 4 rows x 4 keys of the 64 x 64 score tile, for P V 4 rows x hd/16
 // output columns, every operand read as a float4 (K rows padded by 4
 // words so the 16 key rows a warp reads fall in distinct bank groups).
+// Head_dim 32, 64, 128 and 256, each its own instantiation; at 256 the
+// tile takes 214,272 bytes of shared memory (one CTA per SM) and a thread
+// holds 4 rows x 16 columns of O.
 #include <cuda_runtime.h>
 
 namespace {
@@ -82,7 +85,7 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
   constexpr int kVecs = HD / kVec;              // 16-byte loads per row
   constexpr int kCols = HD / 16;                // output columns per thread
   constexpr int kColVec = kCols < 4 ? kCols : 4;
-  static_assert(HD % 32 == 0 && HD <= 128, "head_dim 32, 64 or 128");
+  static_assert(HD % 32 == 0 && HD <= 256, "head_dim 32, 64, 128 or 256");
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -301,6 +304,9 @@ extern "C" int flash_prefill_launch(int head_dim, const void* q,
       true_len > seqlen)
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
+    case 256:
+      return launch<256>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+                         true_len, block_q, causal, scale, s);
     case 128:
       return launch<128>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
                          true_len, block_q, causal, scale, s);

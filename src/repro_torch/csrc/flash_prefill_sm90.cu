@@ -34,7 +34,13 @@
 //     the fp32 scores, inside each exponent. O += P V is wgmma m64nNk16, N
 //     = head_dim, with P from registers and V from shared memory read
 //     transposed (keys x hd as stored); at head_dim 128 one product spans
-//     both 64-column swizzle parts.
+//     both 64-column swizzle parts, at 256 two N = 128 products span two
+//     parts each.
+//   * Head_dim 256 (gemma-7b) is its own instantiation with one consumer
+//     warpgroup (64 rows) and two stages: its O accumulator is 128 fp32
+//     registers a thread, and Q (32 KB) plus two stages of K and V (128
+//     KB) is what fits beside it; three stages of two warpgroups would
+//     take 256 KB.
 //   * P stays fp32 as in the TPU kernel: it is split into hi = bf16(P) and
 //     lo = bf16(P - hi) and both are multiplied into the same fp32
 //     accumulator, 1.5x the function's tensor operations. Rounding P to
@@ -285,7 +291,17 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_prefill_wgmma(
       const uint64_t dv =
           ptx::wgmma_desc(v_tile + kk * 16 * G::kRowBytes, G::kKvPart,
                           G::kSbo, G::kSwizzle);
-      if constexpr (HD == 128) {
+      if constexpr (HD == 256) {
+        // two N = 128 halves: columns 0-127 (parts 0-1), then 128-255
+        // (parts 2-3), each with the same leading byte offset
+        const uint64_t dv2 = ptx::wgmma_desc(
+            v_tile + 2 * G::kKvPart + kk * 16 * G::kRowBytes, G::kKvPart,
+            G::kSbo, G::kSwizzle);
+        ptx::wgmma_m64n128k16_rs_tb(&o[0][0], p_hi[kk], dv);
+        ptx::wgmma_m64n128k16_rs_tb(&o[0][0], p_lo[kk], dv);
+        ptx::wgmma_m64n128k16_rs_tb(&o[2][0], p_hi[kk], dv2);
+        ptx::wgmma_m64n128k16_rs_tb(&o[2][0], p_lo[kk], dv2);
+      } else if constexpr (HD == 128) {
         ptx::wgmma_m64n128k16_rs_tb(&o[0][0], p_hi[kk], dv);
         ptx::wgmma_m64n128k16_rs_tb(&o[0][0], p_lo[kk], dv);
       } else if constexpr (HD == 64) {
@@ -413,12 +429,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return (int)cudaGetLastError();
 }
 
+// One consumer warpgroup (rows = 64) or two (128); head_dim 256 takes one
+// only: its O accumulator is 128 registers a thread, and two warpgroups
+// under one producer warp leave a thread 224.
 template <int HD>
 int launch_rows(int rows, const void* q, const void* k, const void* v,
                 void* out, int batch, int seqlen, int q_heads, int kv_heads,
                 int true_len, int block_q, int causal, float scale,
                 cudaStream_t s) {
-  if (rows == 128)
+  if constexpr (HD == 256) {
+    if (rows != kWgRows) return (int)cudaErrorInvalidValue;
+  } else if (rows == 128)
     return launch<HD, 2>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
                          true_len, block_q, causal, scale, s);
   return launch<HD, 1>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
@@ -430,9 +451,9 @@ int launch_rows(int rows, const void* q, const void* k, const void* v,
 // Returns the cudaError_t of the launch (0 on success). q, k, v and out
 // are bf16, q and out [batch, seqlen, q_heads, head_dim], k and v [batch,
 // seqlen, kv_heads, head_dim], contiguous and 16-byte aligned; rows is 64
-// or 128 (one or two consumer warpgroups per CTA) and block_q * (q_heads /
-// kv_heads) <= rows; 0 < true_len <= seqlen. The caller has checked
-// shapes, dtypes and alignment.
+// or 128 (one or two consumer warpgroups per CTA; 64 at head_dim 256) and
+// block_q * (q_heads / kv_heads) <= rows; 0 < true_len <= seqlen. The
+// caller has checked shapes, dtypes and alignment.
 extern "C" int flash_prefill_sm90_launch(int head_dim, const void* q,
                                          const void* k, const void* v,
                                          void* out, int batch, int seqlen,
@@ -446,6 +467,9 @@ extern "C" int flash_prefill_sm90_launch(int head_dim, const void* q,
       block_q > 256 || true_len < 1 || true_len > seqlen)
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
+    case 256:
+      return launch_rows<256>(rows, q, k, v, out, batch, seqlen, q_heads,
+                              kv_heads, true_len, block_q, causal, scale, s);
     case 128:
       return launch_rows<128>(rows, q, k, v, out, batch, seqlen, q_heads,
                               kv_heads, true_len, block_q, causal, scale, s);

@@ -251,6 +251,30 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       : "r"(smem_addr(p)));
 }
 
+// ldmatrix_x4 / ldmatrix_x4_trans at a shared-state-space address.
+__device__ __forceinline__ void ldmatrix_x4_s(uint32_t* r, uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans_s(uint32_t* r,
+                                                    uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// x, opaque to the compiler: addresses formed from it as base + constant
+// are formed where they are used, not hoisted out of the tile loop into a
+// register each (at head_dim 256 those would crowd out the accumulators).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(x) : "r"(x));
+  return x;
+}
+
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),

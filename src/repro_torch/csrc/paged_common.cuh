@@ -50,12 +50,17 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Thread t owns output column d = t % HD of rows t / HD, t / HD + kStep, ...
+// Thread t owns output columns d = t % HD + c * kThreads (c < kCols) of
+// rows t / HD, t / HD + kStep, ...: one column up to head_dim 128, two at
+// 256. Its accumulators are acc[i * kCols + c], row i, column c.
 template <int HD>
 struct Dims {
-  static_assert(kThreads % HD == 0, "head_dim must divide the CTA");
-  static constexpr int kStep = kThreads / HD;
+  static_assert(kThreads % HD == 0 || HD % kThreads == 0,
+                "head_dim must divide the CTA or be a multiple of it");
+  static constexpr int kCols = HD > kThreads ? HD / kThreads : 1;
+  static constexpr int kStep = kThreads * kCols / HD;
   static constexpr int kPer = kMaxRows / kStep;
+  static constexpr int kAcc = kPer * kCols;
 };
 
 template <int HD>
@@ -71,6 +76,44 @@ struct Shared {
   int row_end[kMaxRows];        // row r sees key positions < row_end[r]
 };
 
+// The most shared memory a kernel may declare statically.
+constexpr size_t kStaticSmem = 48 * 1024;
+
+// The bytes of dynamic shared memory a kernel whose shared struct is S
+// launches with: none where S fits the static limit (head_dim up to 128),
+// all of S where it does not (Shared<256> is ~66.5 KB).
+template <typename S>
+__host__ __device__ constexpr size_t dynamic_smem() {
+  return sizeof(S) <= kStaticSmem ? 0 : sizeof(S);
+}
+
+// A kernel's shared struct S: a static __shared__ variable where it fits,
+// else the start of the dynamic shared memory (dynamic_smem<S>() bytes,
+// opted into by the launcher with opt_in_smem).
+template <typename S>
+__device__ __forceinline__ S& shared_struct() {
+  if constexpr (dynamic_smem<S>() == 0) {
+    __shared__ __align__(16) S s;
+    return s;
+  } else {
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    return *reinterpret_cast<S*>(dyn_smem);
+  }
+}
+
+// Raises `kernel`'s dynamic shared memory limit to dynamic_smem<S>() the
+// first time it is needed (`done` is the launcher's flag for this kernel
+// in this library); returns the cudaError_t.
+template <typename S, typename K>
+cudaError_t opt_in_smem(K kernel, bool& done) {
+  if (dynamic_smem<S>() == 0 || done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dynamic_smem<S>());
+  done = err == cudaSuccess;
+  return err;
+}
+
 // Sets m = NEG_INF, l = 0 for every row; the caller sets row_end and q.
 template <int HD>
 __device__ __forceinline__ void init_rows(Shared<HD>& sm) {
@@ -84,7 +127,7 @@ __device__ __forceinline__ void init_rows(Shared<HD>& sm) {
 
 // Streams the first pages of `table` (as many as cover positions
 // < ctx_end) through shared memory for `rows` query rows, updating each
-// thread's accumulators `acc` (Dims<HD>::kPer values). Positions past
+// thread's accumulators `acc` (Dims<HD>::kAcc values). Positions past
 // ctx_end are never loaded; within a tile, key j counts for row r only
 // while its position is < row_end[r].
 template <typename T, int HD>
@@ -94,6 +137,7 @@ __device__ __forceinline__ void stream_pages(
     int table_len, int num_pages, int page_size, int ctx_end, int rows) {
   constexpr int kStep = Dims<HD>::kStep;
   constexpr int kPer = Dims<HD>::kPer;
+  constexpr int kCols = Dims<HD>::kCols;
   const int tid = threadIdx.x;
   const int d = tid % HD;
   const int r0 = tid / HD;
@@ -155,9 +199,13 @@ __device__ __forceinline__ void stream_pages(
         if (r < rows) {
           const int vis = min(tn, sm.row_end[r] - tile_start);
           if (vis > 0) {
-            float o = acc[i] * sm.alpha[r];
-            for (int j = 0; j < vis; ++j) o = fmaf(sm.p[r][j], sm.v[j][d], o);
-            acc[i] = o;
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              float o = acc[i * kCols + c] * sm.alpha[r];
+              for (int j = 0; j < vis; ++j)
+                o = fmaf(sm.p[r][j], sm.v[j][d + c * kThreads], o);
+              acc[i * kCols + c] = o;
+            }
           }
         }
       }

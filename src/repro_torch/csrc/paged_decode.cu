@@ -15,7 +15,9 @@
 // cores (paged_common.cuh's stream_pages): bf16 tensor-core products
 // cannot meet fp32's tolerance. What bounds both on this card: bytes (4 x
 // group x head_dim flops per key read), and at the serving shapes the
-// dependent chain each CTA walks.
+// dependent chain each CTA walks. Head_dim 32, 64, 128 and 256, each its
+// own instantiation; at 256 the fp32 kernel's shared tile (~66.5 KB) is
+// dynamic shared memory and each thread owns two output columns.
 #include "paged_decode_mma.cuh"
 
 using namespace paged;
@@ -27,9 +29,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const int* __restrict__ lengths, float* __restrict__ out, int q_heads,
     int kv_heads, int num_pages, int page_size, int pages_per_seq,
     float scale) {
-  __shared__ Shared<HD> sm;
+  Shared<HD>& sm = shared_struct<Shared<HD>>();
   constexpr int kStep = Dims<HD>::kStep;
   constexpr int kPer = Dims<HD>::kPer;
+  constexpr int kCols = Dims<HD>::kCols;
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int group = q_heads / kv_heads;
   const int len = clamp_to(lengths[b], pages_per_seq * page_size);
@@ -39,9 +42,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     sm.q[i / HD][i % HD] = q[q_row + i] * scale;
   init_rows(sm);
   if (tid < kMaxRows) sm.row_end[tid] = len;
-  float acc[kPer];
+  float acc[Dims<HD>::kAcc];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Dims<HD>::kAcc; ++i) acc[i] = 0.f;
 
   const size_t head = (size_t)h * num_pages * page_size * HD;
   stream_pages<float, HD>(sm, acc, k_pages + head, v_pages + head,
@@ -52,10 +55,21 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int r = tid / HD + i * kStep;
-    if (r < group)
-      out[q_row + (size_t)r * HD + d] = acc[i] / fmaxf(sm.l[r], 1e-30f);
+    if (r < group) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        out[q_row + (size_t)r * HD + d + c * kThreads] =
+            acc[i * kCols + c] / fmaxf(sm.l[r], 1e-30f);
+    }
   }
 }
+
+namespace {
+// Whether this library has raised the fp32 kernel's dynamic shared memory
+// limit (head_dim 256 only; internal linkage: one flag per library).
+template <int HD>
+bool f32_smem_raised = false;
+}  // namespace
 
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = fp32,
 // 1 = bf16. split_keys and n_split are the key splits of the bf16 kernel
@@ -96,12 +110,17 @@ extern "C" int paged_decode_launch(int dtype, int head_dim, const void* q,
   }
   if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(batch, kv_heads);
-  const bool ok = decode::dispatch_hd(head_dim, [&](auto hd) {
-    paged_decode_kernel<decltype(hd)::value><<<grid, kThreads, 0, s>>>(
+  int rc = (int)cudaErrorInvalidValue;
+  decode::dispatch_hd(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    const auto kernel = paged_decode_kernel<HD>;
+    rc = (int)opt_in_smem<Shared<HD>>(kernel, f32_smem_raised<HD>);
+    if (rc != 0) return;
+    kernel<<<grid, kThreads, dynamic_smem<Shared<HD>>(), s>>>(
         (const float*)q, (const float*)k_pages, (const float*)v_pages,
         (const int*)block_tables, (const int*)lengths, (float*)out, q_heads,
         kv_heads, num_pages, page_size, pages_per_seq, scale);
+    rc = (int)cudaGetLastError();
   });
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return rc;
 }

@@ -58,6 +58,10 @@
 //     the shared splits 0 .. n - 1, then the suffix's CTAs in split order,
 //     then divides by max(l, 1e-30). Splits at or past the row's visible
 //     end of the span hold (NEG_INF, 0, 0) and are not read.
+//   * Head_dim 256 (gemma-7b) is its own instantiation: a warp's o is then
+//     128 fp32 registers, so Q's A fragments are read from shared memory
+//     in each product (tile::QOperand) instead of held beside them, and
+//     each warp has one tile buffer (two would take 280 KB).
 // The contracts of paged_common.cuh hold: GQA-native (a K/V tile serves
 // every query head of its KV head); table entries are clamped into the
 // pool before any address is formed; keys past a row's end are
@@ -130,6 +134,96 @@ __device__ __forceinline__ void qk(float (&sc)[kKeys / 8][4],
   }
 }
 
+// S = Q K^T as qk, with Q's fragments read from 16 rows of shared memory
+// at q, 32 columns at a time, instead of held: at head_dim 256 the 64
+// words of held fragments beside o's 128 accumulators would spill. Every
+// address is one opaque base plus a constant (ptx::opaque), so none is
+// kept across tiles.
+template <int HD>
+__device__ __forceinline__ void qk_smem(float (&sc)[kKeys / 8][4],
+                                        const bf16* q, const bf16* k,
+                                        int lane) {
+  constexpr uint32_t kRow = stride<HD>() * 2;   // bytes
+  const uint32_t qb = ptx::opaque(ptx::smem_addr(
+      q + (lane % 8 + 8 * ((lane / 8) % 2)) * stride<HD>() +
+      8 * (lane / 16)));
+  const uint32_t kb0 = ptx::opaque(
+      ptx::smem_addr(k + (lane % 8) * stride<HD>() + 8 * (lane / 8)));
+#pragma unroll
+  for (int nb = 0; nb < kKeys / 8; ++nb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
+#pragma unroll
+  for (int c32 = 0; c32 < HD / 32; ++c32) {
+    uint32_t qa[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      ptx::ldmatrix_x4_s(qa[h], qb + (32 * c32 + 16 * h) * 2);
+#pragma unroll
+    for (int nb = 0; nb < kKeys / 8; ++nb) {
+      uint32_t kb[4];
+      ptx::ldmatrix_x4_s(kb, kb0 + 8 * nb * kRow + 32 * c32 * 2);
+      ptx::mma_m16n8k16(sc[nb], qa[0], kb[0], kb[1]);
+      ptx::mma_m16n8k16(sc[nb], qa[1], kb[2], kb[3]);
+    }
+  }
+}
+
+// O += P V as pv over the first NC columns of a tile v of head_dim HD's
+// rows, each V address an opaque base plus a constant (see qk_smem):
+// head_dim 256's, whole (NC = 256) or one 128-column half.
+template <int NC, int HD>
+__device__ __forceinline__ void pv_cols(float (&o)[NC / 8][4],
+                                        const float (&sc)[kKeys / 8][4],
+                                        const bf16* v, int lane) {
+  constexpr uint32_t kRow = stride<HD>() * 2;   // bytes
+  const uint32_t vb0 = ptx::opaque(ptx::smem_addr(
+      v + (lane % 8 + 8 * ((lane / 8) % 2)) * stride<HD>() +
+      8 * (lane / 16)));
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    uint32_t ph[4], pl[4];
+    ptx::split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+    ptx::split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+    ptx::split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+    ptx::split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int np = 0; np < NC / 16; ++np) {
+      uint32_t vb[4];
+      ptx::ldmatrix_x4_trans_s(vb, vb0 + 16 * kk * kRow + 16 * np * 2);
+      ptx::mma_m16n8k16(o[2 * np], ph, vb[0], vb[1]);
+      ptx::mma_m16n8k16(o[2 * np], pl, vb[0], vb[1]);
+      ptx::mma_m16n8k16(o[2 * np + 1], ph, vb[2], vb[3]);
+      ptx::mma_m16n8k16(o[2 * np + 1], pl, vb[2], vb[3]);
+    }
+  }
+}
+
+// A warp's Q operand of S = Q K^T over its walk: up to head_dim 128 the A
+// fragments, loaded once and held in registers; at 256 the address of the
+// 16 staged rows, read again in every product (qk_smem).
+template <int HD, bool kHeld = (HD <= 128)>
+struct QOperand {
+  uint32_t a[HD / 16][4];
+  __device__ __forceinline__ void load(const bf16* q, int lane) {
+    load_q<HD>(a, q, lane);
+  }
+  __device__ __forceinline__ void qk(float (&sc)[kKeys / 8][4],
+                                     const bf16* k, int lane) const {
+    tile::qk<HD>(sc, a, k, lane);
+  }
+};
+
+template <int HD>
+struct QOperand<HD, false> {
+  const bf16* q;
+  __device__ __forceinline__ void load(const bf16* rows, int) { q = rows; }
+  __device__ __forceinline__ void qk(float (&sc)[kKeys / 8][4],
+                                     const bf16* k, int lane) const {
+    qk_smem<HD>(sc, q, k, lane);
+  }
+};
+
 // The online softmax of one tile: key kc + 8 nb + e (kc = the tile's
 // first key + 2 (lane % 4)) counts for row i of this thread while it is
 // < lim[i]; scores are scaled in fp32, m and l updated, o rescaled, and
@@ -174,11 +268,16 @@ __device__ __forceinline__ void softmax(float (&sc)[kKeys / 8][4],
 }
 
 // O += P V over one tile v [kKeys][stride] in 16-key steps, P split into
-// bf16 hi and lo (V read transposed by ldmatrix).
+// bf16 hi and lo (V read transposed by ldmatrix); head_dim 256 takes
+// pv_cols.
 template <int HD>
 __device__ __forceinline__ void pv(float (&o)[HD / 8][4],
                                    const float (&sc)[kKeys / 8][4],
                                    const bf16* v, int lane) {
+  if constexpr (HD > 128) {
+    pv_cols<HD, HD>(o, sc, v, lane);
+    return;
+  }
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk) {
     uint32_t ph[4], pl[4];
@@ -229,6 +328,8 @@ struct Args {
   float scale;
 };
 
+constexpr size_t kMaxSmem = 232448;   // what a block may take on the H100
+
 // Dynamic shared memory: Q, the shared splits' (m, l), then each warp's
 // K/V tile buffers, which the epilogue reuses for the warps' partials and
 // the CTA's.
@@ -241,17 +342,27 @@ struct Layout {
   static constexpr size_t kEpilogue =
       ((size_t)(kWarps + 1) * kRows * kOStride + 2 * (kWarps + 1) * kRows) *
       4;
-  static size_t bytes(int stages) {
-    const size_t tiles = (size_t)kWarps * stages * 2 * kTile * 2;
-    return kQ + kSharedML + (tiles > kEpilogue ? tiles : kEpilogue);
+  __host__ __device__ static constexpr size_t bytes(int stages) {
+    return kQ + kSharedML +
+           ((size_t)kWarps * stages * 2 * kTile * 2 > kEpilogue
+                ? (size_t)kWarps * stages * 2 * kTile * 2
+                : kEpilogue);
   }
 };
 
 // Tile buffers per warp: two (the next tile in flight while this one
-// computes) where a warp can have more than one tile of a split.
-constexpr int kMaxStages = 2;
+// computes) where they fit the block's shared memory; at head_dim 256 two
+// would take 280 KB, so each warp has one.
+template <int HD>
+__host__ __device__ constexpr int max_stages() {
+  return Layout<HD>::bytes(2) <= kMaxSmem ? 2 : 1;
+}
+
+// A warp's tile buffers for a split: max_stages where a warp can have more
+// than one tile of it, else one.
+template <int HD>
 __host__ __device__ inline int stages_for(int split_keys) {
-  return split_keys > kWarps * tile::kKeys ? 2 : 1;
+  return split_keys > kWarps * tile::kKeys ? max_stages<HD>() : 1;
 }
 
 template <int HD, bool kBranch>
@@ -263,6 +374,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kChunks = HD / 8;   // 16-byte chunks per row
   constexpr int kQuads = HD / 4;    // float4 column groups per row
   constexpr int kOS = L::kOStride;
+  // a tile's copies unrolled in full up to head_dim 128; at 256 four at a
+  // time, so their shared addresses are not all kept across tiles
+  constexpr int kGatherUnroll = HD > 128 ? 4 : kChunks;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sq = reinterpret_cast<bf16*>(smem);
   float* sh_m = reinterpret_cast<float*>(smem + L::kQ);   // [split][row]
@@ -322,7 +436,7 @@ __global__ void __launch_bounds__(kThreads)
         hi > lo ? (hi - lo + tile::kKeys - 1) / tile::kKeys : 0;
     const int mine =
         n_tiles > warp ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
-    const int stages = stages_for(a.split_keys);
+    const int stages = stages_for<HD>(a.split_keys);
     // the first group: Q and, for CTA 0 of the branch pass, the used
     // shared splits' (m, l)
     if (z > 0) stage_q();
@@ -355,7 +469,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int kv = 0; kv < 2; ++kv) {
         bf16* dst = tiles + (size_t)(2 * s + kv) * L::kTile;
         const bf16* src = (kv ? a.v_pages : a.k_pages) + head;
-#pragma unroll
+#pragma unroll (kGatherUnroll)
         for (int it = 0; it < kChunks; ++it) {
           const int idx = lane + 32 * it;
           const int j = idx / kChunks, c = (idx % kChunks) * 8;
@@ -377,8 +491,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-    uint32_t qa[HD / 16][4];
-    if (mine > 0) tile::load_q<HD>(qa, sq, lane);
+    tile::QOperand<HD> qa;
+    if (mine > 0) qa.load(sq, lane);
     const int lim[2] = {hi, hi};
     for (int i = 0; i < mine; ++i) {
       const int s = i % stages;
@@ -388,7 +502,7 @@ __global__ void __launch_bounds__(kThreads)
       ptx::cp_async_wait_n(2 * ahead - 1);
       __syncwarp();   // every lane's K chunks (and zeros) are in
       float sc[tile::kKeys / 8][4];
-      tile::qk<HD>(sc, qa, kt, lane);
+      qa.qk(sc, kt, lane);
       const int k0 = lo + tile::kKeys * (warp + kWarps * i);
       tile::softmax<HD>(sc, m, l, o, k0 + 2 * (lane % 4), lim, a.scale);
       ptx::cp_async_wait_n(2 * ahead - 2);
@@ -569,7 +683,7 @@ int launch(const Args& a, cudaStream_t s) {
   if (!smem_raised<HD, kBranch>) {   // once: the largest layout's
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)Layout<HD>::bytes(kMaxStages));
+        (int)Layout<HD>::bytes(max_stages<HD>()));
     if (err != cudaSuccess) return (int)err;
     smem_raised<HD, kBranch> = true;
   }
@@ -577,7 +691,8 @@ int launch(const Args& a, cudaStream_t s) {
   cfg.gridDim = dim3(a.n_split, a.kv_heads * ((group + kRows - 1) / kRows),
                      a.batch);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Layout<HD>::bytes(stages_for(a.split_keys));
+  cfg.dynamicSmemBytes =
+      Layout<HD>::bytes(stages_for<HD>(a.split_keys));
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -590,11 +705,12 @@ int launch(const Args& a, cudaStream_t s) {
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// Calls f(std::integral_constant<int, HD>{}) for head_dim 32, 64 or 128;
-// returns false for any other.
+// Calls f(std::integral_constant<int, HD>{}) for head_dim 32, 64, 128 or
+// 256; returns false for any other.
 template <typename F>
 static bool dispatch_hd(int head_dim, F&& f) {
   if (head_dim == 128) f(std::integral_constant<int, 128>{});
+  else if (head_dim == 256) f(std::integral_constant<int, 256>{});
   else if (head_dim == 64) f(std::integral_constant<int, 64>{});
   else if (head_dim == 32) f(std::integral_constant<int, 32>{});
   else return false;

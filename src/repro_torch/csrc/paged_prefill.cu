@@ -43,7 +43,12 @@
 //     and exits at once.
 // fp32 keeps the CUDA-core loop of paged_common.cuh (stream_pages): bf16
 // tensor-core products cannot meet fp32's tolerance. It takes the same
-// lanes launch.
+// lanes launch. Head_dim 32, 64, 128 and 256, each its own instantiation;
+// at 256 (gemma-7b) a bf16 CTA is eight warps, two per m-tile, each
+// owning 128 of the output columns (both compute the m-tile's S and P;
+// a whole row of o would be 128 registers a thread), Q's fragments are
+// read from shared memory in each product, and the fp32 kernel's shared
+// tile is dynamic shared memory.
 //
 // Measured (chip_smoke.py phase 3, bf16, r1-distill-14b's heads, device
 // time with the launches queued; NVIDIA H100 80GB HBM3, 700.00 W): one
@@ -94,6 +99,17 @@ struct MmaLayout {
   static constexpr size_t kBytes = kQ + 2 * 2 * kTile * 2;
 };
 
+// The threads of a bf16 CTA: one warp per m-tile up to head_dim 128; at
+// 256 two, each owning one 128-column half of the m-tile's output (o
+// would otherwise be 128 registers a thread). Both warps of a pair
+// compute the same S and P.
+template <int HD>
+struct MmaCta {
+  static constexpr int kHalves = HD > 128 ? 2 : 1;
+  static constexpr int kCols = HD / kHalves;   // output columns a warp owns
+  static constexpr int kThreads = kWarps * 32 * kHalves;
+};
+
 // Row r of an m-tile: chunk row r / gs of the tile, query head r % gs of
 // the slice (gs = the slice's head count, at most 16).
 struct RowMap {
@@ -102,7 +118,7 @@ struct RowMap {
 };
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
+__global__ void __launch_bounds__(MmaCta<HD>::kThreads) prefill_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
     const bf16* __restrict__ v_pages, const Lanes ln,
     bf16* __restrict__ out, int q_heads, int kv_heads, int num_pages,
@@ -114,7 +130,11 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
   bf16* sq = reinterpret_cast<bf16*>(smem);   // [warp][16][kStride]
   bf16* tiles = reinterpret_cast<bf16*>(smem + L::kQ);   // [stage][K, V]
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int kCta = MmaCta<HD>::kThreads;
+  constexpr int kCols = MmaCta<HD>::kCols;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = (tid / 32) % kWarps;     // the m-tile
+  const int half = tid / 32 / kWarps;       // its column half (256 only)
   const int li = blockIdx.z;
   const int group = q_heads / kv_heads;
   const int slices = (group + kTileRows - 1) / kTileRows;
@@ -132,7 +152,7 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
   const int valid = min(max(ln.valid(li), 0), T);
 
   if (q_start >= valid) {   // every row is padding: exact zeros
-    for (int i = tid; i < nq * map.heads * kChunks; i += kThreads) {
+    for (int i = tid; i < nq * map.heads * kChunks; i += kCta) {
       const int t = q_start + i / (map.heads * kChunks);
       const int hs = (i / kChunks) % map.heads;
       *reinterpret_cast<uint4*>(
@@ -149,7 +169,7 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
   const size_t head = (size_t)h * num_pages * page_size * HD;
 
   // Q of the four m-tiles: unscaled, zeros at rows no chunk row or head owns
-  for (int i = tid; i < kWarps * kTileRows * kChunks; i += kThreads) {
+  for (int i = tid; i < kWarps * kTileRows * kChunks; i += kCta) {
     const int w = i / (kTileRows * kChunks), r = (i / kChunks) % kTileRows;
     const int c = (i % kChunks) * 8;
     const int t = q_start + w * map.rpt + r / gs;
@@ -164,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
   const auto gather = [&](int i, int s) {
     bf16* kd = tiles + (size_t)(2 * s) * L::kTile;
     bf16* vd = kd + L::kTile;
-    for (int idx = tid; idx < tile::kKeys * kChunks; idx += kThreads) {
+    for (int idx = tid; idx < tile::kKeys * kChunks; idx += kCta) {
       const int j = idx / kChunks, c = (idx % kChunks) * 8;
       const int pos = tile::kKeys * i + j;
       const bool vis = pos < horizon;
@@ -195,16 +215,15 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
                                          : 0;
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[HD / 8][4];
+  float o[kCols / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < kCols / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  uint32_t qa[HD / 16][4];
+  tile::QOperand<HD> qa;
   ptx::cp_async_wait<0>();   // Q and tile 0 have landed ...
   __syncthreads();           // ... for every thread
-  if (warp_end > 0)
-    tile::load_q<HD>(qa, sq + warp * kTileRows * kStride, lane);
+  if (warp_end > 0) qa.load(sq + warp * kTileRows * kStride, lane);
   for (int i = 0; i < n_tiles; ++i) {
     if (i > 0) {
       ptx::cp_async_wait<0>();   // tile i has landed ...
@@ -215,9 +234,12 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
     if (k0 < warp_end) {
       const bf16* kt = tiles + (size_t)(2 * (i & 1)) * L::kTile;
       float sc[tile::kKeys / 8][4];
-      tile::qk<HD>(sc, qa, kt, lane);
-      tile::softmax<HD>(sc, m, l, o, k0 + 2 * (lane % 4), lim, scale);
-      tile::pv<HD>(o, sc, kt + L::kTile, lane);
+      qa.qk(sc, kt, lane);
+      tile::softmax<kCols>(sc, m, l, o, k0 + 2 * (lane % 4), lim, scale);
+      if constexpr (kCols == HD)
+        tile::pv<HD>(o, sc, kt + L::kTile, lane);
+      else
+        tile::pv_cols<kCols, HD>(o, sc, kt + L::kTile + half * kCols, lane);
     }
   }
 #pragma unroll
@@ -233,9 +255,9 @@ __global__ void __launch_bounds__(kThreads) prefill_mma_kernel(
     const bool live = t < valid;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     bf16* dst = out + ((row0 + t) * q_heads + qh0 + r % gs) * HD +
-                2 * (lane % 4);
+                half * kCols + 2 * (lane % 4);
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < kCols / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) =
           __floats2bfloat162_rn(live ? o[n][2 * i] * inv : 0.f,
                                 live ? o[n][2 * i + 1] * inv : 0.f);
@@ -266,7 +288,7 @@ int launch_mma(const void* q, const void* k_pages, const void* v_pages,
                                                                : kTileRows));
   const dim3 grid((ln.bucket + block_q - 1) / block_q, kv_heads * slices,
                   n_lanes);
-  kernel<<<grid, kThreads, MmaLayout<HD>::kBytes, s>>>(
+  kernel<<<grid, MmaCta<HD>::kThreads, MmaLayout<HD>::kBytes, s>>>(
       (const bf16*)q, (const bf16*)k_pages, (const bf16*)v_pages, ln,
       (bf16*)out, q_heads, kv_heads, num_pages, page_size, pages_per_seq,
       scale);
@@ -284,9 +306,10 @@ __global__ void __launch_bounds__(kThreads) prefill_f32_kernel(
     const float* __restrict__ v_pages, const Lanes ln,
     float* __restrict__ out, int q_heads, int kv_heads, int num_pages,
     int page_size, int pages_per_seq, int block_q, float scale) {
-  __shared__ Shared<HD> sm;
+  Shared<HD>& sm = shared_struct<Shared<HD>>();
   constexpr int kStep = Dims<HD>::kStep;
   constexpr int kPer = Dims<HD>::kPer;
+  constexpr int kCols = Dims<HD>::kCols;
   const int h = blockIdx.y, li = blockIdx.z, tid = threadIdx.x;
   const int group = q_heads / kv_heads;
   const int T = ln.bucket;
@@ -309,9 +332,9 @@ __global__ void __launch_bounds__(kThreads) prefill_f32_kernel(
     const int t = q_start + tid / group;
     sm.row_end[tid] = (tid < rows && t < valid) ? pos0 + t + 1 : 0;
   }
-  float acc[kPer];
+  float acc[Dims<HD>::kAcc];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Dims<HD>::kAcc; ++i) acc[i] = 0.f;
 
   // the block's causal horizon: the last valid row's position
   const int last = min(q_start + nq, valid);
@@ -328,10 +351,18 @@ __global__ void __launch_bounds__(kThreads) prefill_f32_kernel(
     if (r < rows) {
       const int t = q_start + r / group;
       const size_t dst = (row0 + t) * q_heads + (size_t)h * group + r % group;
-      out[dst * HD + d] = t < valid ? acc[i] / fmaxf(sm.l[r], 1e-30f) : 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        out[dst * HD + d + c * kThreads] =
+            t < valid ? acc[i * kCols + c] / fmaxf(sm.l[r], 1e-30f) : 0.f;
     }
   }
 }
+
+// Whether this library has raised the fp32 kernel's dynamic shared memory
+// limit (head_dim 256 only).
+template <int HD>
+bool f32_smem_raised = false;
 
 }  // namespace
 
@@ -365,7 +396,11 @@ extern "C" int paged_prefill_launch(
     const int block_q = kMaxRows / group;   // group <= kMaxRows
     const dim3 grid((bucket + block_q - 1) / block_q, kv_heads, n_lanes);
     decode::dispatch_hd(head_dim, [&](auto hd) {
-      prefill_f32_kernel<decltype(hd)::value><<<grid, kThreads, 0, s>>>(
+      constexpr int HD = decltype(hd)::value;
+      const auto kernel = prefill_f32_kernel<HD>;
+      rc = (int)opt_in_smem<Shared<HD>>(kernel, f32_smem_raised<HD>);
+      if (rc != 0) return;
+      kernel<<<grid, kThreads, dynamic_smem<Shared<HD>>(), s>>>(
           (const float*)q, (const float*)k_pages, (const float*)v_pages, ln,
           (float*)out, q_heads, kv_heads, num_pages, page_size,
           pages_per_seq, block_q, scale);

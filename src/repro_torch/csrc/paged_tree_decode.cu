@@ -58,6 +58,12 @@
 //     empty partials at exp(0) * 0 = 0, never inf - inf.
 // Table entries are clamped into the pool and loops stop at lengths (see
 // paged_common.cuh), so NaN in a stale page cannot reach a sum.
+// Head_dim 32, 64, 128 and 256, each its own instantiation. At 256
+// (gemma-7b) the bf16 shared pass reads Q's fragments from shared memory
+// in each product (tile::QOperand; o alone is 128 registers a thread), and
+// every pass whose shared tile passes the 48 KB static limit (the bf16
+// shared pass's ~67 KB, the fp32 loop's ~66.5 KB) takes it as dynamic
+// shared memory.
 #include "paged_decode_mma.cuh"
 
 using namespace paged;
@@ -70,11 +76,12 @@ __global__ void __launch_bounds__(kThreads) tree_shared_kernel(
     const int* __restrict__ lengths, float* __restrict__ part, int batch,
     int q_heads, int kv_heads, int num_pages, int page_size,
     int pages_per_seq, int members_per_cta, float scale) {
-  __shared__ Shared<HD> sm;
+  Shared<HD>& sm = shared_struct<Shared<HD>>();
   __shared__ int member[kMaxRows];
   __shared__ int n_members, ctx_end;
   constexpr int kStep = Dims<HD>::kStep;
   constexpr int kPer = Dims<HD>::kPer;
+  constexpr int kCols = Dims<HD>::kCols;
   const int h = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
   const int group = q_heads / kv_heads;
   const int cap = pages_per_seq * page_size;
@@ -108,9 +115,9 @@ __global__ void __launch_bounds__(kThreads) tree_shared_kernel(
     sm.row_end[tid] =
         tid < rows ? min(clamp_to(lengths[member[tid / group]], cap), span)
                    : 0;
-  float acc[kPer];
+  float acc[Dims<HD>::kAcc];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Dims<HD>::kAcc; ++i) acc[i] = 0.f;
 
   const size_t head = (size_t)h * num_pages * page_size * HD;
   stream_pages<T, HD>(sm, acc, k_pages + head, v_pages + head,
@@ -125,7 +132,9 @@ __global__ void __launch_bounds__(kThreads) tree_shared_kernel(
       const size_t dst =
           (size_t)member[r / group] * q_heads + (size_t)h * group + r % group;
       float* out = part + dst * (HD + 2);
-      out[d] = acc[i];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        out[d + c * kThreads] = acc[i * kCols + c];
       if (d == 0) {
         out[HD] = sm.m[r];
         out[HD + 1] = sm.l[r];
@@ -171,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
     float* __restrict__ part, int batch, int q_heads, int kv_heads,
     int num_pages, int page_size, int pages_per_seq, int split_keys,
     float scale) {
-  __shared__ __align__(16) split::Tiles<HD> sm;
+  split::Tiles<HD>& sm = shared_struct<split::Tiles<HD>>();
   static_assert(split::kKeys == 32, "warp 1 reads a tile's pages by lane");
   constexpr int kChunks = HD / 8;      // 16-byte chunks per row
   const int z = blockIdx.x, h = blockIdx.y, g = blockIdx.z;
@@ -274,8 +283,8 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
       const int r = r0 + 8 * i;
       lim[i] = r < rows ? min(sm.member_end[r / group], kv_hi) : 0;
     }
-    uint32_t qa[HD / 16][4];
-    if (active && lo < kv_hi) tile::load_q<HD>(qa, &sm.q[warp * 16][0], lane);
+    tile::QOperand<HD> qa;
+    if (active && lo < kv_hi) qa.load(&sm.q[warp * 16][0], lane);
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
     float o[HD / 8][4];
 #pragma unroll
@@ -293,7 +302,7 @@ __global__ void __launch_bounds__(kThreads) tree_shared_mma_kernel(
       if (!active) continue;
 
       float sc[split::kKeys / 8][4];
-      tile::qk<HD>(sc, qa, &sm.k[0][0], lane);
+      qa.qk(sc, &sm.k[0][0], lane);
       // row r0 + 8 i's keys count while they are < lim[i]
       tile::softmax<HD>(sc, m, l, o, k0 + 2 * (lane % 4), lim, scale);
       tile::pv<HD>(o, sc, &sm.v[0][0], lane);
@@ -338,9 +347,10 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
     float* __restrict__ out, int batch, int q_heads, int kv_heads, int num_pages,
     int page_size, int pages_per_seq, int num_groups, int split_keys,
     int n_split, float scale) {
-  __shared__ Shared<HD> sm;
+  Shared<HD>& sm = shared_struct<Shared<HD>>();
   constexpr int kStep = Dims<HD>::kStep;
   constexpr int kPer = Dims<HD>::kPer;
+  constexpr int kCols = Dims<HD>::kCols;
   const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int group = q_heads / kv_heads;
   const int cap = pages_per_seq * page_size;
@@ -355,9 +365,9 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
     sm.q[i / HD][i % HD] = q[q_row + i] * scale;
   init_rows(sm);
   if (tid < kMaxRows) sm.row_end[tid] = suffix;
-  float acc[kPer];
+  float acc[Dims<HD>::kAcc];
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
+  for (int i = 0; i < Dims<HD>::kAcc; ++i) acc[i] = 0.f;
 
   const size_t head = (size_t)h * num_pages * page_size * HD;
   stream_pages<float, HD>(sm, acc, k_pages + head, v_pages + head,
@@ -377,10 +387,14 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
   for (int i = 0; i < kPer; ++i) {
     const int r = tid / HD + i * kStep;
     if (r < group) {
-      float m = sm.m[r], l = sm.l[r], o = acc[i];
+      float m = sm.m[r], l = sm.l[r], o[kCols];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) o[c] = acc[i * kCols + c];
       if (grouped) {
         const size_t idx = (size_t)b * q_heads + (size_t)h * group + r;
-        float ms = kNegInf, ls = 0.f, os = 0.f;
+        float ms = kNegInf, ls = 0.f, os[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) os[c] = 0.f;
 #pragma unroll 1
         for (int z = 0; z < used; ++z) {
           const float* pz = part + (z * split_stride + idx) * (HD + 2);
@@ -388,18 +402,37 @@ __global__ void __launch_bounds__(kThreads) tree_branch_kernel(
           const float mx = fmaxf(ms, mz);
           const float a = expf(ms - mx), az = expf(mz - mx);
           ls = ls * a + pz[HD + 1] * az;
-          os = os * a + pz[d] * az;
+#pragma unroll
+          for (int c = 0; c < kCols; ++c)
+            os[c] = os[c] * a + pz[d + c * kThreads] * az;
           ms = mx;
         }
         const float mx = fmaxf(ms, m);
         const float as = expf(ms - mx), ab = expf(m - mx);
         l = ls * as + l * ab;
-        o = os * as + o * ab;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) o[c] = os[c] * as + o[c] * ab;
       }
-      out[q_row + (size_t)r * HD + d] = o / fmaxf(l, 1e-30f);
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        out[q_row + (size_t)r * HD + d + c * kThreads] =
+            o[c] / fmaxf(l, 1e-30f);
     }
   }
 }
+
+namespace {
+// Whether this library has raised a kernel's dynamic shared memory limit
+// (the head_dim-256 instantiations; internal linkage: one flag per
+// library): the bf16 shared pass's by its tile struct, the fp32 passes'
+// by head_dim.
+template <typename S>
+bool mma_smem_raised = false;
+template <int HD>
+bool shared_f32_raised = false;
+template <int HD>
+bool branch_f32_raised = false;
+}  // namespace
 
 // Launchers: each returns the cudaError_t of its launch (0 on success).
 // dtype: 0 = fp32, 1 = bf16. The caller has checked shapes, dtypes and
@@ -423,36 +456,41 @@ extern "C" int tree_shared_launch(
     // groups slowest, so the real (low-numbered) groups start first
     const dim3 grid(n_split, kv_heads, num_groups);
     using bf16 = __nv_bfloat16;
-    const auto args = [&](auto kernel) {
-      kernel<<<grid, kThreads, 0, s>>>(
+    int rc = (int)cudaErrorInvalidValue;
+    decode::dispatch_hd(head_dim, [&](auto hd) {
+      constexpr int HD = decltype(hd)::value;
+      using S = split::Tiles<HD>;
+      const auto kernel = tree_shared_mma_kernel<HD>;
+      rc = (int)opt_in_smem<S>(kernel, mma_smem_raised<S>);
+      if (rc != 0) return;
+      kernel<<<grid, kThreads, dynamic_smem<S>(), s>>>(
           (const bf16*)q, (const bf16*)k_pages, (const bf16*)v_pages,
           (const int*)row_group, (const int*)shared_bt,
           (const int*)shared_lens, (const int*)lengths, (float*)part, batch,
           q_heads, kv_heads, num_pages, page_size, pages_per_seq,
           split_keys, scale);
-    };
-    if (head_dim == 128) args(tree_shared_mma_kernel<128>);
-    else if (head_dim == 64) args(tree_shared_mma_kernel<64>);
-    else if (head_dim == 32) args(tree_shared_mma_kernel<32>);
-    else return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+      rc = (int)cudaGetLastError();
+    });
+    return rc;
   }
   if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
   const int per_cta = kMaxRows / group;
   const dim3 grid(kv_heads, num_groups, (batch + per_cta - 1) / per_cta);
-  const auto args = [&](auto kernel) {
-    kernel<<<grid, kThreads, 0, s>>>(
+  int rc = (int)cudaErrorInvalidValue;
+  decode::dispatch_hd(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    const auto kernel = tree_shared_kernel<float, HD>;
+    rc = (int)opt_in_smem<Shared<HD>>(kernel, shared_f32_raised<HD>);
+    if (rc != 0) return;
+    kernel<<<grid, kThreads, dynamic_smem<Shared<HD>>(), s>>>(
         (const float*)q, (const float*)k_pages, (const float*)v_pages,
         (const int*)row_group, (const int*)shared_bt,
         (const int*)shared_lens, (const int*)lengths, (float*)part, batch,
         q_heads, kv_heads, num_pages, page_size, pages_per_seq, per_cta,
         scale);
-  };
-  if (head_dim == 128) args(tree_shared_kernel<float, 128>);
-  else if (head_dim == 64) args(tree_shared_kernel<float, 64>);
-  else if (head_dim == 32) args(tree_shared_kernel<float, 32>);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    rc = (int)cudaGetLastError();
+  });
+  return rc;
 }
 
 // The branch pass merges the shared pass's split partials (in split order,
@@ -503,14 +541,19 @@ extern "C" int tree_branch_launch(
   }
   if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(batch, kv_heads);
-  const bool ok = decode::dispatch_hd(head_dim, [&](auto hd) {
-    tree_branch_kernel<decltype(hd)::value><<<grid, kThreads, 0, s>>>(
+  int rc = (int)cudaErrorInvalidValue;
+  decode::dispatch_hd(head_dim, [&](auto hd) {
+    constexpr int HD = decltype(hd)::value;
+    const auto kernel = tree_branch_kernel<HD>;
+    rc = (int)opt_in_smem<Shared<HD>>(kernel, branch_f32_raised<HD>);
+    if (rc != 0) return;
+    kernel<<<grid, kThreads, dynamic_smem<Shared<HD>>(), s>>>(
         (const float*)q, (const float*)k_pages, (const float*)v_pages,
         (const int*)row_group, (const int*)shared_lens,
         (const int*)branch_bt, (const int*)lengths, (const float*)part,
         (float*)out, batch, q_heads, kv_heads, num_pages, page_size,
         pages_per_seq, num_groups, shared_keys, shared_n, scale);
+    rc = (int)cudaGetLastError();
   });
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return rc;
 }

@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: the head widths every attention kernel (K1, K2, K3, K5) is built for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, Any] = {}
@@ -148,8 +148,9 @@ def stream(t: torch.Tensor) -> int:
 def check_paged_operands(kernel: str, q, k_pages, v_pages,
                          max_group: int) -> None:
     """q [..., H, hd] against K/V pools [kv, P, ps, hd] of q's dtype, with
-    head_dim 32, 64 or 128 and at most ``max_group`` query heads per KV head
-    (what the paged attention launchers are built for), or raise."""
+    a head_dim of ``HEAD_DIMS`` and at most ``max_group`` query heads per
+    KV head (what the paged attention launchers are built for), or
+    raise."""
     q_heads, head_dim = q.shape[-2:]
     kv_heads, hd = k_pages.shape[0], k_pages.shape[-1]
     if k_pages.shape != v_pages.shape or hd != head_dim:

@@ -3,9 +3,9 @@
 Two kernels replace the TPU kernel
 ``repro/kernels/flash_prefill/flash_prefill.py:flash_prefill``, chosen by
 dtype: bf16 runs on the tensor cores (``csrc/flash_prefill_sm90.cu``:
-wgmma fed by TMA, one or two consumer warpgroups of 64 rows per CTA),
-fp32 on the CUDA cores (``csrc/flash_prefill.cu``, 64 rows per CTA),
-since bf16 tensor-core products cannot meet fp32's tolerance. Both are
+wgmma fed by TMA, one or two consumer warpgroups of 64 rows per CTA,
+one at head_dim 256), fp32 on the CUDA cores (``csrc/flash_prefill.cu``,
+64 rows per CTA), since bf16 tensor-core products cannot meet fp32's tolerance. Both are
 forward-only, as the TPU kernel is (no gradient is defined there), so an
 input that requires grad raises. ``launches`` counts the launches this
 wrapper made, of either kernel.
@@ -29,6 +29,7 @@ _SM90_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
 MAX_GROUP = 64          # query heads per KV head (one position's rows)
 MAX_ROWS = 128          # query rows (positions x GQA group) one CTA holds
 WG_ROWS = 64            # rows of one consumer warpgroup (and of fp32 CTAs)
+MAX_WG2_HEAD_DIM = 128  # the widest head two consumer warpgroups take
 
 
 def block_rows(group: int, rows: int = WG_ROWS) -> int:
@@ -38,14 +39,16 @@ def block_rows(group: int, rows: int = WG_ROWS) -> int:
 
 
 def cta_rows(seqlen: int, group: int, kv_heads: int, batch: int,
-             dtype: torch.dtype, num_sms: int) -> int:
+             dtype: torch.dtype, num_sms: int, head_dim: int) -> int:
     """Rows per CTA, a fixed rule: 128 (two consumer warpgroups sharing
     each K/V tile) for bf16 where the grid still has a CTA for each of
     the card's ``num_sms`` SMs, else 64; fp32's CUDA-core kernel always
-    takes 64. r1-distill-14b (group 5, 8 KV heads) on an H100 SXM (132
-    SMs): 88 CTAs of 128 rows at S = 272, so 184 of 64; 1,312 of 128 at
+    takes 64, and so does bf16 at head_dim 256 (a warpgroup's O
+    accumulator is then 128 registers a thread, too many for two).
+    r1-distill-14b (group 5, 8 KV heads) on an H100 SXM (132 SMs): 88
+    CTAs of 128 rows at S = 272, so 184 of 64; 1,312 of 128 at
     S = 4096."""
-    if dtype != torch.bfloat16:
+    if dtype != torch.bfloat16 or head_dim > MAX_WG2_HEAD_DIM:
         return WG_ROWS
     tiles = -(-seqlen // block_rows(group, MAX_ROWS))
     return MAX_ROWS if tiles * kv_heads * batch >= num_sms else WG_ROWS
@@ -61,7 +64,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   true_len: Optional[int] = None) -> torch.Tensor:
     """q [B, S, H, hd]; k, v [B, S, Hkv, hd] with Hkv | H and at most 64
     query heads per KV head; one dtype, fp32 or bf16 (which picks the
-    kernel); head_dim 32, 64 or 128. ``true_len`` is a host int in (0, S]
+    kernel); a head_dim of ``build.HEAD_DIMS`` (32, 64, 128 or 256). ``true_len`` is a host int in (0, S]
     or None (= S). Returns [B, S, H, hd]."""
     global launches
     if any(t.requires_grad for t in (q, k, v)):
@@ -96,7 +99,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = build.stream(q)
     if q.dtype == torch.bfloat16:
         rows = cta_rows(seqlen, group, kv_heads, batch, q.dtype,
-                        _num_sms(q.device))
+                        _num_sms(q.device), head_dim)
         fn = build.function("flash_prefill_sm90",
                             "flash_prefill_sm90_launch", _SM90_ARGTYPES)
         rc = fn(head_dim, q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -120,6 +120,25 @@ class _LargestTensor(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("true_len", [None, 13])
+def test_head_dim_256_matches_pallas_and_ref(rng, causal, true_len):
+    """gemma-7b's head_dim 256 (GQA group 2, non-divisible S): the plain
+    version equals the Pallas kernel (interpret mode) and the jnp ref over
+    the rows before ``true_len``; rows at or past it are exact zeros."""
+    q, k, v = _inputs(rng, 2, 37, 4, 2, 256)
+    out = _port([q, k, v], causal=causal, true_len=true_len)
+    jx = [jnp.asarray(a) for a in (q, k, v)]
+    pallas = np.asarray(jax_k5_pallas(
+        *jx, causal=causal, block_q=16, block_k=16, interpret=True,
+        true_len=true_len))
+    np.testing.assert_allclose(out, pallas, **F32)
+    n = 37 if true_len is None else true_len
+    ref = np.asarray(jax_k5_ref(*[a[:, :n] for a in jx], causal=causal))
+    np.testing.assert_allclose(out[:, :n], ref, **F32)
+    assert np.all(out[:, n:] == 0.0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s,true_len", [(4096, None), (4096, 3001),
                                         (2049, None)])
 def test_long_prompt_blocks_match_jax(causal, s, true_len):
@@ -166,8 +185,9 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(rng):
     """The CUDA wrapper never computes on the CPU and never falls back:
     it raises for CPU tensors (fp32 and bf16, whichever kernel they would
     pick), for inputs that require grad (K5 is forward-only, as the TPU
-    kernel), for head_dim 256 (gemma-7b) and for more than 64 query heads
-    per KV head."""
+    kernel), for a head_dim it is not built for (96) and for more than 64
+    query heads per KV head. Head_dim 256 (gemma-7b) passes its checks and
+    is refused only for lying on the CPU."""
     q, k, v = [torch.from_numpy(a) for a in _inputs(rng, 1, 8, 4, 2, 64)]
     with pytest.raises(ValueError, match="CUDA"):
         flash_prefill(q, k, v)
@@ -175,10 +195,15 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(rng):
         flash_prefill(*[t.to(torch.bfloat16) for t in (q, k, v)])
     with pytest.raises(RuntimeError, match="forward-only"):
         flash_prefill(q.clone().requires_grad_(), k, v)
+    odd = [torch.zeros((1, 8, n, 96)) for n in (4, 2, 2)]
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_prefill(*odd)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_prefill(*[t.to(torch.bfloat16) for t in odd])
     wide = [torch.zeros((1, 8, n, 256)) for n in (4, 2, 2)]
-    with pytest.raises(ValueError, match="head_dim 256"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_prefill(*wide)
-    with pytest.raises(ValueError, match="head_dim 256"):
+    with pytest.raises(ValueError, match="CUDA"):
         flash_prefill(*[t.to(torch.bfloat16) for t in wide])
     many = [torch.zeros((1, 8, n, 32)) for n in (128, 1, 1)]
     with pytest.raises(ValueError, match="128 query heads over 1"):
@@ -211,14 +236,17 @@ H100_SMS = 132      # streaming multiprocessors of an H100 SXM
 ])
 def test_cta_rows_rule(seqlen, group, kv_heads, batch, want):
     """The bf16 tiling rule on an H100 SXM (132 SMs): 128 rows per CTA
-    where that still gives the grid a CTA for each SM, else 64; fp32
-    always 64. Either way every query position lies in exactly one
-    CTA."""
+    where that still gives the grid a CTA for each SM, else 64; fp32, and
+    bf16 at head_dim 256, always 64. Either way every query position lies
+    in exactly one CTA."""
     rows = k5_module.cta_rows(seqlen, group, kv_heads, batch,
-                              torch.bfloat16, H100_SMS)
+                              torch.bfloat16, H100_SMS, 128)
     assert rows == want
     assert k5_module.cta_rows(seqlen, group, kv_heads, batch,
-                              torch.float32, H100_SMS) == 64
+                              torch.float32, H100_SMS, 128) == 64
+    # head_dim 256: one consumer warpgroup in bf16 too
+    assert k5_module.cta_rows(seqlen, group, kv_heads, batch,
+                              torch.bfloat16, H100_SMS, 256) == 64
     per = k5_module.block_rows(group, rows)
     tiles = -(-seqlen // per)
     assert (tiles - 1) * per < seqlen <= tiles * per
@@ -247,6 +275,11 @@ CARD_CASES = {
     "true_len": (1, 272, 40, 8, 128, True, 200),
     # 16 key tiles through the TMA ring, the last one partial
     "ring_wrap": (1, 1000, 40, 8, 128, True, 997),
+    # gemma-7b's 16/16 heads of 256: its admissions, non-causal, a
+    # true_len, the ring wrapped
+    "gemma256_272": (1, 272, 16, 16, 256, True, None),
+    "gemma256_noncausal_true_len": (2, 48, 16, 16, 256, False, 13),
+    "gemma256_ring_wrap": (1, 1000, 16, 16, 256, True, 997),
 }
 
 

@@ -80,6 +80,8 @@ DECODE_CASES = {
     "group2_zero": (4, 2, 64, 4, 6, [0, 5, 24, 13]),
     "group5_r1": (10, 2, 128, 16, 3, [17, 0, 48, 33]),
     "group7_qwen2": (14, 2, 64, 16, 4, [64, 1, 30]),
+    # gemma-7b's head_dim 256 and GQA group 1: ragged ends, a length-0 row
+    "group1_gemma256": (4, 4, 256, 16, 4, [17, 0, 64, 33, 1]),
 }
 
 
@@ -178,6 +180,8 @@ SPLIT_CASES = {
     "group5_two_splits": (10, 2, 128, 16, 80,
                           [1280, 1025, 1024, 1023, 0, 1, 700]),
     "group2_four_splits": (4, 2, 32, 16, 200, [3200, 2049, 0, 3000, 1]),
+    # head_dim 256 (gemma-7b, group 1) across two of the rule's splits
+    "group1_hd256_two_splits": (2, 2, 256, 16, 80, [1280, 1025, 0, 300, 1]),
 }
 
 
@@ -233,6 +237,7 @@ PREFILL_CASES = {
     "pos0_mid_page": (8, 6, 8, 4, 4, 64, 4, 6),
     "group5_mid_page_pad": (16, 37, 11, 10, 2, 128, 16, 4),
     "group7_one_valid_row": (8, 13, 1, 14, 2, 64, 8, 4),
+    "group1_hd256_mid_page_pad": (16, 37, 11, 4, 4, 256, 16, 4),
 }
 
 
@@ -283,6 +288,7 @@ LANES_CASES = {
     "group5_one_valid_row": (10, 2, 128, 16, 4, 16,
                              [(37, 11), (0, 16), (20, 1), (5, 9)]),
     "group7_mid_page": (14, 2, 64, 8, 4, 8, [(13, 1), (3, 8), (10, 6)]),
+    "group1_hd256": (4, 4, 256, 16, 4, 16, [(37, 11), (0, 16), (20, 1)]),
 }
 
 
@@ -486,14 +492,16 @@ def test_prefill_kernel_matches_plain_on_card(cuda, case, dtype, tol, rng):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
-def test_prefill_kernel_four_lanes_on_card(cuda, dtype, tol, rng):
+@pytest.mark.parametrize("heads", [(40, 8, 128), (16, 16, 256)])
+def test_prefill_kernel_four_lanes_on_card(cuda, heads, dtype, tol, rng):
     """CUDA K2 over four lanes of bucket 32 in one launch (pos0 0, 37,
-    256, 496; valid 17, 32, 1, 9; r1-distill-14b's heads) = the plain
-    version lane by lane, and each lane bit-equal to that lane launched
-    alone."""
+    256, 496; valid 17, 32, 1, 9; r1-distill-14b's heads, and gemma-7b's
+    16/16 of 256) = the plain version lane by lane, and each lane
+    bit-equal to that lane launched alone."""
     lanes = [(0, 17), (37, 32), (256, 1), (496, 9)]
+    qh, kvh, hd = heads
     q, k, v, bt, pos, lens = (a.to(cuda) for a in _torch(*_lanes_inputs(
-        rng, bucket=32, lanes=lanes, q_heads=40, kv_heads=8, hd=128, ps=16,
+        rng, bucket=32, lanes=lanes, q_heads=qh, kv_heads=kvh, hd=hd, ps=16,
         width=32)))
     q, k, v = (a.to(dtype) for a in (q, k, v))
     out = paged_flash_prefill_lanes(q, k, v, bt, pos, lens, (32,) * 4)
@@ -506,10 +514,10 @@ def test_prefill_kernel_four_lanes_on_card(cuda, dtype, tol, rng):
 
 
 @pytest.mark.parametrize("hd,ok", [(32, True), (64, True), (128, True),
-                                   (16, False), (256, False)])
+                                   (256, True), (16, False), (96, False)])
 def test_paged_operands_head_dims(hd, ok):
-    """K1-K3 take head_dim 32 (the serve launcher's fallback trunks), 64
-    and 128; any other width raises before a launch."""
+    """K1-K3 take head_dim 32 (the serve launcher's fallback trunks), 64,
+    128 and 256 (gemma-7b); any other width raises before a launch."""
     q = torch.zeros((2, 4, hd))
     pages = torch.zeros((2, 3, 4, hd))
     if ok:

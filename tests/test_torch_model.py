@@ -27,11 +27,14 @@ from repro_torch.models import attention
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 FAMILIES = ["dense", "swa", "ssm", "hybrid"]
+# the gemma-like family at gemma-7b's head_dim of 256
+WIDE = {"gemma256": dict(FAMILY_CONFIGS["gemma_like"], head_dim=256)}
 
 
 def _both(family, **kw):
     """(jax model, jax params, port model, port params), equal weights."""
-    cfg = tiny_config(**{**FAMILY_CONFIGS.get(family, {}), **kw})
+    cfg = tiny_config(**{**FAMILY_CONFIGS.get(family, WIDE.get(family, {})),
+                         **kw})
     jm = JModel(cfg)
     jp = jm.init_params(jax.random.PRNGKey(0))
     tm = Model(ModelConfig(**dataclasses.asdict(cfg)), device="cpu")
@@ -57,7 +60,7 @@ def _close_caches(tc, jc):
                                    err_msg=key)
 
 
-@pytest.mark.parametrize("family", FAMILIES + ["gemma_like"])
+@pytest.mark.parametrize("family", FAMILIES + ["gemma_like", "gemma256"])
 def test_forward_prefill_decode_match_jax(family):
     """B=2, S=20 (longer than the swa window of 8): forward logits,
     prefill's last logits and cache, one decode step's logits, hidden and
@@ -98,7 +101,7 @@ def test_forward_prefill_decode_match_jax(family):
     _close_caches(tcache, jcache)
 
 
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", FAMILIES + ["gemma256"])
 def test_multi_step_decode_matches_jax(family):
     """A 12-token prefill, then 6 decode steps fed the true next tokens:
     each step's logits equal the reference's step and the port's own

@@ -133,6 +133,10 @@ TOPOLOGIES = {
     # a 1-member group, and a batch in no group at all
     "one_member_group": ({}, [(2, [2 * 4 + 3])], [9, 5]),
     "all_ungrouped": ({}, [], [13, 6, 2]),
+    # gemma-7b's head_dim 256 and GQA group 1
+    "gemma256_mha": (dict(qh=4, kvh=4, hd=256),
+                     [(2, [2 * 4 + 5, 2 * 4 + 1, 2 * 4 + 9]),
+                      (1, [4 + 3, 4 + 4])], [7]),
 }
 
 
@@ -273,6 +277,10 @@ SPLIT_TOPOLOGIES = {
     # clusters on a card), an ungrouped row at the capacity
     "group7_two_splits": (dict(qh=14, kvh=2, hd=64, ps=16),
                           [(2, [32 + 1100, 32 + 500, 20])], [1200, 0]),
+    # head_dim 256 (gemma-7b, group 1): suffixes across two splits, rows
+    # of length 0 and 1
+    "group1_hd256_two_splits": (dict(qh=2, kvh=2, hd=256, ps=16),
+                                [(2, [32 + 1100, 32 + 17, 1])], [1100, 0]),
 }
 
 
@@ -520,18 +528,20 @@ def test_branch_refuses_split_partials_of_the_wrong_shape(case):
 
 
 def test_cuda_pair_refuses_head_dim_256():
-    """head_dim 256 (gemma-7b) is refused by both passes, before any
-    launch."""
-    t = _topology(24, [(1, [4 + 2, 4 + 3])], [], hd=256)
-    q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
-    rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tree_decode.paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        tree_decode.paged_tree_branch_fwd(
-            q, kp, vp, rg, sl, bbt, ln,
-            torch.zeros((1, *q.shape[:2], q.shape[2] + 2)),
-            kp.shape[2] * bbt.shape[1])
+    """A head_dim the kernels do not take (96) is refused by both passes
+    before any launch; head_dim 256 (gemma-7b) passes both passes' operand
+    check and is refused only for lying on the CPU."""
+    for hd, match in ((96, "head_dim 96"), (256, "CUDA")):
+        t = _topology(24, [(1, [4 + 2, 4 + 3])], [], hd=hd)
+        q, kp, vp = (torch.from_numpy(t[k]) for k in ("q", "kp", "vp"))
+        rg, sbt, sl, bbt, ln = (torch.from_numpy(t[k]) for k in _MAP)
+        with pytest.raises(ValueError, match=match):
+            tree_decode.paged_tree_shared_fwd(q, kp, vp, rg, sbt, sl, ln)
+        with pytest.raises(ValueError, match=match):
+            tree_decode.paged_tree_branch_fwd(
+                q, kp, vp, rg, sl, bbt, ln,
+                torch.zeros((1, *q.shape[:2], q.shape[2] + 2)),
+                kp.shape[2] * bbt.shape[1])
     assert tree_decode.shared_launches == tree_decode.branch_launches == 0
 
 
