@@ -80,7 +80,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``Model.prefill`` + ``decode_step`` (dense and
                sliding-window); the launcher's dense and hybrid fallback
                trunks (head_dim 32) serving on the card; the card's
-               engines step through their CUDA graphs;
+               engines step through their CUDA graphs; last, a fault
+               case: the smoke 14B in fp32 with the prefix cache,
+               greedy, 3 requests behind a ``FaultInjector`` whose plan
+               storms oop, raises step faults and crashes at step 12
+               (``FAULT_PARITY_PLAN``): the card's engine must give the
+               CPU engine's trajectory and injected counts;
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
@@ -150,7 +155,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                identical and logit difference 0.0 eager against graphs.
                Prints each run's step p50 beside the bound from the bytes
                a step streams, the peak memory and each variant's capture
-               time.
+               time;
+ 13. chaos   — runs after phase 7, on its r1-distill-14b model and
+               weights, each run on a fresh engine of run_serving's
+               config with the prefix cache on, under the seeded
+               ``CHAOS_PLAN`` (oop storms, step faults, corrupted logits
+               after a step that ran, slow steps, a crash at step 60,
+               transient admission faults). Run A: phase 5's traffic
+               plus a fifth request holding the poison token ``tk.STEP``
+               (K1, K2): the four clean requests finish, the poisoned one
+               ends quarantined, every fault category fires, at least one
+               restart and one recovery. Run B: phase 5's traffic greedy
+               on two fresh engines, bare and behind an empty plan: every
+               branch's tokens and the trajectory equal. Run C: phase 6's
+               shared-header traffic with tree decode (K3; K1 never)
+               under the plan without the poison token (the header's
+               traces hold ``tk.STEP``). In A and C: no slot or page held
+               at the end, allocator invariants, finite hidden states,
+               replays = the inner engine's decode steps (oop, step and
+               crash faults raise before a step; a nan fault is a replay
+               whose output is thrown away), each captured variant
+               captured once. Prints one ``[chaos]`` line a run and the
+               phase's seconds. The injected faults are caught by the
+               scheduler: anything that escapes ``Scheduler.run`` fails
+               the phase.
 
 Phase 3 also holds the head_dim-256 instantiations of K1, K2, both K3
 passes and K5 at gemma-7b's serve shapes (16/16 heads of 256, group 1):
@@ -163,11 +191,12 @@ and tree, exact; and ``Model``). The JSON line lists the head_dim-256
 kernels as rows of their own (``<name>_hd256``), their launches from
 phase 12.
 
-Phases 5, 6 (tree and paged), 7 (its decode steps), 8, 10, 11 and 12
-serve through the step graphs; a capture or replay that fails raises,
+Phases 5, 6 (tree and paged), 7 (its decode steps), 8, 10, 11, 12 and
+13 serve through the step graphs; a capture or replay that fails raises,
 and nothing falls back to the eager step.
 
-Then one JSON line ``{"kernels": [...]}``, the nvidia-smi line, and last
+Then one JSON line ``{"kernels": [...]}`` (``launches_chaos``: phase
+13's runs A and C), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
 ``src/`` beside this file, it exits non-zero and prints no result.
 """
@@ -184,6 +213,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1620,6 +1650,68 @@ def phase_parity(torch):
                       f"{flash_prefill.launches} times")
     _model_parity(torch)
     _fallback_trunks(torch)
+    _fault_parity(torch)
+
+
+FAULT_PARITY_PLAN = "seed=0,step_rate=0.05,oop_rate=0.2,crash_at=12"
+
+
+def _fault_parity(torch):
+    """Phase 4's fault case: r1-distill-14b's smoke widths in fp32 with
+    the prefix cache, greedy, a noise-free oracle, 3 problems under SART
+    (n=2, m=1, window 8, 24 tokens) behind ``FAULT_PARITY_PLAN`` (an oop
+    storm, step faults and a crash at step 12). The injector's draws do
+    not depend on the device, so the card's engine (kernels, graphs)
+    must give the CPU engine's trajectory and injected counts."""
+    from repro_torch.configs import smoke
+    from repro_torch.core import OraclePRM, Scheduler, SchedulerConfig
+    from repro_torch.data import tasks
+    from repro_torch.models import Model
+    from repro_torch.serving import (Engine, EngineConfig, FaultInjector,
+                                     FaultPlan, SamplingParams)
+    cfg = smoke("r1-distill-14b")
+    cpu_model = Model(cfg, device="cpu")
+    params = cpu_model.init_params(torch.Generator().manual_seed(0))
+    gpu_model = Model(cfg, device=DEVICE)
+    gpu_params = {k: _to(v, DEVICE) for k, v in params.items()}
+    gpu_model.load_params(gpu_params)
+    ecfg = EngineConfig(page_size=4, num_pages=64, max_slots=6,
+                        max_pages_per_branch=24, prefill_chunk=16,
+                        prefix_cache=True,
+                        sampling=SamplingParams(temperature=0.0))
+    runs = []
+    for model, p in ((cpu_model, params), (gpu_model, gpu_params)):
+        eng = Engine(model, p, ecfg)
+        sch = Scheduler(FaultInjector(eng, FaultPlan.parse(
+            FAULT_PARITY_PLAN)), OraclePRM(tasks.oracle_grader, noise=0.0,
+                                           seed=2),
+            SchedulerConfig(policy="sart", n=2, m=1, window=8,
+                            max_tokens=24),
+            answer_fn=tasks.extract_answer)
+        rng = np.random.default_rng(3)
+        for i in range(3):
+            prob = tasks.gen_problem(rng)
+            sch.submit(prob.prompt_tokens(), payload=prob, arrival=i * 2)
+        m = sch.run(max_steps=50_000)
+        eng.allocator.check_invariants()
+        check(all(h is None for h in eng.slots)
+              and eng.allocator.used_pages == 0,
+              "the fault parity engine held a slot or a page")
+        runs.append((_digest(m), m["faults"]))
+    _check_graphs(eng, "the card's fault parity engine")
+    _check_captures(eng, "the card's fault parity engine")
+    (d_cpu, f_cpu), (d_gpu, f_gpu) = runs
+    inj = f_gpu["injected"]
+    ok = d_cpu == d_gpu and f_cpu == f_gpu
+    print(f"[parity] faults under {FAULT_PARITY_PLAN!r}: trajectory equal "
+          f"{d_cpu == d_gpu}, fault counters equal {f_cpu == f_gpu}; "
+          f"injected {inj}; restarts {f_gpu['engine_restarts']}; decode "
+          f"steps {d_gpu[1]}; {'ok' if ok else 'FAIL'}")
+    check(ok, f"the card's engine under faults disagrees with the CPU's: "
+              f"{f_cpu} against {f_gpu}")
+    check(inj["crash"] == 1 and inj["oop"] > 0
+          and f_gpu["engine_restarts"] >= 1,
+          f"the fault parity plan did not crash and storm: {f_gpu}")
 
 
 def _model_parity(torch):
@@ -1820,7 +1912,8 @@ def few_shot_header(n_tokens: int, seed: int):
 def _serve_setup(torch, model, params, *, shared_header: bool,
                  decode_kernel: str = "paged", temperature: float = 0.9,
                  engine=None, num_requests: int = 4, n: int = 8,
-                 max_tokens: int = 96):
+                 max_tokens: int = 96, prefix_cache: Optional[bool] = None,
+                 fault_plan: Optional[str] = None, poisoned: bool = False):
     """The engine and scheduler of a serve phase's traffic: 4 requests
     every 8 steps under SART (n=8, window 8, max 96 tokens, OraclePRM
     noise 0.05; phase 11 takes 2 requests, n=4, max 48) on run_serving's
@@ -1830,27 +1923,40 @@ def _serve_setup(torch, model, params, *, shared_header: bool,
     whole pages, then each request's own problem) and the prefix cache
     on; else phase 5's (run_serving's synthetic problems). Built here so
     that the launcher gains no feature the reference lacks. A given
-    ``engine`` (idle, with no page held) is served again."""
+    ``engine`` (idle, with no page held) is served again.
+    ``prefix_cache`` overrides the cache's default; ``fault_plan`` (a
+    ``FaultPlan.parse`` string, "" the empty plan) puts a
+    ``FaultInjector`` between the scheduler and the engine; ``poisoned``
+    adds one more request, the next synthetic problem with the poison
+    token ``tk.STEP`` (never in a problem's prompt) as its second token.
+    Returns the engine itself, never the injector, and the scheduler."""
     from repro_torch.core import OraclePRM, Scheduler, SchedulerConfig
     from repro_torch.data import tasks
     from repro_torch.data import tokenizer as tk
-    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    from repro_torch.serving import (Engine, EngineConfig, FaultInjector,
+                                     FaultPlan, SamplingParams)
     seed = 0
     if shared_header:
         prompts, probs = _shared_header_prompts(seed)
     else:
         rng = np.random.default_rng(seed + 2)
-        probs = [tasks.gen_problem(rng) for _ in range(num_requests)]
+        probs = [tasks.gen_problem(rng)
+                 for _ in range(num_requests + poisoned)]
         prompts = [p.prompt_tokens() for p in probs]
+        if poisoned:
+            prompts[-1][1] = tk.STEP
     if engine is None:
         engine = Engine(model, params, EngineConfig(
             page_size=16, num_pages=4096, max_slots=16,
             max_pages_per_branch=32, eos_id=tk.EOS,
             sampling=SamplingParams(temperature=temperature, top_p=0.95),
-            seed=seed, prefix_cache=shared_header,
+            seed=seed, prefix_cache=(shared_header if prefix_cache is None
+                                     else prefix_cache),
             decode_kernel=decode_kernel))
+    driven = (engine if fault_plan is None
+              else FaultInjector(engine, FaultPlan.parse(fault_plan)))
     prm = OraclePRM(tasks.oracle_grader, noise=0.05, seed=seed + 1)
-    sch = Scheduler(engine, prm, SchedulerConfig(policy="sart", n=n,
+    sch = Scheduler(driven, prm, SchedulerConfig(policy="sart", n=n,
                                                  window=8,
                                                  max_tokens=max_tokens),
                     answer_fn=tasks.extract_answer)
@@ -2132,6 +2238,192 @@ def phase_exact_serve(torch, model, params, paged_p50: float,
     check(finite, "non-finite logits from Model.prefill/decode_step")
     del cache, lg
     return line
+
+
+# phase 13's fault plan; run A adds ``poison_token``. The seed is one at
+# which every category fires in run A: the draws depend only on the
+# order of steps and admissions, which random weights (no branch ends
+# before ``max_tokens``) keep the same on every device
+CHAOS_PLAN = ("seed=116,step_rate=0.04,oop_rate=0.03,nan_rate=0.03,"
+              "slow_rate=0.05,crash_at=60,admit_fail_rate=0.2")
+CHAOS_KINDS = ("oop", "step", "nan", "slow", "crash", "admit", "poisoned")
+
+
+def _check_captures(engine, what: str) -> None:
+    """Each captured variant was captured once: a restart or a raised
+    step recaptured nothing."""
+    caps = {name: g.captures for name, g in engine.step_graphs.items()
+            if g.graph is not None}
+    check(all(n == 1 for n in caps.values()),
+          f"{what}: a variant was captured again: {caps}")
+
+
+def _chaos_run(torch, model, params, tag: str, *, plan: str,
+               shared_header: bool, decode_kernel: str, poisoned: bool):
+    """One serve of phase 5's traffic (``poisoned``: plus a fifth request
+    holding the poison token) or phase 6's under ``plan``, with the
+    prefix cache on, on a fresh engine. Launch counters are zeroed just
+    before the run and read just after. Every injected fault is caught
+    by the scheduler; anything that escapes ``Scheduler.run`` fails the
+    phase. Returns (line, launches)."""
+    from repro_torch.kernels.flash_prefill import paged_prefill
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     tree_decode)
+    gc.collect()                 # the previous engine and its KV pools
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    engine, sch = _serve_setup(torch, model, params,
+                               shared_header=shared_header,
+                               decode_kernel=decode_kernel,
+                               prefix_cache=True, fault_plan=plan,
+                               poisoned=poisoned)
+    paged_attention.launches = 0
+    paged_prefill.launches = 0
+    tree_decode.shared_launches = tree_decode.branch_launches = 0
+    t0 = time.perf_counter()
+    metrics = sch.run(max_steps=2_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recorded = {"paged_decode": paged_attention.launches,
+                "paged_prefill": paged_prefill.launches,
+                "paged_tree_shared": tree_decode.shared_launches,
+                "paged_tree_branch": tree_decode.branch_launches}
+    launches = _path_launches(engine, recorded)
+    faults = metrics["faults"]
+    steps = sorted(engine.step_seconds)
+    line = {
+        "run": tag, "decode_kernel": decode_kernel,
+        "completed_requests": metrics["completed_requests"],
+        "quarantined": [r["request_id"] for r in metrics["requests"]
+                        if r["quarantined"]],
+        "clock": metrics["clock"],
+        "decode_steps": engine.decode_steps_executed,
+        "mixed_steps": engine.mixed_steps_executed,
+        "wall_s": round(wall, 3),
+        "step_ms_p50": round(steps[len(steps) // 2] * 1e3, 3),
+        "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        "faults": faults,
+        "launches": launches,
+        "prefix_cache": engine.prefix_cache_stats(),
+        "used_pages": engine.allocator.used_pages,
+        "graphs": dict(_graph_stats(engine), captures={
+            name: g.captures for name, g in engine.step_graphs.items()}),
+    }
+    print("[chaos] " + json.dumps(line))
+    what = f"chaos run {tag}"
+    poison_id = len(metrics["requests"]) - 1 if poisoned else None
+    for r in metrics["requests"]:
+        if r["request_id"] == poison_id:
+            reason = sch.requests[poison_id].quarantine_reason or ""
+            check(r["quarantined"] and r["finish"] is None
+                  and "PoisonedRequestFault" in reason
+                  and r["retries"] == sch.cfg.retry_budget + 1,
+                  f"{what}: the poisoned request was not quarantined: {r}")
+        else:
+            check(r["finish"] is not None and not r["quarantined"],
+                  f"{what}: request {r['request_id']} did not finish: {r}")
+    inj = faults["injected"]
+    check(inj["crash"] == 1 and faults["engine_restarts"] >= 1
+          and faults["recovered"] >= 1,
+          f"{what}: no crash, restart and recovery: {faults}")
+    engine.allocator.check_invariants()
+    check(all(h is None for h in engine.slots), f"{what}: a slot is held")
+    check(engine.allocator.used_pages == 0,
+          f"{what}: pages held outside the prefix cache")
+    check(bool(torch.isfinite(engine._last_hidden.float()).all()),
+          f"{what}: non-finite hidden state")
+    # oop, step and crash faults raise before the step runs; a nan fault
+    # is a step that ran (one replay) whose output was thrown away
+    _check_graphs(engine, what)
+    _check_captures(engine, what)
+    L = model.cfg.num_layers
+    check(launches["paged_prefill"] == L * engine.mixed_steps_executed,
+          f"{what}: K2 did not launch once per layer per mixed step: "
+          f"{launches}, {engine.mixed_steps_executed} mixed steps")
+    if decode_kernel == "tree":
+        _check_tree_launches(model, line, launches)
+    else:
+        check(launches["paged_decode"] == L * engine.decode_steps_executed,
+              f"{what}: K1 did not launch on every step: {launches}")
+    del engine, sch
+    return line, launches
+
+
+def _chaos_inert(torch, model, params) -> None:
+    """Run B: phase 5's traffic, greedy, on two fresh engines with the same
+    seed, one bare and one behind ``FaultInjector(engine, FaultPlan())``:
+    every branch's tokens and the scheduler's trajectory must be equal."""
+    runs = []
+    for plan in (None, ""):
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, sch = _serve_setup(torch, model, params,
+                                   shared_header=False, temperature=0.0,
+                                   prefix_cache=True, fault_plan=plan)
+        branches, free = {}, engine.free_branch
+
+        def recording_free(h, _free=free, _out=branches):
+            _out[h.branch_id] = (h.request_id, tuple(h.tokens))
+            return _free(h)
+        engine.free_branch = recording_free
+        metrics = sch.run(max_steps=2_000_000)
+        torch.cuda.synchronize()
+        _check_graphs(engine, "chaos run B")
+        check(metrics["faults"]["step_faults"] == 0
+              and engine.allocator.used_pages == 0,
+              f"chaos run B: faults or leaked pages: {metrics['faults']}")
+        runs.append((branches, _digest(metrics),
+                     metrics["faults"].get("injected")))
+        del engine, sch
+    (b0, d0, _), (b1, d1, inj) = runs
+    line = {"run": "B", "branches": len(b0), "decode_steps": d0[1],
+            "clock": d0[0], "tokens_equal": b0 == b1,
+            "digest_equal": d0 == d1, "injected": inj}
+    print("[chaos] " + json.dumps(line))
+    check(b0 == b1 and d0 == d1 and len(b0) > 0,
+          "chaos run B: the empty plan changed the run")
+    check(inj is not None and sum(v for k, v in inj.items()
+                                  if k != "steps_seen") == 0,
+          f"chaos run B: the empty plan injected: {inj}")
+
+
+def _digest(m):
+    """A scheduler run's trajectory (``tests/test_faults.py:_digest``)."""
+    recs = tuple(
+        (r["request_id"], r["arrival"], r["first_service"], r["ttfb"],
+         r["finish"], r["e2e"], r["num_completed"], r["num_pruned"],
+         r["answer"], tuple(r["response_lengths"]))
+        for r in m["requests"])
+    return m["clock"], m["decode_steps"], recs
+
+
+def phase_chaos(torch, model, params) -> dict:
+    """Phase 13: r1-distill-14b (phases 5-7's model and weights) under a
+    seeded fault plan, each run on a fresh engine of run_serving's
+    config with the prefix cache on. Run A: phase 5's traffic plus a
+    poisoned fifth request under ``CHAOS_PLAN`` with the poison token;
+    run B: the empty plan is inert (greedy, bare against injected); run
+    C: phase 6's shared-header traffic with tree decode under the same
+    plan without the poison token (the few-shot header holds ``tk.STEP``
+    in its traces). Returns the launches of runs A and C."""
+    from repro_torch.data import tokenizer as tk
+    t_phase = time.perf_counter()
+    plan_a = f"{CHAOS_PLAN},poison_token={tk.STEP}"
+    run_a, launches = _chaos_run(torch, model, params, "A", plan=plan_a,
+                                 shared_header=False,
+                                 decode_kernel="paged", poisoned=True)
+    inj = run_a["faults"]["injected"]
+    check(all(inj[k] > 0 for k in CHAOS_KINDS),
+          f"chaos run A: a fault category never fired: {inj}")
+    _chaos_inert(torch, model, params)
+    _, tree = _chaos_run(torch, model, params, "C", plan=CHAOS_PLAN,
+                         shared_header=True, decode_kernel="tree",
+                         poisoned=False)
+    for k, n in tree.items():
+        launches[k] = launches.get(k, 0) + n
+    print(f"[chaos] plan A {plan_a!r}; plan C {CHAOS_PLAN!r}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def phase_ssm_serve(torch):
@@ -2744,6 +3036,8 @@ def main() -> int:
         launches[name] = tree_run[name]
     launches["flash_prefill"] = phase_exact_serve(
         torch, model, params, paged_p50)["launches"]["flash_prefill"]
+    # phase 13 on the same weights: the serve path under a fault plan
+    chaos = phase_chaos(torch, model, params)
     del model, params
     launches["ssd_scan"] = phase_ssm_serve(torch)["ssd_scan"]
     phase_graphs(torch)
@@ -2816,6 +3110,8 @@ def main() -> int:
         })
         if moe_line["launches"].get(name):
             kernels[-1]["launches_qwen3_moe"] = moe_line["launches"][name]
+        if chaos.get(name):
+            kernels[-1]["launches_chaos"] = chaos[name]
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")
                   ) and (k["library_ms"] is None

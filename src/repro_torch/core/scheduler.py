@@ -21,8 +21,9 @@ Public contracts (documented in docs/architecture.md and
 docs/scheduling.md, which deep-link here):
 
   * **Engine-agnostic**: the scheduler drives anything implementing the
-    engine interface (``repro_torch.serving.Engine``) through the same
-    code path — policies compare on identical control flow.
+    engine interface (``repro_torch.serving.Engine`` live, ``SimEngine``
+    traced) through the same code path — policies compare on identical
+    control flow.
   * **Admission keeps the chunk lanes fed**: ``_admit_one`` keeps up to
     ``engine.admission_capacity`` prefills in flight (1 for legacy
     single-lane engines); ``_poll_prefills`` harvests finished prefills

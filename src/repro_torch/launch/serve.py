@@ -14,7 +14,8 @@ own model — ``chip_smoke.py`` serves r1-distill-14b and mamba2-130m —
 drives the same run. Runs on the CUDA card unless ``--device cpu``; the
 fallback trunks keep the reference's widths (32-wide attention heads,
 which K1-K3 take), so every ``--arch`` runs on the card as on the CPU.
-Fault plans are not ported yet.
+``--fault-plan`` drives the run through a seeded ``FaultInjector``; the
+output's ``faults`` dict then carries the injector's tallies.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from ..data import tasks
 from ..data import tokenizer as tk
 from ..device import resolve_device
 from ..models import Model, ModelConfig, params_from_numpy
-from ..serving import Engine, EngineConfig, SamplingParams
+from ..serving import (Engine, EngineConfig, FaultInjector, FaultPlan,
+                       SamplingParams)
 
 
 # untrained-fallback trunks per family (scheduling behaviour only): lets the
@@ -95,10 +97,14 @@ def run_serving(model: Model, params: dict, prm_head: Optional[dict], *,
                 mixed_step_kernel: str = "fused",
                 step_token_budget: int = 0, prefix_cache: bool = False,
                 admission_policy: str = "fifo",
-                deadline: Optional[int] = None) -> Tuple[dict, Engine]:
+                deadline: Optional[int] = None,
+                fault_plan: Optional[str] = None) -> Tuple[dict, Engine]:
     """Serve ``num_requests`` synthetic problems arriving every
-    ``rate_gap`` decode steps under ``policy``. Returns the summary dict
-    of the reference's ``serve`` and the engine (for its counters)."""
+    ``rate_gap`` decode steps under ``policy``. ``fault_plan`` (a
+    ``FaultPlan.parse`` string) puts a seeded ``FaultInjector`` between
+    the scheduler and the engine. Returns the summary dict of the
+    reference's ``serve`` and the engine itself, never the injector (for
+    its counters)."""
     engine = Engine(model, params, EngineConfig(
         page_size=16, num_pages=4096, max_slots=max_slots,
         max_pages_per_branch=32, eos_id=tk.EOS,
@@ -110,7 +116,11 @@ def run_serving(model: Model, params: dict, prm_head: Optional[dict], *,
         prm = RewardHeadPRM(engine)
     else:
         prm = OraclePRM(tasks.oracle_grader, noise=0.05, seed=seed + 1)
-    sch = Scheduler(engine, prm,
+    driven = engine
+    if fault_plan:
+        # the scheduler drives the injector through the engine's interface
+        driven = FaultInjector(engine, FaultPlan.parse(fault_plan))
+    sch = Scheduler(driven, prm,
                     SchedulerConfig(policy=policy, n=n, window=window,
                                     max_tokens=max_tokens,
                                     admission_policy=admission_policy),
@@ -162,7 +172,7 @@ def serve(policy: str, n: int, num_requests: int, rate_gap: int,
           mixed_step_kernel: str = "fused", step_token_budget: int = 0,
           prefix_cache: bool = False, admission_policy: str = "fifo",
           deadline: Optional[int] = None, device=None,
-          arch: str = "dense") -> dict:
+          arch: str = "dense", fault_plan: Optional[str] = None) -> dict:
     """``load_reasoner`` then ``run_serving``; returns the summary dict."""
     model, params, prm_head = load_reasoner(ckpt, device, arch)
     out, _ = run_serving(
@@ -171,7 +181,8 @@ def serve(policy: str, n: int, num_requests: int, rate_gap: int,
         window=window, max_tokens=max_tokens, max_slots=max_slots, seed=seed,
         temperature=temperature, mixed_step_kernel=mixed_step_kernel,
         step_token_budget=step_token_budget, prefix_cache=prefix_cache,
-        admission_policy=admission_policy, deadline=deadline)
+        admission_policy=admission_policy, deadline=deadline,
+        fault_plan=fault_plan)
     return out
 
 
@@ -210,6 +221,13 @@ def main():
     ap.add_argument("--deadline", type=int, default=None,
                     help="per-request SLO: finish within this many decode "
                          "steps of arrival")
+    ap.add_argument("--fault-plan", default=None,
+                    help="seeded chaos injection, e.g. "
+                         "'seed=3,step_rate=0.1,oop_rate=0.05,crash_at=50"
+                         "+120,poison_token=5' (see FaultPlan.parse); the "
+                         "run reports quarantine/retry/restart/recovered "
+                         "counters and the injector's tallies under "
+                         "'faults'")
     ap.add_argument("--prm", default="oracle", choices=["oracle", "head"])
     ap.add_argument("--window", type=int, default=8)
     ap.add_argument("--max-tokens", type=int, default=96)
@@ -224,7 +242,7 @@ def main():
                 args.slots, args.seed, args.temperature,
                 args.mixed_step_kernel, args.step_token_budget,
                 args.prefix_cache, args.admission_policy, args.deadline,
-                args.device, args.arch)
+                args.device, args.arch, args.fault_plan)
     print(json.dumps(out, indent=2))
 
 

@@ -82,6 +82,7 @@ class StepGraph:
         self.outputs: Optional[Tuple[torch.Tensor, ...]] = None
         self.replays = 0
         self.eager_runs = 0
+        self.captures = 0         # one per variant; a recapture counts
         self.capture_seconds = 0.0
         self.recorded: Dict[str, int] = {}      # launches per replay
         self.eager_launches: Dict[str, int] = {}
@@ -155,6 +156,7 @@ class StepGraph:
         self.recorded = _since(before)
         torch.cuda.synchronize()
         self.graph, self.outputs = graph, tuple(out)
+        self.captures += 1
         self.capture_seconds = time.perf_counter() - t0
 
     def launches_run(self) -> Dict[str, int]:

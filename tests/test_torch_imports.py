@@ -46,7 +46,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_prefill.ops",
             "repro_torch.kernels.flash_prefill.ref",
             "repro_torch.models.attention", "repro_torch.models.model",
-            "repro_torch.serving.engine"} <= names
+            "repro_torch.serving.engine", "repro_torch.serving.faults",
+            "repro_torch.serving.simulator", "repro_torch.baselines"} <= names
 
 
 def test_no_source_mentions_jax_or_the_reference_package():

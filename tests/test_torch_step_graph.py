@@ -406,6 +406,7 @@ def test_static_outputs_are_one_set_per_variant():
     assert all(a is b for a, b in zip(first, second))
     assert graph.eager_runs == 2 and graph.replays == 0
     assert graph.graph is None and eng.graphs_captured == 0
+    assert graph.captures == 0
 
 
 # ------------------------------------ (f) only declared variants run
@@ -517,6 +518,7 @@ def test_graph_replay_matches_eager_on_card(cuda, kind):
             runs.append(_tree_lanes_run(eng))
             assert eng.graph_replays >= eng.decode_steps_executed
             assert 0 < eng.graphs_captured <= len(eng.step_variants())
+            assert all(g.captures == 1 for g in eng.step_graphs.values())
     assert runs[0][0] == runs[1][0]
     np.testing.assert_array_equal(runs[0][2], runs[1][2])
 
