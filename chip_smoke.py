@@ -15,8 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                and the tensor-core instructions in the SASS per kernel;
                the bf16 kernels of K2 and K4 must hold HMMA and spill
                nothing; one line sums up the registers and spill bytes
-               of the ten head_dim-256 instantiations of K1, K2, K3 and
-               K5);
+               of the fourteen head_dim-256 instantiations of K1, K2, K3,
+               K5 and K5's backward, another those of every
+               instantiation of K5's backward, whose bf16 kernels
+               must hold HMMA);
   3. kernels — K1 (paged flash-decode; bf16 on the split-key mma.sync
                decode core), K2 (paged flash-prefill), both
                passes of K3 (tree decode; the shared pass's split partials
@@ -64,6 +66,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                pass splits from the table's shape (16 splits of 32 keys
                at the serve's 32-page tables), both passes also timed at
                the 8 splits a host span of 256 tokens gave before;
+               K5's backward (``flash_prefill_bwd.cu``; bf16 on
+               mma.sync, fp32 on the CUDA cores) against its plain
+               version from the kernel's own output and LSE, at
+               r1-distill-14b (B=2, S=2048), qwen2-0.5b (group 7,
+               S=1000), gemma-7b (head_dim 256) and the tiny reasoner
+               (head_dim 32), causal and not, with and without
+               true_len: the error over the largest magnitude of the
+               reference gradient within ``BWD_TOL``, the gradients
+               bit-equal over two runs, the forward with its LSE output
+               bit-equal to the forward without and its LSE against
+               the plain one; timed at phase 14's shapes beside the
+               backward of one SDPA call;
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -85,7 +99,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                greedy, 3 requests behind a ``FaultInjector`` whose plan
                storms oop, raises step faults and crashes at step 12
                (``FAULT_PARITY_PLAN``): the card's engine must give the
-               CPU engine's trajectory and injected counts;
+               CPU engine's trajectory and injected counts; then
+               training: 3 steps of ``make_train_step`` on the card
+               (K5 forward and backward, fp32) against the CPU from the
+               same weights and batches, the tiny reasoner (head_dim
+               32) and qwen3-moe-235b-a22b's smoke widths: losses, grad
+               norms and params after the last step within tolerance,
+               K5's forward launched 2 x layers x steps and its
+               backward layers x steps;
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
@@ -179,6 +200,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                phase's seconds. The injected faults are caught by the
                scheduler: anything that escapes ``Scheduler.run`` fails
                the phase.
+ 14. train   — runs after every model of phases 5-13 is freed.
+               r1-distill-14b at full width, its depth cut from 48 to 8
+               layers, bf16 params with fp32 AdamW moments: 8 steps of
+               ``train_lm`` on ``padded_batches`` at B=2, S=2048; every
+               loss and grad norm finite, the last loss below the
+               first, K5's forward launched 2 x 8 x 8 times and its
+               backward 8 x 8; prints the step p50, tokens/s, the peak
+               memory and the step's bound from its operations; then 3
+               steps of ``train_prm_head`` on those weights (K5's
+               backward never), and ``smoke_arch("mamba2-130m")`` must
+               raise K4's forward-only error. gemma-7b at full width,
+               2 of its 28 layers (the head_dim-256 backward), 3 steps
+               at B=1, S=2048. Last the launcher's ``train_reasoner``
+               with the reference's defaults in a temp dir: the LM loss
+               falls by at least 20%, the PRM loss is finite, lm.npz
+               and prm.npz load back bit-equal.
 
 Phase 3 also holds the head_dim-256 instantiations of K1, K2, both K3
 passes and K5 at gemma-7b's serve shapes (16/16 heads of 256, group 1):
@@ -196,7 +233,9 @@ Phases 5, 6 (tree and paged), 7 (its decode steps), 8, 10, 11, 12 and
 and nothing falls back to the eager step.
 
 Then one JSON line ``{"kernels": [...]}`` (``launches_chaos``: phase
-13's runs A and C), the nvidia-smi line, and last
+13's runs A and C; K5's backward rows, ``flash_prefill_bwd`` and
+``flash_prefill_bwd_hd256``, count phase 14's r1-distill-14b and gemma-7b
+runs), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
 ``src/`` beside this file, it exits non-zero and prints no result.
 """
@@ -227,6 +266,9 @@ TOL = {"bf16": 2e-2, "fp32": 1e-5}      # atol = rtol, per working dtype
 # the bf16 tensor-core kernels of K2 and K4 (phase 2: HMMA, no spills)
 TENSOR_K2_K4 = {"paged_prefill": "prefill_mma_kernel",
                 "ssd_scan": "ssd_mma_kernel"}
+# the bf16 kernels of K5's backward (phase 2: HMMA; registers and spills
+# printed per instantiation)
+TENSOR_BWD = ("dkdv_mma_kernel", "dq_mma_kernel")
 # name fragments of the port's CUDA kernels (K1-K5), for the profile
 PORT_KERNELS = ("decode_mma_kernel", "paged_decode_kernel",
                 "prefill_mma_kernel", "prefill_f32_kernel",
@@ -491,6 +533,7 @@ def phase_build():
         print(f"[build] {name}: nvcc done after {t:.1f} s")
     spills = {}     # the bf16 tensor-core kernels of K2 and K4
     wide = {}       # the head_dim-256 instantiations: registers, spills
+    bwd = {}        # every instantiation of K5's backward: the same
     for name, log in sorted(build.build_log.items()):
         fn = "?"
         for line in log.splitlines():
@@ -501,8 +544,11 @@ def phase_build():
                 m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", line)
                 r = re.search(r"Used (\d+) registers", line)
-                if re.search(rf"[<, ]{WIDE}[,>]", fn) and (m or r):
-                    row = wide.setdefault(f"{name}: {fn}", {})
+                rows = [wide.setdefault(f"{name}: {fn}", {})] if re.search(
+                    rf"[<, ]{WIDE}[,>]", fn) and (m or r) else []
+                if name == "flash_prefill_bwd" and (m or r):
+                    rows.append(bwd.setdefault(fn, {}))
+                for row in rows:
                     if m:
                         row["spill_bytes"] = int(m[1]) + int(m[2])
                     if r:
@@ -513,8 +559,10 @@ def phase_build():
         print(f"[build] {fn}: {n} bytes of spill stores and loads")
     print(f"[build] the head_dim-{WIDE} instantiations (registers, spill "
           f"stores + loads in bytes): " + json.dumps(wide))
+    print("[build] flash_prefill_bwd, K5's backward, per instantiation "
+          "(registers, spill stores + loads in bytes): " + json.dumps(bwd))
     if len(build.build_log) == len(build.SOURCES):   # all built here
-        check(len(wide) == 10, f"expected 10 head_dim-{WIDE} kernels, "
+        check(len(wide) == 14, f"expected 14 head_dim-{WIDE} kernels, "
                                f"found {sorted(wide)}")
     check(all(n == 0 for n in spills.values()),
           f"a bf16 kernel of K2 or K4 spills: {spills}")
@@ -530,7 +578,8 @@ def phase_build():
                      ("paged_decode", "HMMA"),
                      ("paged_tree_decode", "HMMA"),
                      ("paged_prefill", "HMMA"),
-                     ("ssd_scan", "HMMA")):
+                     ("ssd_scan", "HMMA"),
+                     ("flash_prefill_bwd", "HMMA")):
         sass = subprocess.run(
             [str(dump), "-sass", str(build.build_dir() / f"lib{name}.so")],
             capture_output=True, text=True, timeout=120).stdout
@@ -547,6 +596,10 @@ def phase_build():
         if name in TENSOR_K2_K4:
             check(any(TENSOR_K2_K4[name] in f for f in per_fn),
                   f"{name}: no {op} in {TENSOR_K2_K4[name]}")
+        if name == "flash_prefill_bwd":
+            for kernel in TENSOR_BWD:
+                check(any(kernel in f for f in per_fn),
+                      f"{name}: no {op} in {kernel}")
 
 
 def _compare(torch, name, out, ref, dtype_name):
@@ -1466,6 +1519,135 @@ def phase_flash_kernels(torch):
         timing[4096, 128]
 
 
+BWD_TOL = {"bf16": 2e-2, "fp32": 1e-4}   # max error / max |reference|
+# K5 backward's check shapes (name, B, S, H, Hkv, hd): r1-distill-14b at
+# phase 14's batch and length, qwen2-0.5b (group 7, S a multiple of no
+# tile), gemma-7b (head_dim 256), the tiny reasoner (head_dim 32)
+BWD_SHAPES = (("r1", 2, 2048, 40, 8, 128),
+              ("qwen2 group7", 1, 1000, 14, 2, 64),
+              ("gemma hd256", 1, 272, 16, 16, 256),
+              ("reasoner hd32", 2, 160, 4, 2, 32))
+# phase 14's train_reasoner: the launcher's default LM and PRM steps
+REASONER_STEPS = (300, 200)
+# phase 14's training length, and the backward's timed shapes (B, S, H,
+# Hkv, hd) at it: r1-distill-14b at B=2, gemma-7b at B=1
+TRAIN_SEQLEN = 2048
+BWD_TIMED = ((2, TRAIN_SEQLEN, 40, 8, 128), (1, TRAIN_SEQLEN, 16, 16, 256))
+
+
+def flash_bwd_bytes(b: int, s: int, h: int, kv: int, hd: int,
+                    itemsize: int) -> int:
+    """Bytes K5's backward must move: q, k, v, out and dout read once,
+    the fp32 LSE read once, dq, dk and dv written once."""
+    return b * s * ((4 * h + 4 * kv) * hd * itemsize + 4 * h)
+
+
+def phase_flash_bwd_kernels(torch):
+    """Phase 3's K5 backward: the forward with and without its LSE output
+    bit-equal, the LSE against the plain one, and the backward (the
+    autograd path's kernel, from the forward's own output and LSE)
+    against ``flash_prefill_bwd_ref`` in bf16 and fp32, at r1-distill-14b
+    (40/8 heads of 128, B=2, S=2048), qwen2-0.5b (14/2 of 64, group 7,
+    S=1000), gemma-7b (16/16 of 256, S=272) and the tiny reasoner (4/2 of
+    32, B=2, S=160), each causal and not, with and without ``true_len``.
+    Error: the largest difference over the largest magnitude of the
+    reference gradient, within ``BWD_TOL``; the gradients bit-equal over
+    two runs. Then timed at phase 14's shapes (r1-distill-14b at B=2,
+    S=2048; gemma-7b at B=1, S=2048; bf16, causal) beside the plain
+    version, the bound from the operations (2.5x the forward's) and the
+    backward of one ``scaled_dot_product_attention`` (a yardstick the
+    port never calls). Returns (errors, timings)."""
+    from repro_torch.kernels.flash_prefill.flash_prefill import (
+        flash_prefill, flash_prefill_lse)
+    from repro_torch.kernels.flash_prefill.flash_prefill_bwd import \
+        flash_prefill_bwd
+    from repro_torch.kernels.flash_prefill.ref import (
+        flash_prefill_bwd_ref, flash_prefill_lse_ref)
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(7)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+    def inputs(b, s, h, kv, hd, dtype):
+        return [torch.randn((b, s, n, hd), generator=gen,
+                            device=dev).to(dtype) for n in (h, kv, kv, h)]
+
+    errs = {kernel_key("flash_prefill_bwd", hd): [] for hd in (128, WIDE)}
+    rel = {dn: 0.0 for dn in dtypes}
+    for name, b, s, h, kv, hd in BWD_SHAPES:
+        for causal, tl in ((True, None), (False, None), (True, s - s // 5),
+                           (False, s // 3)):
+            for dn, dt in dtypes.items():
+                q, k, v, do = inputs(b, s, h, kv, hd, dt)
+                out0 = flash_prefill(q, k, v, causal, tl)
+                out, lse = flash_prefill_lse(q, k, v, causal, tl)
+                check(torch.equal(out, out0), f"K5 {name}: the forward "
+                      f"with its LSE differs from the forward without it")
+                lse_ref = flash_prefill_lse_ref(q, k, v, causal, tl)
+                tol = TOL[dn]
+                check(torch.allclose(lse, lse_ref, atol=tol, rtol=tol),
+                      f"K5 {name}: LSE disagrees with the plain one "
+                      f"({float((lse - lse_ref).abs().max()):.3e})")
+                got = flash_prefill_bwd(q, k, v, out, lse, do, causal, tl)
+                again = flash_prefill_bwd(q, k, v, out, lse, do, causal, tl)
+                want = flash_prefill_bwd_ref(q, k, v, out, lse, do, causal,
+                                             tl)
+                torch.cuda.synchronize()
+                case = (f"K5 bwd {name} B={b} S={s} "
+                        f"{'causal' if causal else 'non-causal'}"
+                        f"{f' true_len={tl}' if tl else ''} {dn}")
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"{case}: gradients differ between two runs")
+                worst = 0.0
+                for g, w in zip(got, want):
+                    diff = (g.float() - w.float()).abs()
+                    scale = max(float(w.float().abs().max()), 1e-30)
+                    check(bool(torch.isfinite(g.float()).all()),
+                          f"{case}: a non-finite gradient")
+                    worst = max(worst, float(diff.max()) / scale)
+                    errs[kernel_key("flash_prefill_bwd", hd)].append(
+                        float(diff.max()))
+                rel[dn] = max(rel[dn], worst)
+                ok = worst <= BWD_TOL[dn]
+                print(f"[kernels] {case}: max err / max |ref| {worst:.3e} "
+                      f"(tolerance {BWD_TOL[dn]}); bit-repeatable; forward "
+                      f"with LSE bit-equal; {'ok' if ok else 'FAIL'}")
+                check(ok, f"{case} disagrees with its plain version")
+                if tl is not None:
+                    check(all(bool((g[:, tl:] == 0).all()) for g in got),
+                          f"{case}: gradients past true_len are not zeros")
+                del q, k, v, do, out0, out, lse, got, again, want
+    print("[kernels] K5 bwd largest error relative to the reference's "
+          "largest magnitude: " + json.dumps(rel))
+
+    timing = {}
+    for b, s, h, kv, hd in BWD_TIMED:
+        q, k, v, do = inputs(b, s, h, kv, hd, torch.bfloat16)
+        out, lse = flash_prefill_lse(q, k, v)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        timing[hd] = {
+            **kernel_ms(torch, lambda: flash_prefill_bwd(q, k, v, out, lse,
+                                                         do)),
+            "plain_ms": time_ms(torch, lambda: flash_prefill_bwd_ref(
+                q, k, v, out, lse, do), n=3, warmup=1),
+            "library_ms": time_ms(torch, lambda: torch.autograd.grad(
+                o_lib, (qt, kt, vt), do_t, retain_graph=True)),
+            "bytes": flash_bwd_bytes(b, s, h, kv, hd, 2),
+            # five products against the forward's two
+            "ops": 2.5 * b * flash_flops(s, h, hd, True),
+            "shape": f"B={b} S={s} H={h} kv={kv} hd={hd} causal bf16",
+        }
+        print(f"[kernels] K5 bwd {timing[hd]['shape']}: "
+              + json.dumps(timing[hd]))
+        del q, k, v, do, out, lse, qt, kt, vt, o_lib, do_t
+    return errs, {"flash_prefill_bwd": timing[128],
+                  kernel_key("flash_prefill_bwd", WIDE): timing[WIDE]}
+
+
 def _parity_scenario(torch, eng, vocab: int):
     """A cold request (a 16-token header + its own 21 tokens, a partial
     last page) forks 3 branches that decode 6 steps (CoW of the shared
@@ -1651,6 +1833,91 @@ def phase_parity(torch):
     _model_parity(torch)
     _fallback_trunks(torch)
     _fault_parity(torch)
+    _train_parity(torch)
+
+
+def _train_parity(torch):
+    """Phase 4's training case: 3 steps of ``make_train_step`` on the card
+    (K5's forward and backward kernels, fp32) against the CPU (the plain
+    versions under autograd) from the same fp32 weights on the same
+    batches: the launcher's tiny reasoner (2 layers, 4/2 heads of 32) and
+    qwen3-moe-235b-a22b's smoke widths (MoE aux loss in the objective).
+    Loss, aux loss and grad norm per step within rtol 1e-4 and every param
+    after the last step within atol 1e-3 (= the learning rate: Adam moves
+    an entry whose gradient is near zero by up to lr on a small relative
+    difference of that gradient); on the card K5's forward launches 2 x
+    layers x steps times (each layer recomputed in the backward pass) and
+    its backward layers x steps."""
+    from repro_torch.configs import smoke
+    from repro_torch.data import DataConfig, padded_batches
+    from repro_torch.data import tokenizer as tk
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
+    from repro_torch.models import Model, ModelConfig
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.train_loop import to_batch
+    steps = 3
+    reasoner = ModelConfig(name="tiny-reasoner", arch_type="dense",
+                           num_layers=2, d_model=128,
+                           vocab_size=tk.VOCAB_SIZE, num_heads=4,
+                           num_kv_heads=2, d_ff=512, max_seq_len=512)
+    for cfg in (reasoner, smoke("qwen3-moe-235b-a22b")):
+        cpu_model = Model(cfg, device="cpu")
+        params = cpu_model.init_params(torch.Generator().manual_seed(0))
+        gpu_model = Model(cfg, device=DEVICE)
+        gpu_params = _to(params, DEVICE)
+        gpu_model.load_params(gpu_params)
+        runs = []
+        for model, p in ((cpu_model, params), (gpu_model, gpu_params)):
+            flash_prefill.launches = flash_prefill_bwd.launches = 0
+            step = make_train_step(model, AdamWConfig(
+                lr=1e-3, warmup_steps=1, total_steps=10))
+            opt = init_opt_state(p)
+            data = padded_batches(DataConfig(batch_size=4, seq_len=64,
+                                             seed=0))
+            metrics = []
+            for _ in range(steps):
+                toks, labels, mask = next(data)
+                p, opt, m = step(p, opt, to_batch(
+                    {"tokens": toks, "labels": labels, "mask": mask},
+                    model.device))
+                metrics.append({k: float(v) for k, v in m.items()})
+            with torch.no_grad():
+                host = _to(p, "cpu")
+            runs.append((metrics, host, flash_prefill.launches,
+                         flash_prefill_bwd.launches))
+        (m_cpu, p_cpu, _, _), (m_gpu, p_gpu, fwd, bwd) = runs
+        rel = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                  for a, b in zip(m_cpu, m_gpu) for k in a)
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, f"{prefix}{k}/")
+                else:
+                    yield f"{prefix}{k}", v
+        gpu_leaves = dict(leaves(p_gpu))
+        with torch.no_grad():
+            diffs = {k: float((v - gpu_leaves[k]).abs().max())
+                     for k, v in leaves(p_cpu)}
+        worst = max(diffs, key=diffs.get)
+        want_fwd, want_bwd = 2 * cfg.num_layers * steps, \
+            cfg.num_layers * steps
+        ok = (rel <= 1e-4 and diffs[worst] <= 1e-3 and fwd == want_fwd
+              and bwd == want_bwd)
+        print(f"[parity] train {cfg.name} ({cfg.arch_type}, head_dim "
+              f"{cfg.resolved_head_dim}), {steps} steps card vs CPU: losses "
+              f"{[round(m['loss'], 6) for m in m_gpu]}, grad norms "
+              f"{[round(m['grad_norm'], 6) for m in m_gpu]}; largest "
+              f"relative difference of loss / aux / grad norm {rel:.3e} "
+              f"(rtol 1e-4); largest param difference {diffs[worst]:.3e} "
+              f"({worst}; atol 1e-3), mean over leaves "
+              f"{sum(diffs.values()) / len(diffs):.3e}; K5 launches "
+              f"forward {fwd} (want {want_fwd}), backward {bwd} (want "
+              f"{want_bwd}); {'ok' if ok else 'FAIL'}")
+        check(ok, f"training on the card disagrees with the CPU "
+                  f"({cfg.name})")
 
 
 FAULT_PARITY_PLAN = "seed=0,step_rate=0.05,oop_rate=0.2,crash_at=12"
@@ -2884,6 +3151,256 @@ def phase_gemma_serve(torch) -> dict:
                 "flash_prefill"]}
 
 
+def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
+                      batch: int, seqlen: int, steps: int,
+                      breakdown: bool = False) -> dict:
+    """``arch`` at full width, its depth cut to ``num_layers``, bf16
+    params (AdamW's mu and nu fp32), random weights from seed 0: ``steps``
+    steps of ``train_lm`` on ``padded_batches`` of ``batch`` x ``seqlen``,
+    K5's counters zeroed just before and read just after. Checks finite
+    losses and grad norms, and K5's forward launches 2 x layers x steps
+    and backward layers x steps. With ``breakdown``, then
+    ``_train_breakdown``. Returns the run's line, with the model and
+    params under "model_obj" and "params"."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, padded_batches
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, train_lm
+    gc.collect()                 # the earlier phases' models and pools
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    cfg = full.replace(num_layers=num_layers)
+    model = Model(cfg, dtype=torch.bfloat16, device=DEVICE)
+    params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
+
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else v.numel()
+                   for v in tree.values())
+
+    def matmul(tree):   # params of the layers' matrix products
+        return sum(matmul(v) if isinstance(v, dict)
+                   else v.numel() * (v.dim() >= 3) for v in tree.values())
+    n_params = count(params)
+    head = params["embed"].get("lm_head", params["embed"]["embedding"])
+    n_layers_mm, n_head = matmul(params["layers"]), head.numel()
+    tokens = batch * seqlen
+    attn = flash_flops(seqlen, cfg.num_heads, cfg.resolved_head_dim, True) \
+        * batch * cfg.num_layers
+    # forward, backward (2x) and the layers' recompute, plus attention:
+    # its forward twice and its backward (2.5x the forward)
+    step_ops = 6 * (n_layers_mm + n_head) * tokens + \
+        2 * n_layers_mm * tokens + 4.5 * attn
+    bound_ms = step_ops / PEAK_OPS["bf16"] * 1e3
+    print(f"[{tag}] {cfg.name}: num_layers {full.num_layers} -> "
+          f"{cfg.num_layers}, d_model {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied "
+          f"{cfg.tie_embeddings}: {n_params / 1e9:.3f} B params (bf16; "
+          f"{n_layers_mm / 1e9:.3f} B in the layers' products, "
+          f"{n_head / 1e9:.3f} B in the LM head); B={batch} S={seqlen}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps, recs = [], []
+
+    def log(rec):
+        stamps.append(time.perf_counter())
+        recs.append(rec)
+    flash_prefill.launches = flash_prefill_bwd.launches = 0
+    t0 = time.perf_counter()
+    opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    params, _ = train_lm(
+        model, padded_batches(DataConfig(batch_size=batch, seq_len=seqlen)),
+        steps, opt_cfg, params=params, log_every=1, logger=log)
+    fwd, bwd = flash_prefill.launches, flash_prefill_bwd.launches
+    step_s = np.diff([t0] + stamps)
+    p50 = float(np.median(step_s[1:])) if steps > 1 else float(step_s[0])
+    line = {"model": cfg.name, "num_layers": cfg.num_layers,
+            "params_b": n_params / 1e9, "batch": batch, "seqlen": seqlen,
+            "losses": [r["loss"] for r in recs],
+            "grad_norms": [r["grad_norm"] for r in recs],
+            "step_s": [float(x) for x in step_s],
+            "step_ms_p50": p50 * 1e3, "tokens_per_s": tokens / p50,
+            "step_bound_ms": bound_ms,
+            "over_bound": p50 * 1e3 / bound_ms,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {"flash_prefill": fwd, "flash_prefill_bwd": bwd}}
+    print(f"[{tag}] " + json.dumps(line))
+    check(all(math.isfinite(x) for x in line["losses"] + line["grad_norms"]),
+          f"{tag}: a non-finite loss or grad norm")
+    want_fwd, want_bwd = 2 * cfg.num_layers * steps, cfg.num_layers * steps
+    check(fwd == want_fwd and bwd == want_bwd,
+          f"{tag}: K5 launched {fwd} forward (want {want_fwd}) and {bwd} "
+          f"backward (want {want_bwd}) times")
+    if breakdown:
+        line["breakdown"] = _train_breakdown(torch, tag, model, params,
+                                             batch, seqlen, opt_cfg)
+    return dict(line, model_obj=model, params=params)
+
+
+# device kernels of a train step by kind, from name fragments
+TRAIN_KINDS = (("K5 backward", ("dkdv_", "dq_mma_kernel", "dq_f32_kernel",
+                                "bwd_dot_kernel")),
+               ("K5 forward", ("flash_prefill",)),
+               ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def _train_breakdown(torch, tag: str, model, params, batch: int,
+                     seqlen: int, opt_cfg) -> dict:
+    """Where a train step's time goes, on a fresh optimizer state (the
+    step's work does not depend on it): the gradient (forward, the
+    layers' recompute and backward) and the AdamW update timed apart
+    between syncs, then one whole step under torch.profiler (device
+    activity only) with its kernels summed by kind (``TRAIN_KINDS``;
+    the rest is elementwise, reduction and copy kernels) and the top
+    kernels. Runs two more steps on ``params``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig, padded_batches
+    from repro_torch.training import (adamw_update, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.train_loop import (_like, lm_loss_fn,
+                                                 to_batch, trainable)
+    toks, labels, mask = next(padded_batches(
+        DataConfig(batch_size=batch, seq_len=seqlen, seed=1)))
+    data = to_batch({"tokens": toks, "labels": labels, "mask": mask},
+                    model.device)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trainable(params) as leaves:
+        total, _ = lm_loss_fn(model, params, data)
+        grads = torch.autograd.grad(total, leaves)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(opt_cfg, params, _like(params, iter(grads)), opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del total, grads
+    step = make_train_step(model, opt_cfg)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        step(params, opt, data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t3
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    kinds = {name: 0.0 for name, _ in TRAIN_KINDS}
+    kinds["other"] = 0.0
+    for e in device:
+        kind = next((name for name, frags in TRAIN_KINDS
+                     if any(f in e.key for f in frags)), "other")
+        kinds[kind] += e.self_device_time_total / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"grad_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3,
+           "traced_step_ms": wall * 1e3,
+           "device_ms": sum(kinds.values()),
+           "device_busy_share": sum(kinds.values()) / 1e3 / wall,
+           "device_ms_by_kind": kinds,
+           "device_ops": sum(e.count for e in device),
+           "top_kernels": [{"name": e.key[:80], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in top]}
+    print(f"[{tag}] breakdown " + json.dumps(out))
+    return out
+
+
+def phase_train(torch) -> dict:
+    """Phase 14: the training path on the card, after every model of
+    phases 5-13 is freed. (1) r1-distill-14b at full width (d_model 5120,
+    40/8 heads of 128, d_ff 13824, vocab 152064 untied), its depth cut
+    from 48 to 8 layers, bf16 params with fp32 AdamW moments: 8 steps of
+    ``train_lm`` at B=2, S=2048, the last loss below the first; then 3
+    steps of ``train_prm_head`` on those weights (the LM under no_grad:
+    K5's backward never launches); ``smoke_arch("mamba2-130m")`` must
+    raise K4's forward-only error rather than train. (2) gemma-7b at full
+    width, 2 of its 28 layers (16/16 heads of 256: the head_dim-256
+    backward), 3 steps at B=1, S=2048. (3) the launcher's
+    ``train_reasoner`` with the reference's defaults (2 layers, d_model
+    128, head_dim 32, S=160; 300 LM and 200 PRM steps) in a temp dir: the
+    LM loss falls by at least 20% (``tests/test_training.py``'s bar), the
+    PRM loss is finite, and lm.npz and prm.npz load back bit-equal with
+    ``load_checkpoint(like=...)``. Returns K5 backward's launches on (1)
+    and (2)."""
+    import tempfile
+
+    from repro_torch.data import DataConfig, prm_batches
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
+    from repro_torch.launch.train import smoke_arch, train_reasoner
+    from repro_torch.training import load_checkpoint, train_prm_head
+    t_phase = time.perf_counter()
+    tag = "train"
+    r1 = _train_full_width(torch, tag, "r1-distill-14b", 8, batch=2,
+                           seqlen=TRAIN_SEQLEN, steps=8, breakdown=True)
+    check(r1["losses"][-1] < r1["losses"][0],
+          f"{tag}: r1-distill-14b's loss did not fall: {r1['losses']}")
+    flash_prefill.launches = flash_prefill_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, phist = train_prm_head(r1["model_obj"], r1["params"], prm_batches(
+        DataConfig(batch_size=2, seq_len=TRAIN_SEQLEN)), 3)
+    prm_s = time.perf_counter() - t0
+    print(f"[{tag}] train_prm_head on the 14B's weights, 3 steps in "
+          f"{prm_s:.2f} s: losses {[r['prm_loss'] for r in phist]}; K5 "
+          f"forward {flash_prefill.launches}, backward "
+          f"{flash_prefill_bwd.launches}")
+    check(flash_prefill_bwd.launches == 0
+          and flash_prefill.launches == 3 * r1["num_layers"]
+          and all(math.isfinite(r["prm_loss"]) for r in phist),
+          f"{tag}: train_prm_head ran K5's backward or no forward")
+    del r1["model_obj"], r1["params"]
+    try:
+        smoke_arch("mamba2-130m", device=DEVICE)
+        fail(f"{tag}: mamba2-130m trained on the card through K4, which "
+             f"has no backward")
+    except RuntimeError as e:
+        check("forward-only" in str(e), f"{tag}: mamba2-130m raised {e}")
+        print(f"[{tag}] smoke_arch('mamba2-130m') on the card raises: {e}")
+    gemma = _train_full_width(torch, tag, "gemma-7b", 2, batch=1,
+                              seqlen=TRAIN_SEQLEN, steps=3)
+    del gemma["model_obj"], gemma["params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_prefill_bwd.launches = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        params, head = train_reasoner(*REASONER_STEPS, out, 128, 2, 0,
+                                      device=DEVICE)
+        with open(Path(out) / "config.json") as f:
+            conf = json.load(f)
+        lm_back = load_checkpoint(str(Path(out) / "lm.npz"), like=params)
+        prm_back = load_checkpoint(str(Path(out) / "prm.npz"), like=head)
+    reasoner_s = time.perf_counter() - t0
+    first, last = conf["history"][0]["loss"], conf["history"][-1]["loss"]
+    prm_last = conf["prm_history"][-1]["prm_loss"]
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return all(same(a[k], b[k]) for k in a)
+        return a.dtype == b.dtype and a.device == b.device and \
+            torch.equal(a.detach(), b)
+    round_trip = same(params, lm_back) and same(head, prm_back)
+    print(f"[{tag}] train_reasoner on the card: LM loss {first:.4f} -> "
+          f"{last:.4f} ({(1 - last / first) * 100:.1f}% lower), PRM loss "
+          f"{prm_last:.4f}, checkpoints round-trip bit-equal {round_trip}; "
+          f"K5 backward launches {flash_prefill_bwd.launches}; "
+          f"{reasoner_s:.1f} s")
+    check(last < 0.8 * first, f"{tag}: train_reasoner's loss fell less "
+                              f"than 20%: {first} -> {last}")
+    check(math.isfinite(prm_last), f"{tag}: a non-finite PRM loss")
+    check(round_trip, f"{tag}: lm.npz or prm.npz did not load back "
+                      f"bit-equal")
+    print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_prefill_bwd": r1["launches"]["flash_prefill_bwd"],
+            kernel_key("flash_prefill_bwd", WIDE):
+                gemma["launches"]["flash_prefill_bwd"],
+            "train_reasoner": flash_prefill_bwd.launches,
+            "r1": {k: v for k, v in r1.items()
+                   if k not in ("model_obj", "params")}}
+
+
 def _step_stats(engine, wall: float) -> dict:
     steps = sorted(engine.step_seconds)
     return {"decode_steps": engine.decode_steps_executed, "wall_s": wall,
@@ -3025,6 +3542,9 @@ def main() -> int:
     errs.update(flash_errs)
     timing.update(flash_timing)
     print("[kernels] K5 at S=4096: " + json.dumps(flash_4096))
+    bwd_errs, bwd_timing = phase_flash_bwd_kernels(torch)
+    errs.update(bwd_errs)
+    timing.update(bwd_timing)
     if args.skip_serve:
         print(json.dumps(timing))
         return 0
@@ -3049,6 +3569,10 @@ def main() -> int:
                            num_requests=2, max_tokens=48)
     # phase 12: gemma-7b at full width and depth, the head_dim-256 kernels
     launches.update(phase_gemma_serve(torch))
+    # phase 14: the training path, K5's backward
+    train = phase_train(torch)
+    for name in ("flash_prefill_bwd", kernel_key("flash_prefill_bwd", WIDE)):
+        launches[name] = train[name]
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
             "K/V (a yardstick; the port never calls it)")
@@ -3081,11 +3605,24 @@ def main() -> int:
                           "enable_gqa=True) on the same q, k, v (a "
                           "yardstick; the port never calls it)"),
     }
-    # the head_dim-256 instantiations (gemma-7b, phase 12): rows of their
-    # own, timed at gemma-7b's serve shapes
+    meta["flash_prefill_bwd"] = (
+        "src/repro_torch/csrc/flash_prefill_bwd.cu",
+        "src/repro/models/attention.py:70 (no Pallas backward: XLA's "
+        "autodiff of _attend, the gradient of "
+        "src/repro/kernels/flash_prefill/flash_prefill.py:144)",
+        f"max error / max |plain gradient| <= {BWD_TOL['bf16']} bf16 "
+        f"(mma.sync; P and dS rounded to bf16), {BWD_TOL['fp32']} fp32 "
+        f"(CUDA cores); bit-repeatable; the forward with its LSE "
+        f"bit-equal to the forward without",
+        "torch.autograd.grad of scaled_dot_product_attention(is_causal="
+        "True, enable_gqa=True) on the same q, k, v, dout, forward not "
+        "timed (a yardstick; the port never calls it)")
+    # the head_dim-256 instantiations (gemma-7b, phases 12 and 14): rows
+    # of their own, timed at gemma-7b's serve (training) shapes
     meta.update({kernel_key(name, WIDE): meta[name] for name in
                  ("paged_decode", "paged_prefill", "paged_tree_shared",
-                  "paged_tree_branch", "flash_prefill")})
+                  "paged_tree_branch", "flash_prefill",
+                  "flash_prefill_bwd")})
     kernels = []
     for name, (source, replaces, tol, library) in meta.items():
         tm = timing[name]
@@ -3112,6 +3649,8 @@ def main() -> int:
             kernels[-1]["launches_qwen3_moe"] = moe_line["launches"][name]
         if chaos.get(name):
             kernels[-1]["launches_chaos"] = chaos[name]
+        if name == "flash_prefill_bwd":
+            kernels[-1]["launches_train_reasoner"] = train["train_reasoner"]
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")
                   ) and (k["library_ms"] is None

@@ -9,7 +9,7 @@ from .policies import (ADMISSION_POLICIES, AdmissionPolicy, ComposedPolicy,
                        EdfPolicy, FifoPolicy, LpmPolicy, PriorityPolicy,
                        make_policy, select_next)
 from .prm import (PRM, OraclePRM, RewardHeadPRM, init_prm_head,
-                  reward_from_hidden)
+                  prm_head_loss, reward_from_hidden)
 from .pruning import PruningConfig, RequestMeta, TwoPhasePruner
 from .scheduler import (POLICIES, EvictionStallError, Request, Scheduler,
                         SchedulerConfig, SchedulerFaultError,
@@ -19,7 +19,7 @@ __all__ = [
     "order_statistic_cdf", "order_statistic_expectation",
     "empirical_mth_completion", "expected_speedup",
     "best_of_n", "majority_vote", "weighted_vote",
-    "PRM", "OraclePRM", "RewardHeadPRM", "init_prm_head",
+    "PRM", "OraclePRM", "RewardHeadPRM", "init_prm_head", "prm_head_loss",
     "reward_from_hidden",
     "PruningConfig", "RequestMeta", "TwoPhasePruner",
     "POLICIES", "EvictionStallError", "Request", "Scheduler",

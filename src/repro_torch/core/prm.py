@@ -50,6 +50,15 @@ def reward_from_hidden(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(reward_logit(params, hidden))
 
 
+
+def prm_head_loss(params: dict, hidden: torch.Tensor,
+                  labels: torch.Tensor) -> torch.Tensor:
+    """Binary cross-entropy on per-step goodness labels, in the stable
+    form max(logit, 0) - logit * y + log1p(exp(-|logit|))."""
+    logit = reward_logit(params, hidden)
+    return torch.mean(torch.clamp(logit, min=0) - logit * labels
+                      + torch.log1p(torch.exp(-logit.abs())))
+
 # ------------------------------------------------------------------ protocols
 
 

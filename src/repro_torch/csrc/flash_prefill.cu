@@ -12,6 +12,11 @@
 //   * keys at or past true_len are never attended, rows at or past
 //     true_len are written as exact zeros;
 //   * the epilogue divides by max(l, 1e-30).
+// With a non-null lse pointer it also writes each row's log-sum-exp for the
+// backward (flash_prefill_bwd.cu): fp32 [B, H, S], m + log(max(l, 1e-30))
+// in the natural log (the base of this kernel's expf) of the scaled
+// scores, 0 for rows at or past true_len. A null pointer (every serve-path
+// call) leaves the output's bits as they were.
 // The Pallas kernel walks the kv axis as a sequential grid axis and skips
 // blocks above the diagonal with pl.when. Here one CTA owns a tile of
 // query positions of one (batch, KV head) and loops over key tiles up to
@@ -71,9 +76,9 @@ __device__ __forceinline__ void put(float* dst, const float* f) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int seqlen,
-    int q_heads, int kv_heads, int true_len, int block_q, int causal,
-    float scale) {
+    const float* __restrict__ v, float* __restrict__ out,
+    float* __restrict__ lse, int seqlen, int q_heads, int kv_heads,
+    int true_len, int block_q, int causal, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   using L = Layout<HD>;
@@ -251,6 +256,9 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
     const int pos = q0 + r / group;
     const bool valid = pos < true_len;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * q_heads + (size_t)h * group + r % group) * seqlen +
+          pos] = valid ? m[i] + logf(denom) : 0.f;
     float* dst = out + (((size_t)b * seqlen + pos) * q_heads +
                         (size_t)h * group + r % group) * HD;
 #pragma unroll
@@ -265,9 +273,10 @@ __global__ void __launch_bounds__(kThreads) flash_prefill_kernel(
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int seqlen, int q_heads, int kv_heads, int true_len, int block_q,
-           int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int batch, int seqlen, int q_heads, int kv_heads,
+           int true_len, int block_q, int causal, float scale,
+           cudaStream_t stream) {
   constexpr int smem = Layout<HD>::bytes;
   static_assert(smem <= kMaxSmem, "K5 tile exceeds shared memory");
   static bool opted_in = false;       // once per instantiation
@@ -280,8 +289,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   }
   const dim3 grid((seqlen + block_q - 1) / block_q, kv_heads, batch);
   flash_prefill_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, seqlen,
-      q_heads, kv_heads, true_len, block_q, causal, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse,
+      seqlen, q_heads, kv_heads, true_len, block_q, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -291,13 +300,14 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 // are fp32 (bf16 is flash_prefill_sm90.cu's). q and out
 // [batch, seqlen, q_heads, head_dim], k and v [batch, seqlen, kv_heads,
 // head_dim], contiguous and 16-byte aligned; block_q * (q_heads /
-// kv_heads) <= 64; 0 < true_len <= seqlen. The caller has checked shapes,
-// dtypes and alignment.
+// kv_heads) <= 64; 0 < true_len <= seqlen; lse null or fp32 [batch,
+// q_heads, seqlen]. The caller has checked shapes, dtypes and alignment.
 extern "C" int flash_prefill_launch(int head_dim, const void* q,
                                     const void* k, const void* v, void* out,
-                                    int batch, int seqlen, int q_heads,
-                                    int kv_heads, int true_len, int block_q,
-                                    int causal, float scale, void* stream) {
+                                    float* lse, int batch, int seqlen,
+                                    int q_heads, int kv_heads, int true_len,
+                                    int block_q, int causal, float scale,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_heads < 1 || q_heads % kv_heads || block_q < 1 ||
       block_q * (q_heads / kv_heads) > kRows || true_len < 1 ||
@@ -305,16 +315,16 @@ extern "C" int flash_prefill_launch(int head_dim, const void* q,
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 256:
-      return launch<256>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+      return launch<256>(q, k, v, out, lse, batch, seqlen, q_heads, kv_heads,
                          true_len, block_q, causal, scale, s);
     case 128:
-      return launch<128>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+      return launch<128>(q, k, v, out, lse, batch, seqlen, q_heads, kv_heads,
                          true_len, block_q, causal, scale, s);
     case 64:
-      return launch<64>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+      return launch<64>(q, k, v, out, lse, batch, seqlen, q_heads, kv_heads,
                         true_len, block_q, causal, scale, s);
     case 32:
-      return launch<32>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+      return launch<32>(q, k, v, out, lse, batch, seqlen, q_heads, kv_heads,
                         true_len, block_q, causal, scale, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -50,6 +50,12 @@
 //     The K/V tensor maps have a sequence extent of true_len, so the TMA
 //     unit fills every row past it with zeros. Masked scores are the
 //     finite NEG_INF and masked probabilities are exactly 0.
+//   * With a non-null lse pointer the epilogue also writes each row's
+//     log-sum-exp for the backward (flash_prefill_bwd.cu): fp32 [B, H, S],
+//     in the natural log of the scaled scores, (m * scale_log2 +
+//     log2(max(l, 1e-30))) * ln 2 from this kernel's base-2 m and l; 0
+//     for rows at or past true_len. A null pointer (every serve-path
+//     call) leaves the output's bits as they were.
 #include <cuda.h>
 
 #include "hopper_ptx.cuh"
@@ -61,6 +67,7 @@ using bf16 = __nv_bfloat16;
 constexpr int kKeys = 64;           // keys per K/V tile
 constexpr int kWgRows = 64;         // query rows per consumer warpgroup
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxSmem = 232448;    // what a block may take on the H100
 
 // Shared-memory tiling of one head_dim: rows of kBlk bf16 values (one
@@ -93,8 +100,8 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_prefill_wgmma(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out,
-    int seqlen, int q_heads, int kv_heads, int true_len, int block_q,
-    int causal, float scale_log2) {
+    float* __restrict__ lse, int seqlen, int q_heads, int kv_heads,
+    int true_len, int block_q, int causal, float scale_log2) {
   using G = Geo<HD>;
   using L = Smem<HD, NWG, STAGES>;
   extern __shared__ uint8_t smem_raw[];
@@ -332,6 +339,12 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_prefill_wgmma(
     if (r[i] >= rows) continue;
     const int pos = q0 + r[i] / group;
     const float inv = pos < true_len ? 1.f / fmaxf(lt, 1e-30f) : 0.f;
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)blockIdx.z * q_heads + (size_t)h * group + r[i] % group) *
+              seqlen + pos] =
+          pos < true_len
+              ? (m[i] * scale_log2 + log2f(fmaxf(lt, 1e-30f))) * kLn2
+              : 0.f;
     bf16* dst = out + (((size_t)blockIdx.z * seqlen + pos) * q_heads +
                        (size_t)h * group + r[i] % group) * HD +
                 2 * (lane % 4);
@@ -400,9 +413,10 @@ bool make_map(CUtensorMap* map, const void* base, int batch, int seqlen,
 }
 
 template <int HD, int NWG>
-int launch(const void* q, const void* k, const void* v, void* out, int batch,
-           int seqlen, int q_heads, int kv_heads, int true_len, int block_q,
-           int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int batch, int seqlen, int q_heads, int kv_heads,
+           int true_len, int block_q, int causal, float scale,
+           cudaStream_t stream) {
   constexpr int kStages = NWG == 2 ? 3 : 2;
   constexpr int smem = Smem<HD, NWG, kStages>::bytes;
   static_assert(smem <= kMaxSmem, "K5 tiles exceed shared memory");
@@ -424,8 +438,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   }
   const dim3 grid((seqlen + block_q - 1) / block_q, kv_heads, batch);
   kernel<<<grid, NWG * 128 + 32, smem, stream>>>(
-      tm_q, tm_k, tm_v, (bf16*)out, seqlen, q_heads, kv_heads, true_len,
-      block_q, causal, scale * 1.4426950408889634f);
+      tm_q, tm_k, tm_v, (bf16*)out, lse, seqlen, q_heads, kv_heads,
+      true_len, block_q, causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -434,15 +448,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 // under one producer warp leave a thread 224.
 template <int HD>
 int launch_rows(int rows, const void* q, const void* k, const void* v,
-                void* out, int batch, int seqlen, int q_heads, int kv_heads,
-                int true_len, int block_q, int causal, float scale,
-                cudaStream_t s) {
+                void* out, float* lse, int batch, int seqlen, int q_heads,
+                int kv_heads, int true_len, int block_q, int causal,
+                float scale, cudaStream_t s) {
   if constexpr (HD == 256) {
     if (rows != kWgRows) return (int)cudaErrorInvalidValue;
   } else if (rows == 128)
-    return launch<HD, 2>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+    return launch<HD, 2>(q, k, v, out, lse, batch, seqlen, q_heads, kv_heads,
                          true_len, block_q, causal, scale, s);
-  return launch<HD, 1>(q, k, v, out, batch, seqlen, q_heads, kv_heads,
+  return launch<HD, 1>(q, k, v, out, lse, batch, seqlen, q_heads, kv_heads,
                        true_len, block_q, causal, scale, s);
 }
 
@@ -452,15 +466,16 @@ int launch_rows(int rows, const void* q, const void* k, const void* v,
 // are bf16, q and out [batch, seqlen, q_heads, head_dim], k and v [batch,
 // seqlen, kv_heads, head_dim], contiguous and 16-byte aligned; rows is 64
 // or 128 (one or two consumer warpgroups per CTA; 64 at head_dim 256) and
-// block_q * (q_heads / kv_heads) <= rows; 0 < true_len <= seqlen. The
-// caller has checked shapes, dtypes and alignment.
+// block_q * (q_heads / kv_heads) <= rows; 0 < true_len <= seqlen; lse
+// null or fp32 [batch, q_heads, seqlen]. The caller has checked shapes,
+// dtypes and alignment.
 extern "C" int flash_prefill_sm90_launch(int head_dim, const void* q,
                                          const void* k, const void* v,
-                                         void* out, int batch, int seqlen,
-                                         int q_heads, int kv_heads,
-                                         int true_len, int rows, int block_q,
-                                         int causal, float scale,
-                                         void* stream) {
+                                         void* out, float* lse, int batch,
+                                         int seqlen, int q_heads,
+                                         int kv_heads, int true_len,
+                                         int rows, int block_q, int causal,
+                                         float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_heads < 1 || q_heads % kv_heads || (rows != 64 && rows != 128) ||
       block_q < 1 || block_q * (q_heads / kv_heads) > rows ||
@@ -468,17 +483,21 @@ extern "C" int flash_prefill_sm90_launch(int head_dim, const void* q,
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 256:
-      return launch_rows<256>(rows, q, k, v, out, batch, seqlen, q_heads,
-                              kv_heads, true_len, block_q, causal, scale, s);
+      return launch_rows<256>(rows, q, k, v, out, lse, batch, seqlen,
+                              q_heads, kv_heads, true_len, block_q, causal,
+                              scale, s);
     case 128:
-      return launch_rows<128>(rows, q, k, v, out, batch, seqlen, q_heads,
-                              kv_heads, true_len, block_q, causal, scale, s);
+      return launch_rows<128>(rows, q, k, v, out, lse, batch, seqlen,
+                              q_heads, kv_heads, true_len, block_q, causal,
+                              scale, s);
     case 64:
-      return launch_rows<64>(rows, q, k, v, out, batch, seqlen, q_heads,
-                             kv_heads, true_len, block_q, causal, scale, s);
+      return launch_rows<64>(rows, q, k, v, out, lse, batch, seqlen,
+                             q_heads, kv_heads, true_len, block_q, causal,
+                             scale, s);
     case 32:
-      return launch_rows<32>(rows, q, k, v, out, batch, seqlen, q_heads,
-                             kv_heads, true_len, block_q, causal, scale, s);
+      return launch_rows<32>(rows, q, k, v, out, lse, batch, seqlen,
+                             q_heads, kv_heads, true_len, block_q, causal,
+                             scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,3 +1,5 @@
 from . import tasks, tokenizer
+from .pipeline import DataConfig, padded_batches, prm_batches
 
-__all__ = ["tasks", "tokenizer"]
+__all__ = ["tasks", "tokenizer", "DataConfig", "padded_batches",
+           "prm_batches"]

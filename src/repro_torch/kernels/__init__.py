@@ -12,7 +12,9 @@
 #                     exact-length path and in Model.forward/prefill (K5,
 #                     csrc/flash_prefill_sm90.cu in bf16 and
 #                     csrc/flash_prefill.cu in fp32, wrapper
-#                     flash_prefill.py);
+#                     flash_prefill.py), with its backward for training
+#                     (csrc/flash_prefill_bwd.cu, wrapper and autograd
+#                     binding flash_prefill_bwd.py);
 #   ssd_scan        — the Mamba-2 SSD chunked scan with state in and out of
 #                     the ssm/hybrid chunk lanes (K4, csrc/ssd_scan.cu,
 #                     wrapper ssd_scan.py; plain versions in ref.py).

@@ -5,16 +5,21 @@ Two kernels replace the TPU kernel
 dtype: bf16 runs on the tensor cores (``csrc/flash_prefill_sm90.cu``:
 wgmma fed by TMA, one or two consumer warpgroups of 64 rows per CTA,
 one at head_dim 256), fp32 on the CUDA cores (``csrc/flash_prefill.cu``,
-64 rows per CTA), since bf16 tensor-core products cannot meet fp32's tolerance. Both are
-forward-only, as the TPU kernel is (no gradient is defined there), so an
-input that requires grad raises. ``launches`` counts the launches this
-wrapper made, of either kernel.
+64 rows per CTA), since bf16 tensor-core products cannot meet fp32's tolerance.
+``flash_prefill`` is the forward alone, as the TPU kernel is, so an input
+that requires grad raises there. Training reaches the same kernels through
+``flash_prefill_bwd.FlashPrefillFn``, which calls ``flash_prefill_lse``:
+the forward that also writes each row's log-sum-exp (fp32 [B, H, S],
+natural log of the scaled scores, 0 for rows at or past ``true_len``) for
+the backward kernel; without it the kernels write no LSE and their output
+is the same bits. ``launches`` counts the launches of either kernel made
+by either entry.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,9 +27,9 @@ from .. import build
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
     [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-_SM90_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+_SM90_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
     [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 MAX_GROUP = 64          # query heads per KV head (one position's rows)
 MAX_ROWS = 128          # query rows (positions x GQA group) one CTA holds
@@ -64,55 +69,81 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   true_len: Optional[int] = None) -> torch.Tensor:
     """q [B, S, H, hd]; k, v [B, S, Hkv, hd] with Hkv | H and at most 64
     query heads per KV head; one dtype, fp32 or bf16 (which picks the
-    kernel); a head_dim of ``build.HEAD_DIMS`` (32, 64, 128 or 256). ``true_len`` is a host int in (0, S]
-    or None (= S). Returns [B, S, H, hd]."""
-    global launches
+    kernel); a head_dim of ``build.HEAD_DIMS`` (32, 64, 128 or 256).
+    ``true_len`` is a host int in (0, S] or None (= S). Returns [B, S, H,
+    hd]. Forward-only: raises if an input requires grad."""
     if any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_prefill: K5 is forward-only; an input "
                            "requires grad")
+    return _forward(q, k, v, causal, true_len, False)[0]
+
+
+def flash_prefill_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, true_len: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_prefill``'s contract, returning (out, lse [B, H, S] fp32):
+    the forward of ``FlashPrefillFn``, which saves both for the backward.
+    Its inputs may require grad (nothing here records a graph)."""
+    return _forward(q, k, v, causal, true_len, True)
+
+
+def check_inputs(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, true_len: Optional[int]) -> int:
+    """Raises on what K5's kernels (forward and backward) do not take;
+    returns true_len as an int."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or \
             k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
-        raise ValueError(f"flash_prefill: q {tuple(q.shape)}, k "
+        raise ValueError(f"{kernel}: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    batch, seqlen, q_heads, head_dim = q.shape
+    seqlen, q_heads, head_dim = q.shape[1:]
     kv_heads = k.shape[2]
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_prefill: q, k and v must share a dtype")
+        raise TypeError(f"{kernel}: q, k and v must share a dtype")
     if head_dim not in build.HEAD_DIMS:
-        raise ValueError(f"flash_prefill: head_dim {head_dim} not in "
+        raise ValueError(f"{kernel}: head_dim {head_dim} not in "
                          f"{build.HEAD_DIMS}")
     if kv_heads < 1 or q_heads % kv_heads or \
             q_heads // kv_heads > MAX_GROUP:
-        raise ValueError(f"flash_prefill: {q_heads} query heads over "
+        raise ValueError(f"{kernel}: {q_heads} query heads over "
                          f"{kv_heads} KV heads")
-    build.check_operands("flash_prefill", q, k, v)
+    build.check_operands(kernel, q, k, v)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_prefill: operands must be 16-byte aligned")
+        raise ValueError(f"{kernel}: operands must be 16-byte aligned")
     n = seqlen if true_len is None else int(true_len)
     if not 0 < n <= seqlen:
-        raise ValueError(f"flash_prefill: true_len {n} not in (0, "
-                         f"{seqlen}]")
+        raise ValueError(f"{kernel}: true_len {n} not in (0, {seqlen}]")
+    return n
+
+
+def _forward(q, k, v, causal, true_len, with_lse):
+    global launches
+    n = check_inputs("flash_prefill", q, k, v, true_len)
+    batch, seqlen, q_heads, head_dim = q.shape
+    kv_heads = k.shape[2]
     out = torch.empty_like(q)
+    lse = torch.empty((batch, q_heads, seqlen), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if batch == 0:
-        return out
+        return out, lse
     group = q_heads // kv_heads
     stream = build.stream(q)
+    lse_ptr = lse.data_ptr() if lse is not None else None
     if q.dtype == torch.bfloat16:
         rows = cta_rows(seqlen, group, kv_heads, batch, q.dtype,
                         _num_sms(q.device), head_dim)
         fn = build.function("flash_prefill_sm90",
                             "flash_prefill_sm90_launch", _SM90_ARGTYPES)
         rc = fn(head_dim, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), batch, seqlen, q_heads, kv_heads, n, rows,
-                block_rows(group, rows), int(causal), 1.0 / head_dim ** 0.5,
-                stream)
+                out.data_ptr(), lse_ptr, batch, seqlen, q_heads, kv_heads,
+                n, rows, block_rows(group, rows), int(causal),
+                1.0 / head_dim ** 0.5, stream)
     else:
         fn = build.function("flash_prefill", "flash_prefill_launch",
                             _ARGTYPES)
         rc = fn(head_dim, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), batch, seqlen, q_heads, kv_heads, n,
-                block_rows(group), int(causal), 1.0 / head_dim ** 0.5,
+                out.data_ptr(), lse_ptr, batch, seqlen, q_heads, kv_heads,
+                n, block_rows(group), int(causal), 1.0 / head_dim ** 0.5,
                 stream)
     build.raise_on_error("flash_prefill", rc)
     launches += 1
-    return out
+    return out, lse

@@ -1,6 +1,6 @@
-"""Public dense flash prefill (kernel K5) and paged flash-prefill (kernel
-K2): the CUDA kernel for CUDA tensors, the plain PyTorch version for CPU
-tensors."""
+"""Public dense flash prefill (kernel K5, with its backward) and paged
+flash-prefill (kernel K2): the CUDA kernel for CUDA tensors, the plain
+PyTorch version for CPU tensors."""
 from __future__ import annotations
 
 import math
@@ -9,6 +9,7 @@ from typing import Optional, Sequence
 import torch
 
 from .flash_prefill import flash_prefill
+from .flash_prefill_bwd import FlashPrefillFn
 from .paged_prefill import (paged_flash_prefill_fwd,
                             paged_flash_prefill_lanes_fwd)
 from .ref import (flash_prefill_ref, paged_flash_prefill_lanes_ref,
@@ -21,9 +22,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense flash prefill attention, [B, S, H, hd] (see ``ref.py`` for
     the contract): q [B, S, H, hd], k and v [B, S, Hkv, hd] with Hkv | H,
     never pre-repeated. ``true_len`` is a host int or None. Dispatches on
-    the device of ``q``."""
+    the device of ``q``; differentiable on both: on the card, with grad
+    enabled and an input that requires grad, K5 runs through
+    ``FlashPrefillFn`` (the forward writing its log-sum-exp, the backward
+    kernel for the gradient), else the forward-only kernel; on the CPU the
+    plain version is differentiated by autograd."""
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, causal, true_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashPrefillFn.apply(q, k, v, causal, true_len)
     return flash_prefill(q, k, v, causal, true_len)
 
 

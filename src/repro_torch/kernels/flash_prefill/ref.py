@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the dense flash prefill (kernel K5) and the
-paged flash-prefill (kernel K2).
+"""Plain PyTorch versions of the dense flash prefill (kernel K5, with its
+log-sum-exp and its gradient) and the paged flash-prefill (kernel K2).
 
 Counterparts of ``repro.kernels.flash_prefill.ref.flash_prefill_ref`` (with
 the ``true_len`` of the Pallas ``flash_prefill``) and
@@ -59,6 +59,91 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                              vf[:, :sk])
     out = out.masked_fill((pos >= n)[None, :, None, None, None], 0.0)
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _blocks(s: int):
+    """The query blocks of the plain versions: one up to
+    ``CHUNKED_THRESHOLD`` positions, blocks of ``Q_BLOCK`` past it."""
+    block = s if s <= CHUNKED_THRESHOLD else Q_BLOCK
+    return [(r0, min(r0 + block, s)) for r0 in range(0, s, block)]
+
+
+def _visible(rows, pos_k, n: int, causal: bool):
+    """[rows, keys] bool: key < n, row < n and (causal) key <= row."""
+    mask = (pos_k < n)[None, :] & (rows < n)[:, None]
+    if causal:
+        mask = mask & (pos_k[None, :] <= rows[:, None])
+    return mask
+
+
+def flash_prefill_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = True,
+                          true_len: Optional[int] = None) -> torch.Tensor:
+    """The log-sum-exp K5's forward writes for its backward: fp32 [B, H,
+    S], the natural log of sum_j exp(q_i.k_j / sqrt(hd)) over row i's
+    visible keys, 0 for rows at or past ``true_len``."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    n = s if true_len is None else int(true_len)
+    qg = q.reshape(b, s, hkv, h // hkv, hd).float()
+    kf = k.float()
+    pos = torch.arange(s, device=q.device)
+    lse = torch.zeros((b, hkv, h // hkv, s), dtype=torch.float32,
+                      device=q.device)
+    for r0, r1 in _blocks(s):
+        sk = r1 if causal else s
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, r0:r1],
+                              kf[:, :sk]) / (hd ** 0.5)
+        mask = _visible(pos[r0:r1], pos[:sk], n, causal)
+        out = torch.logsumexp(scores.masked_fill(~mask, NEG_INF), dim=-1)
+        lse[..., r0:r1] = out.masked_fill(pos[r0:r1] >= n, 0.0)
+    return lse.reshape(b, h, s)
+
+
+def flash_prefill_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          out: torch.Tensor, lse: torch.Tensor,
+                          dout: torch.Tensor, causal: bool = True,
+                          true_len: Optional[int] = None):
+    """The gradient of ``flash_prefill_ref`` written out, in fp32: with
+    P = exp(q.k / sqrt(hd) - lse) on visible (row, key) pairs and 0
+    elsewhere, D = rowsum(dout * out) and dS = P (dout.v - D),
+    dv = P^T dout, dk = dS^T q / sqrt(hd), dq = dS k / sqrt(hd); GQA
+    heads summed into their KV head. ``lse`` is [B, H, S] (the kernel's,
+    or ``flash_prefill_lse_ref``'s). Returns (dq, dk, dv) in the inputs'
+    dtypes. Correctness only (query blocks past ``CHUNKED_THRESHOLD``, as
+    ``flash_prefill_ref``)."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    n = s if true_len is None else int(true_len)
+    scale = 1.0 / hd ** 0.5
+
+    def grouped(t):
+        return t.reshape(b, s, hkv, g, hd).float()
+    qg, og, dog = grouped(q), grouped(out), grouped(dout)
+    kf, vf = k.float(), v.float()
+    lse_g = lse.float().reshape(b, hkv, g, s)
+    delta = torch.einsum("bskgd,bskgd->bkgs", dog, og)
+    pos = torch.arange(s, device=q.device)
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for r0, r1 in _blocks(s):
+        sk = r1 if causal else s
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, r0:r1],
+                              kf[:, :sk]) * scale
+        mask = _visible(pos[r0:r1], pos[:sk], n, causal)
+        p = torch.where(mask, torch.exp(scores - lse_g[..., r0:r1, None]),
+                        0.0)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dog[:, r0:r1], vf[:, :sk])
+        ds = p * (dp - delta[..., r0:r1, None])
+        dv[:, :sk] += torch.einsum("bkgqs,bqkgd->bskd", p, dog[:, r0:r1])
+        dk[:, :sk] += torch.einsum("bkgqs,bqkgd->bskd", ds,
+                                   qg[:, r0:r1]) * scale
+        dq[:, r0:r1] = torch.einsum("bkgqs,bskd->bqkgd", ds,
+                                    kf[:, :sk]) * scale
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def paged_flash_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,

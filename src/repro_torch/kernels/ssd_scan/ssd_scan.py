@@ -4,7 +4,10 @@ The kernel is ``csrc/ssd_scan.cu``; it replaces the TPU kernel
 ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan`` and carries a state in and
 out as ``repro/models/mamba2.py:ssd_chunked`` does. One launch covers
 every (16-column slice of P, head, row); bf16 runs on tensor cores, fp32
-on the CUDA cores. ``launches`` counts the launches this wrapper made.
+on the CUDA cores. It is forward-only, as the TPU kernel is: an input
+that requires grad raises (its output would carry no gradient back), so
+the ssm and hybrid families do not train on the card until K4 has a
+backward. ``launches`` counts the launches this wrapper made.
 """
 from __future__ import annotations
 
@@ -71,8 +74,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dt [B, S, H] (>= 0, already zero at masked positions) and a [H] fp32;
     ``initial_state`` [B, H, P, N] in x's dtype or None (zeros). S need
     not be a multiple of ``chunk``. Returns (y [B, S, H, P], the final
-    state [B, H, P, N] in x's dtype)."""
+    state [B, H, P, N] in x's dtype). Raises on an input that requires
+    grad, before any other check."""
     global launches
+    if any(t is not None and t.requires_grad
+           for t in (x, dt, a, b, c, initial_state)):
+        raise RuntimeError("ssd_scan: K4 is forward-only; an input "
+                           "requires grad")
     ops = [x, dt, a, b, c] + ([initial_state] if initial_state is not None
                               else [])
     build.check_operands("ssd_scan", *ops)

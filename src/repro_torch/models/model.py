@@ -18,7 +18,10 @@ a sliding window; ``conv``/``ssd`` for ssm/hybrid) is written IN PLACE by
 ``prefill`` and ``decode_step``, which return the same dict: at full
 width a second copy would cost as much memory as the cache itself. The
 full-sequence attention of ``forward`` and ``prefill`` is kernel K5 on the
-card where it applies (``attention.py``), the ssm mixer's scan kernel K4.
+card where it applies (``attention.py``; in training its forward and
+backward), the ssm mixer's scan kernel K4 (forward-only: it raises on
+inputs that require grad). ``forward`` with trainable layer params
+recomputes each layer in the backward pass (``torch.utils.checkpoint``).
 MoE layers run the capacity dispatch of ``moe.py`` and ``forward`` sums
 their aux losses; vlm configs rotate by M-RoPE over ``[B, S, 3]``
 positions (``[B, S]`` ones are broadcast to three equal streams); audio
@@ -32,6 +35,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import (attention_decode, attention_prefill, attention_train,
@@ -76,6 +80,14 @@ def _stack_into(dst: Params, layer: Params, i: int, num_layers: int) -> None:
             dst[k] = torch.empty((num_layers,) + tuple(v.shape),
                                  dtype=v.dtype, device=v.device)
         dst[k][i] = v
+
+
+def _leaves(tree: Params):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def layer_slices(layers: Params, num_layers: int) -> List[Params]:
@@ -192,14 +204,26 @@ class Model(nn.Module):
     def forward(self, params: Params, tokens=None, embeds=None,
                 positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits [B,S,V], aux_loss): the
-        sum over layers of the MoE load-balance losses, 0 without MoE."""
+        sum over layers of the MoE load-balance losses, 0 without MoE.
+        With grad enabled and a trainable layer param, each layer runs
+        under ``torch.utils.checkpoint`` and is recomputed in the backward
+        pass."""
         cfg = self.cfg
         x = self._embed_inputs(params, tokens, embeds)
         b, s, _ = x.shape
         positions = self._positions(positions, b, s, x.device)
-        x, aux = self._run_layers(
-            params, lambda lp, _, x: self._layer_train(lp, x, positions),
-            x, None)
+
+        def layer(lp, _, x):
+            return self._layer_train(lp, x, positions)
+
+        def layer_recomputed(lp, _, x):
+            # the reference's jax.checkpoint(nothing_saveable): a layer's
+            # activations live only while its gradient is taken
+            return checkpoint(layer, lp, None, x, use_reentrant=False)
+        train = torch.is_grad_enabled() and any(
+            t.requires_grad for t in _leaves(params["layers"]))
+        x, aux = self._run_layers(params, layer_recomputed if train
+                                  else layer, x, None)
         x = apply_norm(cfg, params["final_norm"], x)
         return unembed(cfg, params["embed"], x), aux
 
@@ -304,6 +328,18 @@ class Model(nn.Module):
             layer_cache["ssd"].copy_(ssd)
             mix = y if mix is None else mix + y
         return self._finish_layer(p, x, mix)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits [B,S,V], labels [B,S] -> mean token NLL in fp32 (mask:
+    [B,S] 0/1; the masked mean divides by max(sum(mask), 1))."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 #: leaves the reference keeps in fp32 whatever the model dtype

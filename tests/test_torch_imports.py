@@ -47,7 +47,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_prefill.ref",
             "repro_torch.models.attention", "repro_torch.models.model",
             "repro_torch.serving.engine", "repro_torch.serving.faults",
-            "repro_torch.serving.simulator", "repro_torch.baselines"} <= names
+            "repro_torch.serving.simulator", "repro_torch.baselines",
+            "repro_torch.data.pipeline", "repro_torch.training",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.checkpoint",
+            "repro_torch.training.train_loop", "repro_torch.launch.train",
+            "repro_torch.kernels.flash_prefill.flash_prefill_bwd"} <= names
 
 
 def test_no_source_mentions_jax_or_the_reference_package():
