@@ -16,9 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                the bf16 kernels of K2 and K4 must hold HMMA and spill
                nothing; one line sums up the registers and spill bytes
                of the fourteen head_dim-256 instantiations of K1, K2, K3,
-               K5 and K5's backward, another those of every
-               instantiation of K5's backward, whose bf16 kernels
-               must hold HMMA);
+               K5 and K5's backward, others those of every
+               instantiation of K5's and of K4's backward, whose bf16
+               kernels must hold HMMA);
   3. kernels — K1 (paged flash-decode; bf16 on the split-key mma.sync
                decode core), K2 (paged flash-prefill), both
                passes of K3 (tree decode; the shared pass's split partials
@@ -77,7 +77,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                bit-equal over two runs, the forward with its LSE output
                bit-equal to the forward without and its LSE against
                the plain one; timed at phase 14's shapes beside the
-               backward of one SDPA call;
+               backward of one SDPA call; K4's backward
+               (``ssd_scan_bwd.cu``; bf16 on mma.sync, fp32 on the CUDA
+               cores) against its plain version from the forward's own
+               chunk states, at mamba2-130m's training shape (B=2,
+               S=2048), hymba-1.5b's widths, S a multiple of no chunk,
+               masked dt, an initial state and the smoke widths, with a
+               final-state gradient: the error over the largest
+               magnitude within ``BWD_TOL``, bit-repeatable, the forward
+               with its chunk states bit-equal to the forward without;
+               timed at mamba2-130m's training shape beside the plain
+               version and the bound from its bytes;
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -101,12 +111,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                (``FAULT_PARITY_PLAN``): the card's engine must give the
                CPU engine's trajectory and injected counts; then
                training: 3 steps of ``make_train_step`` on the card
-               (K5 forward and backward, fp32) against the CPU from the
-               same weights and batches, the tiny reasoner (head_dim
-               32) and qwen3-moe-235b-a22b's smoke widths: losses, grad
-               norms and params after the last step within tolerance,
-               K5's forward launched 2 x layers x steps and its
-               backward layers x steps;
+               (K5's and K4's forward and backward, fp32) against the
+               CPU from the same weights and batches, the tiny reasoner
+               (head_dim 32) and the smoke widths of
+               qwen3-moe-235b-a22b, mamba2-130m (ssm) and hymba-1.5b
+               (hybrid): losses, grad norms and params after the last
+               step within tolerance, each kernel's forward launched 2
+               x layers x steps and its backward layers x steps where
+               the config runs it;
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
@@ -209,8 +221,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                backward 8 x 8; prints the step p50, tokens/s, the peak
                memory and the step's bound from its operations; then 3
                steps of ``train_prm_head`` on those weights (K5's
-               backward never), and ``smoke_arch("mamba2-130m")`` must
-               raise K4's forward-only error. gemma-7b at full width,
+               backward never). ``smoke_arch`` of mamba2-130m and
+               hymba-1.5b on the card (K4's forward and backward,
+               launches exact); mamba2-130m at full width and depth (24
+               layers), 8 steps at B=2, S=2048, falling loss, K4 forward
+               384 and backward 192 launches; hymba-1.5b at full width
+               and depth (32 layers, ~1.5 B params), 3 steps at B=1,
+               S=2048, finite losses, K4 192 and 96, K5 none (its
+               attention has a window); each with its step breakdown.
+               gemma-7b at full width,
                2 of its 28 layers (the head_dim-256 backward), 3 steps
                at B=1, S=2048. Last the launcher's ``train_reasoner``
                with the reference's defaults in a temp dir: the LM loss
@@ -235,7 +254,8 @@ and nothing falls back to the eager step.
 Then one JSON line ``{"kernels": [...]}`` (``launches_chaos``: phase
 13's runs A and C; K5's backward rows, ``flash_prefill_bwd`` and
 ``flash_prefill_bwd_hd256``, count phase 14's r1-distill-14b and gemma-7b
-runs), the nvidia-smi line, and last
+runs, K4's backward row ``ssd_scan_bwd`` its mamba2-130m run and
+``launches_hymba`` its hymba-1.5b run), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
 ``src/`` beside this file, it exits non-zero and prints no result.
 """
@@ -266,9 +286,10 @@ TOL = {"bf16": 2e-2, "fp32": 1e-5}      # atol = rtol, per working dtype
 # the bf16 tensor-core kernels of K2 and K4 (phase 2: HMMA, no spills)
 TENSOR_K2_K4 = {"paged_prefill": "prefill_mma_kernel",
                 "ssd_scan": "ssd_mma_kernel"}
-# the bf16 kernels of K5's backward (phase 2: HMMA; registers and spills
-# printed per instantiation)
-TENSOR_BWD = ("dkdv_mma_kernel", "dq_mma_kernel")
+# the bf16 kernels of K5's and K4's backward (phase 2: HMMA; registers and
+# spills printed per instantiation)
+TENSOR_BWD = {"flash_prefill_bwd": ("dkdv_mma_kernel", "dq_mma_kernel"),
+              "ssd_scan_bwd": ("dstate_mma_kernel", "chunk_grad_mma_kernel")}
 # name fragments of the port's CUDA kernels (K1-K5), for the profile
 PORT_KERNELS = ("decode_mma_kernel", "paged_decode_kernel",
                 "prefill_mma_kernel", "prefill_f32_kernel",
@@ -533,7 +554,7 @@ def phase_build():
         print(f"[build] {name}: nvcc done after {t:.1f} s")
     spills = {}     # the bf16 tensor-core kernels of K2 and K4
     wide = {}       # the head_dim-256 instantiations: registers, spills
-    bwd = {}        # every instantiation of K5's backward: the same
+    bwd = {name: {} for name in TENSOR_BWD}   # the backwards: the same
     for name, log in sorted(build.build_log.items()):
         fn = "?"
         for line in log.splitlines():
@@ -546,8 +567,8 @@ def phase_build():
                 r = re.search(r"Used (\d+) registers", line)
                 rows = [wide.setdefault(f"{name}: {fn}", {})] if re.search(
                     rf"[<, ]{WIDE}[,>]", fn) and (m or r) else []
-                if name == "flash_prefill_bwd" and (m or r):
-                    rows.append(bwd.setdefault(fn, {}))
+                if name in bwd and (m or r):
+                    rows.append(bwd[name].setdefault(fn, {}))
                 for row in rows:
                     if m:
                         row["spill_bytes"] = int(m[1]) + int(m[2])
@@ -560,7 +581,11 @@ def phase_build():
     print(f"[build] the head_dim-{WIDE} instantiations (registers, spill "
           f"stores + loads in bytes): " + json.dumps(wide))
     print("[build] flash_prefill_bwd, K5's backward, per instantiation "
-          "(registers, spill stores + loads in bytes): " + json.dumps(bwd))
+          "(registers, spill stores + loads in bytes): "
+          + json.dumps(bwd["flash_prefill_bwd"]))
+    print("[build] ssd_scan_bwd, K4's backward, per kernel (registers, "
+          "spill stores + loads in bytes): "
+          + json.dumps(bwd["ssd_scan_bwd"]))
     if len(build.build_log) == len(build.SOURCES):   # all built here
         check(len(wide) == 14, f"expected 14 head_dim-{WIDE} kernels, "
                                f"found {sorted(wide)}")
@@ -569,7 +594,7 @@ def phase_build():
     # the tensor-core instructions in the built code: warpgroup MMAs
     # (HGMMA, wgmma) in K5's bf16 kernel, warp MMAs (HMMA, mma.sync) in
     # the bf16 decode core (K1; K3's branch pass), K3's shared pass and the
-    # bf16 kernels of K2 and K4
+    # bf16 kernels of K2 and K4 and of K5's and K4's backward
     dump = Path(build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         print("[build] no cuobjdump beside nvcc: SASS not counted")
@@ -579,7 +604,8 @@ def phase_build():
                      ("paged_tree_decode", "HMMA"),
                      ("paged_prefill", "HMMA"),
                      ("ssd_scan", "HMMA"),
-                     ("flash_prefill_bwd", "HMMA")):
+                     ("flash_prefill_bwd", "HMMA"),
+                     ("ssd_scan_bwd", "HMMA")):
         sass = subprocess.run(
             [str(dump), "-sass", str(build.build_dir() / f"lib{name}.so")],
             capture_output=True, text=True, timeout=120).stdout
@@ -596,10 +622,9 @@ def phase_build():
         if name in TENSOR_K2_K4:
             check(any(TENSOR_K2_K4[name] in f for f in per_fn),
                   f"{name}: no {op} in {TENSOR_K2_K4[name]}")
-        if name == "flash_prefill_bwd":
-            for kernel in TENSOR_BWD:
-                check(any(kernel in f for f in per_fn),
-                      f"{name}: no {op} in {kernel}")
+        for kernel in TENSOR_BWD.get(name, ()):
+            check(any(kernel in f for f in per_fn),
+                  f"{name}: no {op} in {kernel}")
 
 
 def _compare(torch, name, out, ref, dtype_name):
@@ -1648,6 +1673,168 @@ def phase_flash_bwd_kernels(torch):
                   kernel_key("flash_prefill_bwd", WIDE): timing[WIDE]}
 
 
+# K4 backward's check shapes (name, B, S, H, P, N, chunk, initial state,
+# masked dt): mamba2-130m at phase 14's training shape, hymba-1.5b's
+# widths (50 heads, N 16), S a multiple of no chunk, masked dt (each row
+# valid up to its own length), an initial state, and the smoke widths
+# phase 4 trains (P 32, N 16, chunk 16)
+SSD_BWD_SHAPES = (
+    ("mamba2 train", 2, TRAIN_SEQLEN, 24, 64, 128, 128, False, False),
+    ("hymba widths", 1, TRAIN_SEQLEN, 50, 64, 16, 128, False, False),
+    ("non-divisible S", 2, 1000, 24, 64, 128, 128, False, False),
+    ("masked dt", 2, 300, 24, 64, 128, 128, False, True),
+    ("initial state", 1, 517, 8, 64, 128, 128, True, False),
+    ("smoke widths", 4, 64, 16, 32, 16, 16, True, True))
+
+
+def ssd_bwd_flops(seqlen: int, heads: int, head_dim: int, state_dim: int,
+                  chunk: int) -> int:
+    """Operations (2 per multiply-add) K4's backward needs for one row: per
+    chunk of q rows the causal halves of C·Bᵀ, dY·Xᵀ, Gᵀ·dY, W·B and Wᵀ·C,
+    and four q·P·N products (the chunk's state gradient, B·dS_endᵀ,
+    dY·S_prev and X·dS_end)."""
+    total = 0
+    for c0 in range(0, seqlen, chunk):
+        q = min(chunk, seqlen - c0)
+        tri = q * (q + 1) // 2
+        total += tri * (3 * state_dim + 2 * head_dim) + \
+            4 * q * head_dim * state_dim
+    return 2 * heads * total
+
+
+def ssd_bwd_bytes(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                  itemsize: int) -> int:
+    """Bytes K4's backward must move: x, dy, b and c read and dx, db and
+    dc written in the working dtype, dt read and d dt written in fp32, the
+    fp32 states before each chunk read once (a [H] a and da aside)."""
+    return b * s * h * ((3 * p + 4 * n) * itemsize + 8) + \
+        b * -(-s // chunk) * h * p * n * 4
+
+
+def phase_ssd_bwd_kernels(torch):
+    """Phase 3's K4 backward (``ssd_scan_bwd.cu``): at every shape of
+    ``SSD_BWD_SHAPES``, bf16 and fp32, the forward with its chunk-state
+    output bit-equal to the forward without, its states against
+    ``ssd_chunk_states_ref``, and the backward (with a final-state
+    gradient, and an initial state's where there is one) against
+    ``ssd_chunked_bwd_ref`` from the kernel's own states. Error: the
+    largest difference over the largest magnitude of each reference
+    gradient, within ``BWD_TOL`` (bf16: G, W, exp(cs)·dY and the states
+    rounded to bf16 as tensor-core operands, outputs rounded to bf16;
+    fp32: sums in another order); the gradients bit-equal over two runs;
+    the kernel's shared memory equal to the wrapper's
+    ``bwd_smem_bytes``. Then timed at phase 14's mamba2-130m shape (B=2,
+    S=2048, bf16, no final-state gradient, as in training) beside the
+    plain version, autograd of the plain forward (printed) and the bound
+    from the bytes it must move. Returns (errors, timing)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_states_ref,
+                                                  ssd_chunked,
+                                                  ssd_chunked_bwd_ref)
+    from repro_torch.kernels.ssd_scan.ssd_scan import (ssd_scan,
+                                                       ssd_scan_states)
+    from repro_torch.kernels.ssd_scan.ssd_scan_bwd import (bwd_smem_bytes,
+                                                           ssd_scan_bwd)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(9)
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    smem = build.load("ssd_scan_bwd").ssd_scan_bwd_smem
+    smem.restype, smem.argtypes = ctypes.c_size_t, [ctypes.c_int] * 5
+    names = ("dx", "ddt", "da", "db", "dc", "dinit")
+    errs, rel = [], {dn: 0.0 for dn in dtypes}
+    for name, b, s, h, p, n, q, init, masked in SSD_BWD_SHAPES:
+        for dn, dtype in dtypes.items():
+            x, dt, a, bb, cc, st = ssd_inputs(torch, gen, dev, b=b, s=s, h=h,
+                                              p=p, n=n, dtype=dtype,
+                                              state=init)
+            if masked:
+                lens = torch.randint(1, s + 1, (b,), generator=gen,
+                                     device=dev)
+                dt = dt * (torch.arange(s, device=dev)[None, :]
+                           < lens[:, None])[..., None]
+            dy = torch.randn((b, s, h, p), generator=gen,
+                             device=dev).to(dtype)
+            dfin = torch.randn((b, h, p, n), generator=gen, device=dev)
+            case = (f"K4 bwd {name} B={b} S={s} H={h} P={p} N={n} chunk "
+                    f"{q} {dn}")
+            check(smem(s, p, n, q, build.dtype_code(x))
+                  == bwd_smem_bytes(q, p, n, s, dtype),
+                  f"{case}: the kernel's shared memory differs from "
+                  f"bwd_smem_bytes")
+            y0, fin0 = ssd_scan(x, dt, a, bb, cc, chunk=q, initial_state=st)
+            y, fin, states = ssd_scan_states(x, dt, a, bb, cc, chunk=q,
+                                             initial_state=st)
+            check(torch.equal(y, y0) and torch.equal(fin, fin0),
+                  f"{case}: the forward with chunk states differs from the "
+                  f"forward without")
+            s_ref = ssd_chunk_states_ref(x, dt, a, bb, cc, q, st)
+            s_err = float((states - s_ref).abs().max()) / max(
+                float(s_ref.abs().max()), 1e-30)
+            got = ssd_scan_bwd(x, dt, a, bb, cc, states, dy, dfin, chunk=q,
+                               init_grad=init)
+            again = ssd_scan_bwd(x, dt, a, bb, cc, states, dy, dfin,
+                                 chunk=q, init_grad=init)
+            want = ssd_chunked_bwd_ref(x, dt, a, bb, cc, states, dy, dfin,
+                                       chunk=q)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, g2) for g, g2 in zip(got, again)
+                      if g is not None),
+                  f"{case}: gradients differ between two runs")
+            worst = {}
+            for nm, g, w in zip(names, got, want):
+                if g is None:
+                    continue
+                check(bool(torch.isfinite(g.float()).all()),
+                      f"{case}: a non-finite {nm}")
+                diff = float((g.float() - w.float()).abs().max())
+                worst[nm] = diff / max(float(w.float().abs().max()), 1e-30)
+                errs.append(diff)
+            top = max(worst.values())
+            rel[dn] = max(rel[dn], top, s_err)
+            ok = top <= BWD_TOL[dn] and s_err <= BWD_TOL[dn]
+            print(f"[kernels] {case}: max err / max |ref| "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                  + f"; chunk states {s_err:.2e} (tolerance "
+                  f"{BWD_TOL[dn]}); bit-repeatable; forward with states "
+                  f"bit-equal; {'ok' if ok else 'FAIL'}")
+            check(ok, f"{case} disagrees with its plain version")
+            del x, dt, bb, cc, st, dy, y0, y, states, s_ref, got, again, want
+    print("[kernels] K4 bwd largest error relative to the reference's "
+          "largest magnitude: " + json.dumps(rel))
+
+    b, s, h, p, n, q = 2, TRAIN_SEQLEN, 24, 64, 128, 128
+    x, dt, a, bb, cc, _ = ssd_inputs(torch, gen, dev, b=b, s=s, h=h, p=p,
+                                     n=n, dtype=torch.bfloat16)
+    dy = torch.randn((b, s, h, p), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    _, _, states = ssd_scan_states(x, dt, a, bb, cc, chunk=q)
+    leaves = [t.detach().requires_grad_() for t in (x, dt, a, bb, cc)]
+    y_plain = ssd_chunked(*leaves, q)[0]
+    timing = {
+        **kernel_ms(torch, lambda: ssd_scan_bwd(x, dt, a, bb, cc, states,
+                                                dy, chunk=q)),
+        "plain_ms": time_ms(torch, lambda: ssd_chunked_bwd_ref(
+            x, dt, a, bb, cc, states, dy, chunk=q), n=3, warmup=1),
+        "plain_autograd_ms": time_ms(torch, lambda: torch.autograd.grad(
+            y_plain, leaves, dy, retain_graph=True), n=3, warmup=1),
+        "forward_with_states_ms": time_ms(torch, lambda: ssd_scan_states(
+            x, dt, a, bb, cc, chunk=q), head_start=True),
+        "library_ms": None,
+        "bytes": ssd_bwd_bytes(b, s, h, p, n, q, 2),
+        "ops": b * ssd_bwd_flops(s, h, p, n, q),
+        "ctas": -(-s // q) * h * b,
+        "shape": f"B={b} S={s} H={h} P={p} N={n} chunk {q} bf16, "
+                 f"{-(-s // q) * h * b} CTAs, "
+                 f"{bwd_smem_bytes(q, p, n, s)} B of shared memory each",
+    }
+    timing["bound_ms"] = bound(timing["bytes"], timing["ops"], "bf16")[0]
+    print("[kernels] K4 bwd timed: " + json.dumps(timing))
+    del x, dt, bb, cc, dy, states, leaves, y_plain
+    return {"ssd_scan_bwd": errs}, {"ssd_scan_bwd": timing}
+
+
 def _parity_scenario(torch, eng, vocab: int):
     """A cold request (a 16-token header + its own 21 tokens, a partial
     last page) forks 3 branches that decode 6 steps (CoW of the shared
@@ -1836,23 +2023,46 @@ def phase_parity(torch):
     _train_parity(torch)
 
 
+def _train_counters() -> dict:
+    """The launch counters of the kernels a train step runs: K5 and K4,
+    forward and backward."""
+    from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                                   flash_prefill_bwd)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    return {"flash_prefill": flash_prefill,
+            "flash_prefill_bwd": flash_prefill_bwd, "ssd_scan": ssd_scan,
+            "ssd_scan_bwd": ssd_scan_bwd}
+
+
+def _want_launches(cfg, steps: int) -> dict:
+    """What ``steps`` train steps of ``cfg`` launch: each layer's forward
+    runs twice (recomputed in the backward pass) and its backward once;
+    K5 where the attention takes it (no window, no soft-cap:
+    ``attention._flash_ok``), K4 in every SSM mixer."""
+    from repro_torch.models.attention import _flash_ok
+    per = cfg.num_layers * steps
+    k5 = int(cfg.uses_attention and _flash_ok(cfg))
+    k4 = int(cfg.uses_ssm)
+    return {"flash_prefill": 2 * per * k5, "flash_prefill_bwd": per * k5,
+            "ssd_scan": 2 * per * k4, "ssd_scan_bwd": per * k4}
+
+
 def _train_parity(torch):
     """Phase 4's training case: 3 steps of ``make_train_step`` on the card
-    (K5's forward and backward kernels, fp32) against the CPU (the plain
-    versions under autograd) from the same fp32 weights on the same
-    batches: the launcher's tiny reasoner (2 layers, 4/2 heads of 32) and
-    qwen3-moe-235b-a22b's smoke widths (MoE aux loss in the objective).
-    Loss, aux loss and grad norm per step within rtol 1e-4 and every param
-    after the last step within atol 1e-3 (= the learning rate: Adam moves
-    an entry whose gradient is near zero by up to lr on a small relative
-    difference of that gradient); on the card K5's forward launches 2 x
-    layers x steps times (each layer recomputed in the backward pass) and
-    its backward layers x steps."""
+    (K5's and K4's forward and backward kernels, fp32) against the CPU
+    (the plain versions under autograd) from the same fp32 weights on the
+    same batches: the launcher's tiny reasoner (2 layers, 4/2 heads of
+    32), qwen3-moe-235b-a22b's smoke widths (MoE aux loss in the
+    objective), mamba2-130m's (ssm: K4 alone) and hymba-1.5b's (hybrid:
+    K4 beside the window attention's plain formulation). Loss, aux loss
+    and grad norm per step within rtol 1e-4 and every param after the
+    last step within atol 1e-3 (= the learning rate: Adam moves an entry
+    whose gradient is near zero by up to lr on a small relative
+    difference of that gradient); on the card each kernel launches as
+    ``_want_launches`` says."""
     from repro_torch.configs import smoke
     from repro_torch.data import DataConfig, padded_batches
     from repro_torch.data import tokenizer as tk
-    from repro_torch.kernels.flash_prefill import flash_prefill
-    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
     from repro_torch.models import Model, ModelConfig
     from repro_torch.training import (AdamWConfig, init_opt_state,
                                       make_train_step)
@@ -1862,7 +2072,9 @@ def _train_parity(torch):
                            num_layers=2, d_model=128,
                            vocab_size=tk.VOCAB_SIZE, num_heads=4,
                            num_kv_heads=2, d_ff=512, max_seq_len=512)
-    for cfg in (reasoner, smoke("qwen3-moe-235b-a22b")):
+    counters = _train_counters()
+    for cfg in (reasoner, smoke("qwen3-moe-235b-a22b"), smoke("mamba2-130m"),
+                smoke("hymba-1.5b")):
         cpu_model = Model(cfg, device="cpu")
         params = cpu_model.init_params(torch.Generator().manual_seed(0))
         gpu_model = Model(cfg, device=DEVICE)
@@ -1870,7 +2082,8 @@ def _train_parity(torch):
         gpu_model.load_params(gpu_params)
         runs = []
         for model, p in ((cpu_model, params), (gpu_model, gpu_params)):
-            flash_prefill.launches = flash_prefill_bwd.launches = 0
+            for mod in counters.values():
+                mod.launches = 0
             step = make_train_step(model, AdamWConfig(
                 lr=1e-3, warmup_steps=1, total_steps=10))
             opt = init_opt_state(p)
@@ -1885,9 +2098,9 @@ def _train_parity(torch):
                 metrics.append({k: float(v) for k, v in m.items()})
             with torch.no_grad():
                 host = _to(p, "cpu")
-            runs.append((metrics, host, flash_prefill.launches,
-                         flash_prefill_bwd.launches))
-        (m_cpu, p_cpu, _, _), (m_gpu, p_gpu, fwd, bwd) = runs
+            runs.append((metrics, host, {k: mod.launches
+                                         for k, mod in counters.items()}))
+        (m_cpu, p_cpu, _), (m_gpu, p_gpu, launched) = runs
         rel = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
                   for a, b in zip(m_cpu, m_gpu) for k in a)
 
@@ -1902,10 +2115,8 @@ def _train_parity(torch):
             diffs = {k: float((v - gpu_leaves[k]).abs().max())
                      for k, v in leaves(p_cpu)}
         worst = max(diffs, key=diffs.get)
-        want_fwd, want_bwd = 2 * cfg.num_layers * steps, \
-            cfg.num_layers * steps
-        ok = (rel <= 1e-4 and diffs[worst] <= 1e-3 and fwd == want_fwd
-              and bwd == want_bwd)
+        want = _want_launches(cfg, steps)
+        ok = rel <= 1e-4 and diffs[worst] <= 1e-3 and launched == want
         print(f"[parity] train {cfg.name} ({cfg.arch_type}, head_dim "
               f"{cfg.resolved_head_dim}), {steps} steps card vs CPU: losses "
               f"{[round(m['loss'], 6) for m in m_gpu]}, grad norms "
@@ -1913,9 +2124,9 @@ def _train_parity(torch):
               f"relative difference of loss / aux / grad norm {rel:.3e} "
               f"(rtol 1e-4); largest param difference {diffs[worst]:.3e} "
               f"({worst}; atol 1e-3), mean over leaves "
-              f"{sum(diffs.values()) / len(diffs):.3e}; K5 launches "
-              f"forward {fwd} (want {want_fwd}), backward {bwd} (want "
-              f"{want_bwd}); {'ok' if ok else 'FAIL'}")
+              f"{sum(diffs.values()) / len(diffs):.3e}; launches "
+              f"{json.dumps(launched)} (want {json.dumps(want)}); "
+              f"{'ok' if ok else 'FAIL'}")
         check(ok, f"training on the card disagrees with the CPU "
                   f"({cfg.name})")
 
@@ -3157,15 +3368,14 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
     """``arch`` at full width, its depth cut to ``num_layers``, bf16
     params (AdamW's mu and nu fp32), random weights from seed 0: ``steps``
     steps of ``train_lm`` on ``padded_batches`` of ``batch`` x ``seqlen``,
-    K5's counters zeroed just before and read just after. Checks finite
-    losses and grad norms, and K5's forward launches 2 x layers x steps
-    and backward layers x steps. With ``breakdown``, then
+    the kernels' counters zeroed just before and read just after. Checks
+    finite losses and grad norms, and K5's and K4's launches
+    (``_want_launches``: forward 2 x layers x steps, backward layers x
+    steps where the config runs the kernel). With ``breakdown``, then
     ``_train_breakdown``. Returns the run's line, with the model and
     params under "model_obj" and "params"."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, padded_batches
-    from repro_torch.kernels.flash_prefill import flash_prefill
-    from repro_torch.kernels.flash_prefill import flash_prefill_bwd
     from repro_torch.models import Model
     from repro_torch.training import AdamWConfig, train_lm
     gc.collect()                 # the earlier phases' models and pools
@@ -3186,16 +3396,28 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
     head = params["embed"].get("lm_head", params["embed"]["embedding"])
     n_layers_mm, n_head = matmul(params["layers"]), head.numel()
     tokens = batch * seqlen
-    attn = flash_flops(seqlen, cfg.num_heads, cfg.resolved_head_dim, True) \
-        * batch * cfg.num_layers
+    # attention's causal pairs within the window (all of them without one)
+    window = cfg.sliding_window or seqlen
+    attn = 4 * cfg.resolved_head_dim * cfg.num_heads * sum(
+        min(i + 1, window) for i in range(seqlen)) * batch * \
+        cfg.num_layers * cfg.uses_attention
+    ssd = [f(seqlen, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+             cfg.ssm_chunk) * batch * cfg.num_layers * cfg.uses_ssm
+           for f in (ssd_flops, ssd_bwd_flops)]
     # forward, backward (2x) and the layers' recompute, plus attention:
-    # its forward twice and its backward (2.5x the forward)
+    # its forward twice and its backward (2.5x the forward), plus the
+    # scan: its forward twice and its backward
     step_ops = 6 * (n_layers_mm + n_head) * tokens + \
-        2 * n_layers_mm * tokens + 4.5 * attn
+        2 * n_layers_mm * tokens + 4.5 * attn + 2 * ssd[0] + ssd[1]
     bound_ms = step_ops / PEAK_OPS["bf16"] * 1e3
+    mixers = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, window {cfg.sliding_window}"
+              if cfg.uses_attention else "no attention")
+    if cfg.uses_ssm:
+        mixers += (f"; {cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, "
+                   f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
     print(f"[{tag}] {cfg.name}: num_layers {full.num_layers} -> "
-          f"{cfg.num_layers}, d_model {cfg.d_model}, {cfg.num_heads}/"
-          f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.num_layers}, d_model {cfg.d_model}, {mixers}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab_size}, tied "
           f"{cfg.tie_embeddings}: {n_params / 1e9:.3f} B params (bf16; "
           f"{n_layers_mm / 1e9:.3f} B in the layers' products, "
@@ -3207,13 +3429,15 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
     def log(rec):
         stamps.append(time.perf_counter())
         recs.append(rec)
-    flash_prefill.launches = flash_prefill_bwd.launches = 0
+    counters = _train_counters()
+    for mod in counters.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
     params, _ = train_lm(
         model, padded_batches(DataConfig(batch_size=batch, seq_len=seqlen)),
         steps, opt_cfg, params=params, log_every=1, logger=log)
-    fwd, bwd = flash_prefill.launches, flash_prefill_bwd.launches
+    launched = {k: mod.launches for k, mod in counters.items()}
     step_s = np.diff([t0] + stamps)
     p50 = float(np.median(step_s[1:])) if steps > 1 else float(step_s[0])
     line = {"model": cfg.name, "num_layers": cfg.num_layers,
@@ -3225,14 +3449,13 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
             "step_bound_ms": bound_ms,
             "over_bound": p50 * 1e3 / bound_ms,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": {"flash_prefill": fwd, "flash_prefill_bwd": bwd}}
+            "launches": launched}
     print(f"[{tag}] " + json.dumps(line))
     check(all(math.isfinite(x) for x in line["losses"] + line["grad_norms"]),
           f"{tag}: a non-finite loss or grad norm")
-    want_fwd, want_bwd = 2 * cfg.num_layers * steps, cfg.num_layers * steps
-    check(fwd == want_fwd and bwd == want_bwd,
-          f"{tag}: K5 launched {fwd} forward (want {want_fwd}) and {bwd} "
-          f"backward (want {want_bwd}) times")
+    want = _want_launches(cfg, steps)
+    check(launched == want, f"{tag}: {cfg.name} launched {launched}, want "
+                            f"{want}")
     if breakdown:
         line["breakdown"] = _train_breakdown(torch, tag, model, params,
                                              batch, seqlen, opt_cfg)
@@ -3243,6 +3466,9 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
 TRAIN_KINDS = (("K5 backward", ("dkdv_", "dq_mma_kernel", "dq_f32_kernel",
                                 "bwd_dot_kernel")),
                ("K5 forward", ("flash_prefill",)),
+               ("K4 backward", ("dstate_", "state_pass_kernel",
+                                "chunk_grad_", "da_reduce_kernel")),
+               ("K4 forward", ("ssd_mma_kernel", "ssd_f32_kernel")),
                ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
@@ -3314,18 +3540,25 @@ def phase_train(torch) -> dict:
     from 48 to 8 layers, bf16 params with fp32 AdamW moments: 8 steps of
     ``train_lm`` at B=2, S=2048, the last loss below the first; then 3
     steps of ``train_prm_head`` on those weights (the LM under no_grad:
-    K5's backward never launches); ``smoke_arch("mamba2-130m")`` must
-    raise K4's forward-only error rather than train. (2) gemma-7b at full
-    width, 2 of its 28 layers (16/16 heads of 256: the head_dim-256
-    backward), 3 steps at B=1, S=2048. (3) the launcher's
-    ``train_reasoner`` with the reference's defaults (2 layers, d_model
-    128, head_dim 32, S=160; 300 LM and 200 PRM steps) in a temp dir: the
-    LM loss falls by at least 20% (``tests/test_training.py``'s bar), the
-    PRM loss is finite, and lm.npz and prm.npz load back bit-equal with
-    ``load_checkpoint(like=...)``. Returns K5 backward's launches on (1)
-    and (2)."""
+    K5's backward never launches). (2) The ssm and hybrid families
+    through K4's forward and backward: ``smoke_arch`` of mamba2-130m and
+    hymba-1.5b on the card (K4's launches exact); mamba2-130m at full
+    width and depth (24 layers, 24 SSD heads of 64, state 128), 8 steps
+    at B=2, S=2048, the last loss below the first; hymba-1.5b at full
+    width and depth (32 layers, 25/5 heads of 64 in a 1,024 window beside
+    50 SSD heads of 64, state 16), 3 steps at B=1, S=2048, finite losses.
+    (3) gemma-7b at full width, 2 of its 28 layers (16/16 heads of 256:
+    the head_dim-256 backward), 3 steps at B=1, S=2048. (4) the
+    launcher's ``train_reasoner`` with the reference's defaults (2
+    layers, d_model 128, head_dim 32, S=160; 300 LM and 200 PRM steps) in
+    a temp dir: the LM loss falls by at least 20%
+    (``tests/test_training.py``'s bar), the PRM loss is finite, and
+    lm.npz and prm.npz load back bit-equal with
+    ``load_checkpoint(like=...)``. Returns the backwards' launches on
+    (1), (2) and (3)."""
     import tempfile
 
+    from repro_torch.configs import smoke
     from repro_torch.data import DataConfig, prm_batches
     from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.flash_prefill import flash_prefill_bwd
@@ -3351,13 +3584,25 @@ def phase_train(torch) -> dict:
           and all(math.isfinite(r["prm_loss"]) for r in phist),
           f"{tag}: train_prm_head ran K5's backward or no forward")
     del r1["model_obj"], r1["params"]
-    try:
-        smoke_arch("mamba2-130m", device=DEVICE)
-        fail(f"{tag}: mamba2-130m trained on the card through K4, which "
-             f"has no backward")
-    except RuntimeError as e:
-        check("forward-only" in str(e), f"{tag}: mamba2-130m raised {e}")
-        print(f"[{tag}] smoke_arch('mamba2-130m') on the card raises: {e}")
+    counters = _train_counters()
+    for arch in ("mamba2-130m", "hymba-1.5b"):
+        for mod in counters.values():
+            mod.launches = 0
+        smoke_arch(arch, device=DEVICE)
+        launched = {k: mod.launches for k, mod in counters.items()}
+        want = _want_launches(smoke(arch), 1)
+        print(f"[{tag}] smoke_arch({arch!r}) on the card: launches "
+              f"{json.dumps(launched)} (want {json.dumps(want)})")
+        check(launched == want, f"{tag}: smoke_arch({arch!r}) launched "
+                                f"{launched}, want {want}")
+    ssm = _train_full_width(torch, tag, "mamba2-130m", 24, batch=2,
+                            seqlen=TRAIN_SEQLEN, steps=8, breakdown=True)
+    check(ssm["losses"][-1] < ssm["losses"][0],
+          f"{tag}: mamba2-130m's loss did not fall: {ssm['losses']}")
+    del ssm["model_obj"], ssm["params"]
+    hybrid = _train_full_width(torch, tag, "hymba-1.5b", 32, batch=1,
+                               seqlen=TRAIN_SEQLEN, steps=3, breakdown=True)
+    del hybrid["model_obj"], hybrid["params"]
     gemma = _train_full_width(torch, tag, "gemma-7b", 2, batch=1,
                               seqlen=TRAIN_SEQLEN, steps=3)
     del gemma["model_obj"], gemma["params"]
@@ -3396,6 +3641,8 @@ def phase_train(torch) -> dict:
     return {"flash_prefill_bwd": r1["launches"]["flash_prefill_bwd"],
             kernel_key("flash_prefill_bwd", WIDE):
                 gemma["launches"]["flash_prefill_bwd"],
+            "ssd_scan_bwd": ssm["launches"]["ssd_scan_bwd"],
+            "ssd_scan_bwd_hymba": hybrid["launches"]["ssd_scan_bwd"],
             "train_reasoner": flash_prefill_bwd.launches,
             "r1": {k: v for k, v in r1.items()
                    if k not in ("model_obj", "params")}}
@@ -3545,6 +3792,9 @@ def main() -> int:
     bwd_errs, bwd_timing = phase_flash_bwd_kernels(torch)
     errs.update(bwd_errs)
     timing.update(bwd_timing)
+    ssd_bwd_errs, ssd_bwd_timing = phase_ssd_bwd_kernels(torch)
+    errs.update(ssd_bwd_errs)
+    timing.update(ssd_bwd_timing)
     if args.skip_serve:
         print(json.dumps(timing))
         return 0
@@ -3569,9 +3819,10 @@ def main() -> int:
                            num_requests=2, max_tokens=48)
     # phase 12: gemma-7b at full width and depth, the head_dim-256 kernels
     launches.update(phase_gemma_serve(torch))
-    # phase 14: the training path, K5's backward
+    # phase 14: the training path, K5's and K4's backward
     train = phase_train(torch)
-    for name in ("flash_prefill_bwd", kernel_key("flash_prefill_bwd", WIDE)):
+    for name in ("flash_prefill_bwd", kernel_key("flash_prefill_bwd", WIDE),
+                 "ssd_scan_bwd"):
         launches[name] = train[name]
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
@@ -3617,6 +3868,16 @@ def main() -> int:
         "torch.autograd.grad of scaled_dot_product_attention(is_causal="
         "True, enable_gqa=True) on the same q, k, v, dout, forward not "
         "timed (a yardstick; the port never calls it)")
+    meta["ssd_scan_bwd"] = (
+        "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "src/repro/models/mamba2.py:42 (no Pallas backward: XLA's "
+        "autodiff of ssd_chunked, the gradient of "
+        "src/repro/kernels/ssd_scan/ssd_scan.py:117)",
+        f"max error / max |plain gradient| <= {BWD_TOL['bf16']} bf16 "
+        f"(mma.sync; G, W, exp(cs) dY and the states rounded to bf16), "
+        f"{BWD_TOL['fp32']} fp32 (CUDA cores); bit-repeatable; the forward "
+        f"with its chunk states bit-equal to the forward without",
+        "none: no single PyTorch call computes the SSD scan's gradient")
     # the head_dim-256 instantiations (gemma-7b, phases 12 and 14): rows
     # of their own, timed at gemma-7b's serve (training) shapes
     meta.update({kernel_key(name, WIDE): meta[name] for name in
@@ -3651,6 +3912,9 @@ def main() -> int:
             kernels[-1]["launches_chaos"] = chaos[name]
         if name == "flash_prefill_bwd":
             kernels[-1]["launches_train_reasoner"] = train["train_reasoner"]
+        if name == "ssd_scan_bwd":
+            kernels[-1]["launches_hymba"] = train["ssd_scan_bwd_hymba"]
+            kernels[-1]["plain_autograd_ms"] = tm["plain_autograd_ms"]
     for k in kernels:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")
                   ) and (k["library_ms"] is None

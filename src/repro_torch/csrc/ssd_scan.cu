@@ -17,6 +17,14 @@
 // Q: the last chunk is partial, and its missing rows count as dt = 0 and
 // x = b = c = 0, the padding of the plain version.
 //
+// Asked for (a non-null chunk_states), it also writes the fp32 state before
+// each chunk, [batch, n_chunks, heads, P, N] (the `before` list of the
+// plain version): what the backward, csrc/ssd_scan_bwd.cu, reads. The
+// writes are stores of the carried state and nothing else, so y and the
+// final state are the same bits with or without them; the bf16 kernel
+// that makes them is an instantiation of its own, so the serve path runs
+// the kernel without the stores.
+//
 // What bounds it on this card: the latency of one CTA's dependent chain.
 // At phase 8's lane (mamba2-130m: 24 heads of P = 64, N = 128; one row of
 // 32 positions, 17 valid) the scan moves ~0.1 MB and does ~3.5 MFLOP:
@@ -56,30 +64,12 @@
 // lane (32 rows, 17 valid; 96 CTAs), 0.0091 ms (the one-CTA-per-head
 // fp32 kernel this replaces: 0.0590 in the same run); one row of 2,048
 // positions (16 chunks in series), 0.149-0.151 ms (PERF.md section 6).
-#include "hopper_ptx.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace ssd;
 constexpr int kSlice = 16;          // columns of P one CTA owns
-constexpr int kMaxDim = 128;        // chunk, N and P up to 128
-constexpr int kMaxSmem = 232448;    // the card's per-block limit
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
-
-// N padded for the bf16 kernel's tiles: 16, 32, 64 or 128
-__host__ __device__ inline int padded_n(int n) {
-  return n <= 16 ? 16 : n <= 32 ? 32 : n <= 64 ? 64 : 128;
-}
 
 struct Args {
   const void* x;            // [batch, seqlen, heads, p_dim]
@@ -90,37 +80,10 @@ struct Args {
   const void* init_state;   // [batch, heads, p_dim, n_dim] or null
   void* y;
   void* final_state;
+  float* chunk_states;      // [batch, n_chunks, heads, p_dim, n_dim] or null
   int seqlen, heads, p_dim, n_dim, chunk;
   int vec;                  // bf16 rows of B, C and X copy in 16-byte pieces
 };
-
-// cum[i] = sum of dts[k] * a_h over k <= i, for i < rows (<= 128), by one
-// warp in a fixed order: each lane runs 4 consecutive rows, then an
-// inclusive scan of the lanes' totals.
-__device__ __forceinline__ void chunk_cumsum(const float* dts, float a_h,
-                                             float* cum, int rows,
-                                             int lane) {
-  float v[4], run = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int i = 4 * lane + e;
-    run += i < rows ? dts[i] * a_h : 0.f;
-    v[e] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float up = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += up;
-  }
-  float excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int i = 4 * lane + e;
-    if (i < rows) cum[i] = excl + v[e];
-  }
-}
 
 // ------------------------------------------------- bf16: tensor cores
 
@@ -163,8 +126,13 @@ __host__ __device__ inline MmaLayout mma_layout(const Args& g) {
 // same time (both read only this chunk's tiles and the previous state).
 constexpr int kMmaThreads = 256;
 
-template <int NP>
-__global__ void __launch_bounds__(kMmaThreads) ssd_mma_kernel(const Args g) {
+// kStates: the instantiation that writes the chunk states (the serve path
+// runs the one without). At least one block per SM: without it ptxas caps
+// the N = 16 instantiation that writes them at 128 registers, and it
+// spills.
+template <int NP, bool kStates>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    ssd_mma_kernel(const Args g) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kPairs = NP / 16;   // 16-column pieces of the state
   const MmaLayout lay = mma_layout(g);
@@ -265,6 +233,26 @@ __global__ void __launch_bounds__(kMmaThreads) ssd_mma_kernel(const Args g) {
         }
     }
   };
+  // the state slice before chunk z into the chunk states, where asked for
+  const int n_chunks = (S + g.chunk - 1) / g.chunk;
+  const auto save = [&](int z) {
+    if (!kStates) return;
+    float* out = g.chunk_states + (((size_t)row * n_chunks + z) * H + h) *
+                                      P * N;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int pr = wr + 4 * k;
+      if (pr >= kPairs) continue;
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = p0 + lane / 4 + 8 * (e / 2);
+          const int n = 16 * pr + 8 * nb + 2 * (lane % 4) + e % 2;
+          if (p < P && n < N) out[p * N + n] = st[k][nb][e];
+        }
+    }
+  };
   const bf16* init = static_cast<const bf16*>(g.init_state);
 #pragma unroll
   for (int k = 0; k < 2; ++k)
@@ -278,9 +266,11 @@ __global__ void __launch_bounds__(kMmaThreads) ssd_mma_kernel(const Args g) {
                            ? to_f32(init[state_base + (size_t)p * N + n])
                            : 0.f;
       }
-  if (!y_warp) publish();
+  if (!y_warp) {
+    publish();
+    if (n_chunks > 0) save(0);
+  }
 
-  const int n_chunks = (S + g.chunk - 1) / g.chunk;
   for (int ci = 0; ci < n_chunks; ++ci) {
     const int c0 = ci * g.chunk;
     const int qn = min(g.chunk, S - c0), qp = round16(qn);
@@ -426,7 +416,10 @@ __global__ void __launch_bounds__(kMmaThreads) ssd_mma_kernel(const Args g) {
       }
     }
     __syncthreads();   // warps 0-3 have read S_prev's hi and lo
-    if (!y_warp && ci + 1 < n_chunks) publish();
+    if (!y_warp && ci + 1 < n_chunks) {
+      publish();
+      save(ci + 1);
+    }
   }
 
   bf16* fin = static_cast<bf16*>(g.final_state);
@@ -500,6 +493,15 @@ __global__ void __launch_bounds__(kF32Threads) ssd_f32_kernel(const Args g) {
     const int qn = min(g.chunk, S - c0);   // rows of this chunk
     const size_t tok0 = (size_t)row * S + c0;
     __syncthreads();   // the previous chunk is done with shared memory
+    if (g.chunk_states) {   // S_prev, before this chunk's update
+      const int n_chunks = (S + g.chunk - 1) / g.chunk;
+      float* out = g.chunk_states +
+                   (((size_t)row * n_chunks + c0 / g.chunk) * H + h) * P * N;
+      for (int e = tid; e < kSlice * N; e += kF32Threads) {
+        const int pl = e / N, n = e % N;
+        if (p0 + pl < P) out[(size_t)(p0 + pl) * N + n] = st[pl * NS + n];
+      }
+    }
     for (int i = tid; i < qn; i += kF32Threads)
       dts[i] = g.dt[(tok0 + i) * H + h];
     for (int e = tid; e < qn * N; e += kF32Threads) {
@@ -570,21 +572,27 @@ __global__ void __launch_bounds__(kF32Threads) ssd_f32_kernel(const Args g) {
 
 // Whether this library has raised each kernel's dynamic shared memory
 // limit (internal linkage: one flag per library).
-template <int NP>
+template <int NP, bool kStates>
 bool mma_raised = false;
 bool f32_raised = false;
 
-template <int NP>
-int launch_mma(const Args& g, dim3 grid, cudaStream_t s) {
-  const auto kernel = ssd_mma_kernel<NP>;
-  if (!mma_raised<NP>) {
+template <int NP, bool kStates>
+int launch_mma_as(const Args& g, dim3 grid, cudaStream_t s) {
+  const auto kernel = ssd_mma_kernel<NP, kStates>;
+  if (!mma_raised<NP, kStates>) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
-    mma_raised<NP> = true;
+    mma_raised<NP, kStates> = true;
   }
   kernel<<<grid, kMmaThreads, mma_layout(g).bytes(), s>>>(g);
   return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_mma(const Args& g, dim3 grid, cudaStream_t s) {
+  return g.chunk_states ? launch_mma_as<NP, true>(g, grid, s)
+                        : launch_mma_as<NP, false>(g, grid, s);
 }
 
 bool aligned16(const void* p) {
@@ -595,7 +603,9 @@ bool aligned16(const void* p) {
 
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = fp32,
 // 1 = bf16 for x, b, c, y and both states; dt and a are fp32.
-// init_state may be null (a zero start); final_state is always written.
+// init_state may be null (a zero start); final_state is always written;
+// chunk_states (fp32 [batch, ceil(seqlen / chunk), heads, p_dim, n_dim], the
+// state before each chunk) is written where it is not null.
 // x [batch, seqlen, heads, p_dim]; dt [batch, seqlen, heads]; a [heads];
 // b, c [batch, seqlen, heads, n_dim]; states [batch, heads, p_dim, n_dim].
 // The grid is (ceil(p_dim / 16), heads, batch). The caller has checked
@@ -603,7 +613,8 @@ bool aligned16(const void* p) {
 extern "C" int ssd_scan_launch(int dtype, const void* x, const void* dt,
                                const void* a, const void* b, const void* c,
                                const void* init_state, void* y,
-                               void* final_state, int batch, int seqlen,
+                               void* final_state, void* chunk_states,
+                               int batch, int seqlen,
                                int heads, int p_dim, int n_dim, int chunk,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -612,7 +623,8 @@ extern "C" int ssd_scan_launch(int dtype, const void* x, const void* dt,
       batch > 65535 || heads < 1 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   Args g{x, (const float*)dt, (const float*)a, b, c, init_state, y,
-         final_state, seqlen, heads, p_dim, n_dim, chunk, 0};
+         final_state, (float*)chunk_states, seqlen, heads, p_dim, n_dim,
+         chunk, 0};
   const dim3 grid((p_dim + kSlice - 1) / kSlice, heads, batch);
   if (dtype == 1) {
     g.vec = n_dim % 8 == 0 && p_dim % 8 == 0 && aligned16(x) &&

@@ -5,7 +5,11 @@ Counterpart of ``repro.kernels.ssd_scan.ref`` plus the chunked scan of
   * ``ssd_scan_ref`` — the naive per-token recurrence (ground truth);
   * ``ssd_chunked``  — the chunked scan with state in, state out and a
     validity mask, K4's plain version (``models.mamba2`` re-exports it
-    under the reference's name).
+    under the reference's name);
+  * ``ssd_chunk_states_ref`` — the fp32 state before each chunk, what
+    K4's forward writes for its backward;
+  * ``ssd_chunked_bwd_ref`` — the gradient of the chunked scan written
+    out in fp32 from those states, the backward kernel's plain version.
 """
 from __future__ import annotations
 
@@ -74,6 +78,22 @@ def ssd_chunked(x, dt, a, b, c, chunk: int,
     positions are unspecified (callers discard them). Rounds where the
     reference rounds: the gate and the chunk states in x's dtype.
     """
+    return _scan(x, dt, a, b, c, chunk, initial_state, valid)[:2]
+
+
+def ssd_chunk_states_ref(x, dt, a, b, c, chunk: int,
+                         initial_state: Optional[torch.Tensor] = None):
+    """The state before each chunk, [B, ceil(S / chunk), H, P, N] fp32,
+    of the chunked scan run in fp32 (dt already zero at masked
+    positions): what K4's forward writes for its backward."""
+    return _scan(x.float(), dt.float(), a.float(), b.float(), c.float(),
+                 chunk, None if initial_state is None
+                 else initial_state.float())[2]
+
+
+def _scan(x, dt, a, b, c, chunk, initial_state=None, valid=None):
+    """``ssd_chunked``'s body: (y, final state, the states before each
+    chunk [B, nc, H, P, N])."""
     bs, s, h, p = x.shape
     n = b.shape[-1]
     q = chunk
@@ -121,4 +141,88 @@ def ssd_chunked(x, dt, a, b, c, chunk: int,
     y_off = torch.einsum("bzqhn,bzhpn->bzqhp", cc, prev) * in_decay[..., None]
 
     y = (y_diag + y_off).reshape(bs, nc * q, h, p)
-    return y[:, :s], carry
+    return y[:, :s], carry, prev
+
+
+def ssd_chunked_bwd_ref(x, dt, a, b, c, chunk_states, dy, dfinal=None, *,
+                        chunk: int):
+    """The gradient of the chunked scan (``ssd_chunked`` in fp32) written
+    out in fp32, in the backward kernel's order: per chunk, with cs the
+    cumulative sum of dt·a, L = exp(cs_i - cs_j) (j <= i), G = C Bᵀ ∘ L
+    ∘ dt, W = dY Xᵀ ∘ L ∘ dt and w = dt exp(cs_last - cs):
+      (a) U = Σ_i exp(cs_i) dy_i C_iᵀ;
+      (b) dS_end from the last chunk back: dS_end = dS_fin at the last,
+          then dS_prev = exp(cs_last) dS_end + U; d(initial) is what
+          reaches chunk 0;
+      (c) dX = Gᵀ dY + w ∘ (B dS_endᵀ), dC = W B + exp(cs) ∘ (dY S_prev),
+          dB = Wᵀ C + w ∘ (X dS_end), and on cs the row sums minus the
+          column sums of E = W ∘ C Bᵀ, plus exp(cs) dy·(S_prev C) - w r
+          (r = x dS_end B), plus at the chunk's last row Σ w r and
+          exp(cs_last) <dS_end, S_prev>; its reverse cumulative sum is
+          d(dt·a), giving d dt and da.
+    x, dy [B, S, H, P]; dt [B, S, H] (already zero at masked positions);
+    a [H]; b, c [B, S, H, N]; ``chunk_states`` [B, nc, H, P, N] (the
+    state before each chunk, ``ssd_chunk_states_ref``'s or K4's);
+    ``dfinal`` [B, H, P, N] or None (zeros). Returns (dx, ddt, da, db, dc,
+    dinit): dx, db and dc in x's dtype, the others fp32. Used by the tests
+    and ``chip_smoke.py``; nothing on the card's path calls it."""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    q = chunk
+    xf, dtf, bf, cf, dyf = (t.float() for t in (x, dt, b, c, dy))
+    pad = (-s) % q
+    if pad:
+        xf, dtf, bf, cf, dyf = (_pad_seq(t, pad)
+                                for t in (xf, dtf, bf, cf, dyf))
+    nc = xf.shape[1] // q
+
+    def heads_first(t):           # [B, nc*Q, H, ...] -> [B, nc, H, Q, ...]
+        return t.reshape(bs, nc, q, h, -1).movedim(3, 2)
+    xc, bc, cc, dyc = (heads_first(t) for t in (xf, bf, cf, dyf))
+    dtc = dtf.reshape(bs, nc, q, h).movedim(3, 2)           # [B,nc,H,Q]
+    cs = torch.cumsum(dtc * a.float()[:, None], -1)
+    cs_last = cs[..., -1]                                   # [B,nc,H]
+    ecs = torch.exp(cs)
+    sp = chunk_states.float()
+
+    # (a), (b)
+    u = torch.einsum("bzhi,bzhip,bzhin->bzhpn", ecs, dyc, cc)
+    carry = torch.zeros((bs, h, p, n), dtype=torch.float32,
+                        device=x.device) if dfinal is None else dfinal.float()
+    ends = [None] * nc
+    for z in range(nc - 1, -1, -1):
+        ends[z] = carry
+        carry = torch.exp(cs_last[:, z])[..., None, None] * carry + u[:, z]
+    dse = torch.stack(ends, 1)                              # [B,nc,H,P,N]
+
+    # (c)
+    causal = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=x.device))
+    diff = cs[..., :, None] - cs[..., None, :]
+    lmat = torch.where(causal, torch.exp(torch.where(causal, diff, 0.0)),
+                       0.0)
+    cb = torch.einsum("bzhin,bzhjn->bzhij", cc, bc)
+    m = torch.einsum("bzhip,bzhjp->bzhij", dyc, xc)
+    gate = cb * lmat * dtc[..., None, :]
+    wmat = m * lmat * dtc[..., None, :]
+    w = dtc * torch.exp(cs_last[..., None] - cs)
+    xds = torch.einsum("bzhjp,bzhpn->bzhjn", xc, dse)
+    dc_off = ecs[..., None] * torch.einsum("bzhip,bzhpn->bzhin", dyc, sp)
+    dx = torch.einsum("bzhij,bzhip->bzhjp", gate, dyc) + \
+        w[..., None] * torch.einsum("bzhjn,bzhpn->bzhjp", bc, dse)
+    dc = torch.einsum("bzhij,bzhjn->bzhin", wmat, bc) + dc_off
+    db = torch.einsum("bzhij,bzhin->bzhjn", wmat, cc) + w[..., None] * xds
+    col_f = (m * cb * lmat).sum(-2)                         # [B,nc,H,Q]
+    r = (xds * bc).sum(-1)
+    dcs = (wmat * cb).sum(-1) - dtc * col_f + (dc_off * cc).sum(-1) - w * r
+    dcs[..., -1] += (w * r).sum(-1) + torch.exp(cs_last) * (dse * sp).sum(
+        (-2, -1))
+    dda = torch.flip(torch.cumsum(torch.flip(dcs, [-1]), -1), [-1])
+    ddt = col_f + torch.exp(cs_last[..., None] - cs) * r + \
+        a.float()[:, None] * dda
+    da = (dtc * dda).sum((0, 1, 3))
+
+    def seq_first(t):             # [B, nc, H, Q, ...] -> [B, S, H, ...]
+        return t.movedim(2, 3).reshape((bs, nc * q, h) + t.shape[4:])[:, :s]
+    return (seq_first(dx).to(x.dtype), seq_first(ddt[..., None])[..., 0],
+            da, seq_first(db).to(x.dtype), seq_first(dc).to(x.dtype), carry)

@@ -4,10 +4,12 @@ The kernel is ``csrc/ssd_scan.cu``; it replaces the TPU kernel
 ``repro/kernels/ssd_scan/ssd_scan.py:ssd_scan`` and carries a state in and
 out as ``repro/models/mamba2.py:ssd_chunked`` does. One launch covers
 every (16-column slice of P, head, row); bf16 runs on tensor cores, fp32
-on the CUDA cores. It is forward-only, as the TPU kernel is: an input
-that requires grad raises (its output would carry no gradient back), so
-the ssm and hybrid families do not train on the card until K4 has a
-backward. ``launches`` counts the launches this wrapper made.
+on the CUDA cores. ``ssd_scan_states`` also writes the fp32 state before
+each chunk, what the backward kernel reads (``ssd_scan_bwd.py``, whose
+``SsdScanFn`` binds the two for autograd). ``ssd_scan`` is forward-only,
+as the TPU kernel is: an input that requires grad raises (the output would
+carry no gradient back); ``ops.ssd_with_state`` takes ``SsdScanFn`` there
+instead. ``launches`` counts the launches this wrapper made.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from .. import build
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
     [ctypes.c_void_p]
 MAX_DIM = 128              # chunk, head_dim and state_dim the kernel takes
 MAX_SMEM = 232448          # shared memory a block may take on the H100
@@ -66,6 +68,37 @@ def smem_bytes(chunk: int, head_dim: int, state_dim: int,
     return stages * stage + 2 * SLICE * stride * 2 + 2 * q * 4
 
 
+def n_chunks(seqlen: int, chunk: int) -> int:
+    """Chunks of a row of ``seqlen`` positions (the last may be partial)."""
+    return -(-seqlen // chunk)
+
+
+def check_shapes(kernel: str, x, dt, a, b, c, initial_state, chunk: int):
+    """The shapes and dtypes the forward and backward kernels take, or
+    raise: x [B, S, H, P] and b, c [B, S, H, N] in one dtype; dt [B, S, H]
+    and a [H] fp32; ``initial_state`` [B, H, P, N] in x's dtype or None;
+    chunk, P and N at most 128. (Devices: ``build.check_operands``.)"""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    if b.shape != (bs, s, h, n) or c.shape != b.shape or \
+            dt.shape != (bs, s, h) or a.shape != (h,):
+        raise ValueError(f"{kernel}: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, c {tuple(c.shape)} disagree")
+    if b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError(f"{kernel}: x, b and c must share a dtype")
+    if dt.dtype != torch.float32 or a.dtype != torch.float32:
+        raise TypeError(f"{kernel}: dt and a are fp32")
+    if initial_state is not None and (
+            initial_state.shape != (bs, h, p, n)
+            or initial_state.dtype != x.dtype):
+        raise ValueError(f"{kernel}: the initial state is [B, H, P, N] in "
+                         "x's dtype")
+    if not 1 <= chunk <= MAX_DIM or p > MAX_DIM or n > MAX_DIM:
+        raise ValueError(f"{kernel}: chunk {chunk}, head_dim {p}, state "
+                         f"{n} exceed {MAX_DIM}")
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int,
              initial_state: Optional[torch.Tensor] = None
@@ -76,44 +109,50 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     not be a multiple of ``chunk``. Returns (y [B, S, H, P], the final
     state [B, H, P, N] in x's dtype). Raises on an input that requires
     grad, before any other check."""
-    global launches
     if any(t is not None and t.requires_grad
            for t in (x, dt, a, b, c, initial_state)):
-        raise RuntimeError("ssd_scan: K4 is forward-only; an input "
-                           "requires grad")
-    ops = [x, dt, a, b, c] + ([initial_state] if initial_state is not None
-                              else [])
-    build.check_operands("ssd_scan", *ops)
+        raise RuntimeError("ssd_scan: the raw K4 call is forward-only; an "
+                           "input requires grad (ops.ssd_with_state trains "
+                           "through SsdScanFn)")
+    return _forward(x, dt, a, b, c, chunk, initial_state, False)[:2]
+
+
+def ssd_scan_states(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, *, chunk: int,
+                    initial_state: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ssd_scan`` that also returns the fp32 state before each chunk,
+    [B, ceil(S / chunk), H, P, N] (the backward's input); y and the final
+    state are the same bits as ``ssd_scan``'s. The forward of
+    ``SsdScanFn``: its inputs may require grad (nothing here records a
+    graph)."""
+    return _forward(x, dt, a, b, c, chunk, initial_state, True)
+
+
+def _forward(x, dt, a, b, c, chunk, initial_state, with_states):
+    global launches
+    check_shapes("ssd_scan", x, dt, a, b, c, initial_state, chunk)
     bs, s, h, p = x.shape
     n = b.shape[-1]
-    if b.shape != (bs, s, h, n) or c.shape != b.shape or \
-            dt.shape != (bs, s, h) or a.shape != (h,):
-        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
-                         f"{tuple(dt.shape)}, a {tuple(a.shape)}, b "
-                         f"{tuple(b.shape)}, c {tuple(c.shape)} disagree")
-    if b.dtype != x.dtype or c.dtype != x.dtype:
-        raise TypeError("ssd_scan: x, b and c must share a dtype")
-    if dt.dtype != torch.float32 or a.dtype != torch.float32:
-        raise TypeError("ssd_scan: dt and a are fp32")
-    if initial_state is not None and (
-            initial_state.shape != (bs, h, p, n)
-            or initial_state.dtype != x.dtype):
-        raise ValueError("ssd_scan: the initial state is [B, H, P, N] in "
-                         "x's dtype")
-    if not 1 <= chunk <= MAX_DIM or p > MAX_DIM or n > MAX_DIM or \
-            smem_bytes(chunk, p, n, s, x.dtype) > MAX_SMEM:
+    if smem_bytes(chunk, p, n, s, x.dtype) > MAX_SMEM:
         raise ValueError(f"ssd_scan: chunk {chunk}, head_dim {p}, state "
                          f"{n} exceed what one CTA holds")
+    build.check_operands("ssd_scan", x, dt, a, b, c, *(
+        [initial_state] if initial_state is not None else []))
     y = torch.empty_like(x)
     fin = torch.empty((bs, h, p, n), dtype=x.dtype, device=x.device)
+    states = torch.empty((bs, n_chunks(s, chunk), h, p, n),
+                         dtype=torch.float32, device=x.device) \
+        if with_states else None
     if bs == 0 or h == 0:
-        return y, fin
+        return y, fin, states
     fn = build.function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
     rc = fn(build.dtype_code(x), x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             b.data_ptr(), c.data_ptr(),
             initial_state.data_ptr() if initial_state is not None else None,
-            y.data_ptr(), fin.data_ptr(), bs, s, h, p, n, chunk,
-            build.stream(x))
+            y.data_ptr(), fin.data_ptr(),
+            states.data_ptr() if states is not None else None, bs, s, h, p,
+            n, chunk, build.stream(x))
     build.raise_on_error("ssd_scan", rc)
     launches += 1
-    return y, fin
+    return y, fin, states

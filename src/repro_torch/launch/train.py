@@ -10,10 +10,11 @@ plus ``--device`` (the CUDA card unless ``--device cpu``):
       PYTHONPATH=src python -m repro_torch.launch.train \\
           --arch qwen3-moe-235b-a22b --smoke --device cpu
 
-On the card the attention of every dense, MoE, vlm and audio config
-without a window or soft-cap trains through kernel K5's forward and
-backward; the ssm and hybrid families raise there, since K4 has no
-backward yet.
+On the card the attention of every config without a window or soft-cap
+trains through kernel K5's forward and backward (a windowed one, as
+hymba-1.5b's, takes the reference's plain formulation: the reference has
+no kernel with a window), and the ssm and hybrid families' scan through
+kernel K4's forward and hand-written backward (``SsdScanFn``).
 """
 from __future__ import annotations
 

@@ -159,7 +159,8 @@ def mamba2_forward(cfg: ModelConfig, p, x_in, initial=None, valid_len=None):
     (identity SSD transition) and are excluded from the conv state, so the
     returned states equal those of a scan over the unpadded sequence.
     Outputs at padded positions are unspecified. The scan runs through
-    ``ssd_with_state`` (K4 on the card)."""
+    ``ssd_with_state`` (K4 on the card; in training its forward and
+    backward, ``SsdScanFn``)."""
     bs, s, _ = x_in.shape
     h, pp = cfg.ssm_heads, cfg.ssm_head_dim
     proj = x_in @ p["in_proj"]

@@ -19,9 +19,11 @@ a sliding window; ``conv``/``ssd`` for ssm/hybrid) is written IN PLACE by
 width a second copy would cost as much memory as the cache itself. The
 full-sequence attention of ``forward`` and ``prefill`` is kernel K5 on the
 card where it applies (``attention.py``; in training its forward and
-backward), the ssm mixer's scan kernel K4 (forward-only: it raises on
-inputs that require grad). ``forward`` with trainable layer params
-recomputes each layer in the backward pass (``torch.utils.checkpoint``).
+backward), the ssm mixer's scan kernel K4 (in training through
+``SsdScanFn``: its forward writing the chunk states, and its backward).
+``forward`` with trainable layer params recomputes each layer in the
+backward pass (``torch.utils.checkpoint``), so a train step launches K4's
+(and K5's) forward twice per layer and its backward once.
 MoE layers run the capacity dispatch of ``moe.py`` and ``forward`` sums
 their aux losses; vlm configs rotate by M-RoPE over ``[B, S, 3]``
 positions (``[B, S]`` ones are broadcast to three equal streams); audio

@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.training.optimizer",
             "repro_torch.training.checkpoint",
             "repro_torch.training.train_loop", "repro_torch.launch.train",
-            "repro_torch.kernels.flash_prefill.flash_prefill_bwd"} <= names
+            "repro_torch.kernels.flash_prefill.flash_prefill_bwd",
+            "repro_torch.kernels.ssd_scan.ssd_scan_bwd"} <= names
 
 
 def test_no_source_mentions_jax_or_the_reference_package():
