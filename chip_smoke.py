@@ -87,7 +87,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                magnitude within ``BWD_TOL``, bit-repeatable, the forward
                with its chunk states bit-equal to the forward without;
                timed at mamba2-130m's training shape beside the plain
-               version and the bound from its bytes;
+               version and the bound from its bytes; the fused AdamW
+               update (``adamw.cu``, one launch a leaf; not a TPU
+               kernel) against the plain loop body, three updates
+               (clipped, unclipped, clipped) on mamba2-130m's full tree
+               and on one r1-distill-14b layer's leaves (bf16 and fp32
+               leaves, ndim 1 and >= 2): p, mu and nu bit-equal; timed
+               over the 14B layer's leaves beside the plain loop body,
+               the bound from its bytes and one
+               ``torch.optim.AdamW(fused=True)`` step;
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -116,9 +124,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                (head_dim 32) and the smoke widths of
                qwen3-moe-235b-a22b, mamba2-130m (ssm) and hymba-1.5b
                (hybrid): losses, grad norms and params after the last
-               step within tolerance, each kernel's forward launched 2
-               x layers x steps and its backward layers x steps where
-               the config runs it;
+               step within tolerance; on the card the step is a CUDA
+               graph (step 1 warms up, step 2 captures and replays,
+               step 3 replays), and the launches it ran are each
+               kernel's forward 2 x layers x steps, its backward layers
+               x steps where the config runs it and AdamW leaves x
+               steps (the wrappers' own counters: warm-up and capture);
   5. serve   — r1-distill-14b at full width and depth (48 layers, bf16,
                random weights from a seed) behind the SART scheduler through
                ``repro_torch.launch.serve.run_serving``: 4 requests, n=8.
@@ -213,28 +224,44 @@ Phases, in order; any failure raises and the script exits non-zero:
                scheduler: anything that escapes ``Scheduler.run`` fails
                the phase.
  14. train   — runs after every model of phases 5-13 is freed.
-               r1-distill-14b at full width, its depth cut from 48 to 8
-               layers, bf16 params with fp32 AdamW moments: 8 steps of
-               ``train_lm`` on ``padded_batches`` at B=2, S=2048; every
-               loss and grad norm finite, the last loss below the
-               first, K5's forward launched 2 x 8 x 8 times and its
-               backward 8 x 8; prints the step p50, tokens/s, the peak
-               memory and the step's bound from its operations; then 3
-               steps of ``train_prm_head`` on those weights (K5's
-               backward never). ``smoke_arch`` of mamba2-130m and
-               hymba-1.5b on the card (K4's forward and backward,
-               launches exact); mamba2-130m at full width and depth (24
-               layers), 8 steps at B=2, S=2048, falling loss, K4 forward
-               384 and backward 192 launches; hymba-1.5b at full width
-               and depth (32 layers, ~1.5 B params), 3 steps at B=1,
-               S=2048, finite losses, K4 192 and 96, K5 none (its
-               attention has a window); each with its step breakdown.
-               gemma-7b at full width,
-               2 of its 28 layers (the head_dim-256 backward), 3 steps
-               at B=1, S=2048. Last the launcher's ``train_reasoner``
-               with the reference's defaults in a temp dir: the LM loss
-               falls by at least 20%, the PRM loss is finite, lm.npz
-               and prm.npz load back bit-equal.
+               Every train step runs through the port's counterpart of
+               the reference's jitted step, one CUDA graph per batch
+               signature (``training/train_graph.py``): step 1 warms up
+               eagerly, step 2 captures and replays, every later step
+               replays (checked: one capture, replays = steps - 1; a
+               failed capture raises). r1-distill-14b at full width,
+               its depth cut from 48 to 8 layers, bf16 params with fp32
+               AdamW moments: 8 steps of ``train_lm`` on
+               ``padded_batches`` at B=2, S=2048; every loss and grad
+               norm finite, the last loss below the first; the launches
+               run (``TrainGraph.launches_run``) K5's forward 2 x 8 x 8,
+               its backward 8 x 8, AdamW once per leaf a step, the
+               wrappers' calls those of two steps (warm-up and
+               capture); prints the step p50 over the replayed steps
+               (3 on), the capture's seconds apart, tokens/s, the peak
+               memory and the step's bound from its operations, and the
+               breakdown of one traced replay (the AdamW kernel once a
+               leaf); then 3 steps of ``train_prm_head`` on those
+               weights through ``make_prm_step``'s graph (K5's backward
+               never). Eager against graph from the same seed and
+               batches, 3 steps each: r1-distill-14b at full width and
+               2 layers, mamba2-130m at full width and depth; losses,
+               grad norms and every param bit-equal. ``smoke_arch`` of
+               mamba2-130m and hymba-1.5b on the card (one eager step:
+               K4's forward and backward and AdamW, launches exact);
+               mamba2-130m at full width and depth (24 layers), 8 steps
+               at B=2, S=2048, falling loss, K4 forward 384 and backward
+               192 launches run; hymba-1.5b at full width and depth (32
+               layers, ~1.5 B params), 5 steps at B=1, S=2048, finite
+               losses, K4 320 and 160, K5 none (its attention has a
+               window); each with its breakdown. gemma-7b at full
+               width, 2 of its 28 layers (the head_dim-256 backward), 5
+               steps at B=1, S=2048. Last the launcher's
+               ``train_reasoner`` with the reference's defaults in a
+               temp dir: the LM loss falls by at least 20%, the PRM loss
+               is finite, lm.npz and prm.npz load back bit-equal, K5's
+               backward wrapper ran at the warm-up and the capture
+               only.
 
 Phase 3 also holds the head_dim-256 instantiations of K1, K2, both K3
 passes and K5 at gemma-7b's serve shapes (16/16 heads of 256, group 1):
@@ -255,7 +282,9 @@ Then one JSON line ``{"kernels": [...]}`` (``launches_chaos``: phase
 13's runs A and C; K5's backward rows, ``flash_prefill_bwd`` and
 ``flash_prefill_bwd_hd256``, count phase 14's r1-distill-14b and gemma-7b
 runs, K4's backward row ``ssd_scan_bwd`` its mamba2-130m run and
-``launches_hymba`` its hymba-1.5b run), the nvidia-smi line, and last
+``launches_hymba`` its hymba-1.5b run, the ``adamw`` row the 14B's run
+and ``launches_mamba`` mamba2-130m's; phase 14's counts are the launches
+its graphs ran), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
 ``src/`` beside this file, it exits non-zero and prints no result.
 """
@@ -555,6 +584,7 @@ def phase_build():
     spills = {}     # the bf16 tensor-core kernels of K2 and K4
     wide = {}       # the head_dim-256 instantiations: registers, spills
     bwd = {name: {} for name in TENSOR_BWD}   # the backwards: the same
+    fused = {}      # the AdamW kernel's instantiations: the same
     for name, log in sorted(build.build_log.items()):
         fn = "?"
         for line in log.splitlines():
@@ -569,6 +599,8 @@ def phase_build():
                     rf"[<, ]{WIDE}[,>]", fn) and (m or r) else []
                 if name in bwd and (m or r):
                     rows.append(bwd[name].setdefault(fn, {}))
+                if name == "adamw" and (m or r):
+                    rows.append(fused.setdefault(fn, {}))
                 for row in rows:
                     if m:
                         row["spill_bytes"] = int(m[1]) + int(m[2])
@@ -586,6 +618,10 @@ def phase_build():
     print("[build] ssd_scan_bwd, K4's backward, per kernel (registers, "
           "spill stores + loads in bytes): "
           + json.dumps(bwd["ssd_scan_bwd"]))
+    print("[build] adamw, the fused AdamW update, per instantiation "
+          "(registers, spill stores + loads in bytes): " + json.dumps(fused))
+    check(all(row.get("spill_bytes", 0) == 0 for row in fused.values()),
+          f"the AdamW kernel spills: {fused}")
     if len(build.build_log) == len(build.SOURCES):   # all built here
         check(len(wide) == 14, f"expected 14 head_dim-{WIDE} kernels, "
                                f"found {sorted(wide)}")
@@ -1835,6 +1871,145 @@ def phase_ssd_bwd_kernels(torch):
     return {"ssd_scan_bwd": errs}, {"ssd_scan_bwd": timing}
 
 
+ADAMW_OPS = 17          # fp32 operations an element of the fused update
+
+
+def _ulps(torch, a, b) -> int:
+    """The largest distance between ``a`` and ``b`` in units of the last
+    place (their bit patterns as integers; same-signed values)."""
+    as_int = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(as_int).long() - b.view(as_int).long()).abs().max())
+
+
+def _adamw_compare(torch, tag: str, params, state, gen,
+                   steps: int = 3) -> tuple:
+    """``steps`` AdamW updates of ``params`` (a tree) by the fused kernel
+    and by the plain loop body (``ref.adamw_leaf_ref``) from the same
+    copies, scalars and gradients, the clip on (gradients of norm >> 1,
+    grad_clip 1) and off (grad_clip 1e9) in turn: p, mu and nu compared
+    bit for bit after every update. Returns (largest absolute
+    difference, largest difference in ulps): (0.0, 0) when bit-equal."""
+    from repro_torch.kernels.adamw import adamw
+    from repro_torch.kernels.adamw.ref import adamw_leaf_ref
+    from repro_torch.training import AdamWConfig
+    from repro_torch.training.optimizer import tree_leaves, update_scalars
+    fused = [list(tree_leaves(t)) for t in (params, state["mu"],
+                                            state["nu"])]
+    plain = [[t.clone() for t in leaves] for leaves in fused]
+    worst_abs, worst_ulp = 0.0, 0
+    for i in range(steps):
+        clipped = i % 2 == 0
+        cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                          grad_clip=1.0 if clipped else 1e9)
+        grads = [(torch.randn(p.shape, generator=gen, device=p.device)
+                  * (5.0 if clipped else 1e-3)).to(p.dtype)
+                 for p in fused[0]]
+        gnorm, scalars = update_scalars(cfg, dict(enumerate(grads)),
+                                        state)
+        hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
+                     weight_decay=cfg.weight_decay)
+        for j, g in enumerate(grads):
+            adamw.adamw_step(fused[0][j], g, fused[1][j], fused[2][j],
+                             *scalars, **hyper)
+            adamw_leaf_ref(plain[0][j], g, plain[1][j], plain[2][j],
+                           *scalars, **hyper)
+        torch.cuda.synchronize()
+        for a, b in zip(itertools.chain(*fused), itertools.chain(*plain)):
+            if not torch.equal(a, b):
+                worst_abs = max(worst_abs, float((a.float() - b.float())
+                                                 .abs().max()))
+                worst_ulp = max(worst_ulp, _ulps(torch, a, b))
+        print(f"[kernels] AdamW {tag}, update {i + 1} "
+              f"({'clipped' if clipped else 'unclipped'}, grad norm "
+              f"{float(gnorm):.4e}): fused against plain over "
+              f"{len(fused[0])} leaves, largest difference {worst_abs:.3e} "
+              f"({worst_ulp} ulp)")
+    del plain
+    return worst_abs, worst_ulp
+
+
+def phase_adamw_kernel(torch):
+    """Phase 3's AdamW row: the fused update (``csrc/adamw.cu``, one launch
+    a leaf) against the plain loop body on the card, three updates each
+    (clipped, unclipped, clipped), on mamba2-130m's full tree (24 layers;
+    bf16 matrices, fp32 norms, a_log and dt_bias; ndim 1 and >= 2) and on
+    one r1-distill-14b layer's leaves: p, mu and nu must be bit-equal.
+    Then timed over the 14B layer's leaves (one call updates every leaf)
+    beside the plain loop body, the bound from the bytes it must move (22
+    a bf16 element, 28 an fp32 one) and one ``torch.optim.AdamW(fused=
+    True)`` step over the same bf16 leaves (its moments bf16: a yardstick
+    the port never calls). Returns (errors, timing)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.adamw import adamw
+    from repro_torch.kernels.adamw.ref import adamw_leaf_ref
+    from repro_torch.models import Model
+    from repro_torch.training import AdamWConfig, init_opt_state
+    from repro_torch.training.optimizer import tree_leaves, update_scalars
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(11)
+    errs, ulps, trees = [], [], {}
+    for tag, cfg in (("mamba2-130m full tree",
+                      get_config("mamba2-130m")),
+                     ("r1-distill-14b one layer",
+                      get_config("r1-distill-14b").replace(num_layers=1))):
+        params = Model(cfg, dtype=torch.bfloat16, device=dev).init_params(
+            gen)
+        if cfg.num_layers == 1:       # the layer's leaves alone
+            params = {"layers": params["layers"]}
+        state = init_opt_state(params)
+        err, ulp = _adamw_compare(torch, tag, params, state, gen)
+        errs.append(err)
+        ulps.append(ulp)
+        trees[tag] = (params, state)
+    check(max(ulps) == 0, f"the fused AdamW differs from the plain update "
+                          f"by up to {max(ulps)} ulp")
+    del trees["mamba2-130m full tree"]
+    params, state = trees.pop("r1-distill-14b one layer")
+    leaves = list(tree_leaves(params))
+    mu, nu = list(tree_leaves(state["mu"])), list(tree_leaves(state["nu"]))
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in leaves]
+    cfg = AdamWConfig(lr=1e-5, warmup_steps=1, total_steps=10)
+    _, scalars = update_scalars(cfg, dict(enumerate(grads)), state)
+    hyper = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
+                 weight_decay=cfg.weight_decay)
+
+    def fused():
+        for p, g, m, v in zip(leaves, grads, mu, nu):
+            adamw.adamw_step(p, g, m, v, *scalars, **hyper)
+
+    def plain():
+        for p, g, m, v in zip(leaves, grads, mu, nu):
+            adamw_leaf_ref(p, g, m, v, *scalars, **hyper)
+    lib_params = [p.clone().requires_grad_() for p in leaves]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    lib = torch.optim.AdamW(lib_params, lr=1e-5, betas=(cfg.beta1,
+                                                        cfg.beta2),
+                            eps=cfg.eps, weight_decay=cfg.weight_decay,
+                            fused=True)
+    n = sum(p.numel() for p in leaves)
+    timing = {
+        "ms": time_ms(torch, fused),
+        "queued_ms": time_ms(torch, fused, head_start=True),
+        # per wrapper call, over 20 calls of the layer (240 launches):
+        # more would fill the card's launch queue and time the card
+        "host_us": host_us(torch, fused, n=20) / len(leaves),
+        "plain_ms": time_ms(torch, plain, n=10, warmup=2),
+        "library_ms": time_ms(torch, lib.step, n=10, warmup=2),
+        "bytes": sum(adamw.adamw_bytes(p, g)
+                     for p, g in zip(leaves, grads)),
+        "ops": ADAMW_OPS * n, "ops_dtype": "fp32",
+        "shape": f"r1-distill-14b one layer: {len(leaves)} leaves, "
+                 f"{n / 1e6:.1f} M params (bf16 matrices and biases, fp32 "
+                 f"norms), one launch a leaf; ms for all the leaves, "
+                 f"host_us per launch",
+    }
+    timing["bound_ms"] = bound(timing["bytes"], timing["ops"], "fp32")[0]
+    print("[kernels] AdamW timed: " + json.dumps(timing))
+    del lib, lib_params, grads, params, state, leaves, mu, nu
+    return {"adamw": errs}, {"adamw": timing}
+
 def _parity_scenario(torch, eng, vocab: int):
     """A cold request (a 16-token header + its own 21 tokens, a partial
     last page) forks 3 branches that decode 6 steps (CoW of the shared
@@ -2025,26 +2200,53 @@ def phase_parity(torch):
 
 def _train_counters() -> dict:
     """The launch counters of the kernels a train step runs: K5 and K4,
-    forward and backward."""
+    forward and backward, and the fused AdamW update."""
+    from repro_torch.kernels.adamw import adamw
     from repro_torch.kernels.flash_prefill import (flash_prefill,
                                                    flash_prefill_bwd)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     return {"flash_prefill": flash_prefill,
             "flash_prefill_bwd": flash_prefill_bwd, "ssd_scan": ssd_scan,
-            "ssd_scan_bwd": ssd_scan_bwd}
+            "ssd_scan_bwd": ssd_scan_bwd, "adamw": adamw}
 
 
-def _want_launches(cfg, steps: int) -> dict:
+def _n_leaves(params) -> int:
+    from repro_torch.training.optimizer import tree_leaves
+    return len(list(tree_leaves(params)))
+
+
+def _want_launches(cfg, steps: int, leaves: int) -> dict:
     """What ``steps`` train steps of ``cfg`` launch: each layer's forward
     runs twice (recomputed in the backward pass) and its backward once;
     K5 where the attention takes it (no window, no soft-cap:
-    ``attention._flash_ok``), K4 in every SSM mixer."""
+    ``attention._flash_ok``), K4 in every SSM mixer; the fused AdamW once
+    per leaf of the params tree (``leaves``). Through a ``TrainGraph``
+    the wrappers run at the eager warm-up and at the capture only, so
+    their counters hold ``_want_launches(cfg, 2, leaves)`` however many
+    steps replay; ``TrainGraph.launches_run()`` holds what ran."""
     from repro_torch.models.attention import _flash_ok
     per = cfg.num_layers * steps
     k5 = int(cfg.uses_attention and _flash_ok(cfg))
     k4 = int(cfg.uses_ssm)
-    return {"flash_prefill": 2 * per * k5, "flash_prefill_bwd": per * k5,
-            "ssd_scan": 2 * per * k4, "ssd_scan_bwd": per * k4}
+    out = {"flash_prefill": 2 * per * k5, "flash_prefill_bwd": per * k5,
+           "ssd_scan": 2 * per * k4, "ssd_scan_bwd": per * k4,
+           "adamw": leaves * steps}
+    return {k: n for k, n in out.items() if n}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def _check_train_graph(step, steps: int, what: str) -> None:
+    """``steps`` calls of one batch signature went through the graph:
+    step 1 the eager warm-up, step 2 the capture and its replay, every
+    later one a replay."""
+    sig, = step.signatures.values()
+    check(sig.eager_runs == 1 and sig.captures == 1
+          and sig.replays == steps - 1,
+          f"{what}: eager runs {sig.eager_runs}, captures {sig.captures}, "
+          f"replays {sig.replays}; want 1, 1 and {steps - 1}")
 
 
 def _train_parity(torch):
@@ -2058,8 +2260,11 @@ def _train_parity(torch):
     and grad norm per step within rtol 1e-4 and every param after the
     last step within atol 1e-3 (= the learning rate: Adam moves an entry
     whose gradient is near zero by up to lr on a small relative
-    difference of that gradient); on the card each kernel launches as
-    ``_want_launches`` says."""
+    difference of that gradient). On the card the step is a
+    ``TrainGraph``: step 1 warms up eagerly, step 2 captures and replays,
+    step 3 replays; the launches it ran (``launches_run``) are
+    ``_want_launches(cfg, 3)``, the wrappers' counters (warm-up and
+    capture) ``_want_launches(cfg, 2)``."""
     from repro_torch.configs import smoke
     from repro_torch.data import DataConfig, padded_batches
     from repro_torch.data import tokenizer as tk
@@ -2098,9 +2303,11 @@ def _train_parity(torch):
                 metrics.append({k: float(v) for k, v in m.items()})
             with torch.no_grad():
                 host = _to(p, "cpu")
-            runs.append((metrics, host, {k: mod.launches
-                                         for k, mod in counters.items()}))
-        (m_cpu, p_cpu, _), (m_gpu, p_gpu, launched) = runs
+            runs.append((metrics, host, step, _nonzero(
+                {k: mod.launches for k, mod in counters.items()})))
+        (m_cpu, p_cpu, _, _), (m_gpu, p_gpu, step, called) = runs
+        _check_train_graph(step, steps, f"train parity {cfg.name}")
+        launched = step.launches_run()
         rel = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
                   for a, b in zip(m_cpu, m_gpu) for k in a)
 
@@ -2115,8 +2322,10 @@ def _train_parity(torch):
             diffs = {k: float((v - gpu_leaves[k]).abs().max())
                      for k, v in leaves(p_cpu)}
         worst = max(diffs, key=diffs.get)
-        want = _want_launches(cfg, steps)
-        ok = rel <= 1e-4 and diffs[worst] <= 1e-3 and launched == want
+        n_leaves = _n_leaves(p_cpu)
+        want = _want_launches(cfg, steps, n_leaves)
+        ok = rel <= 1e-4 and diffs[worst] <= 1e-3 and launched == want \
+            and called == _want_launches(cfg, 2, n_leaves)
         print(f"[parity] train {cfg.name} ({cfg.arch_type}, head_dim "
               f"{cfg.resolved_head_dim}), {steps} steps card vs CPU: losses "
               f"{[round(m['loss'], 6) for m in m_gpu]}, grad norms "
@@ -2124,8 +2333,10 @@ def _train_parity(torch):
               f"relative difference of loss / aux / grad norm {rel:.3e} "
               f"(rtol 1e-4); largest param difference {diffs[worst]:.3e} "
               f"({worst}; atol 1e-3), mean over leaves "
-              f"{sum(diffs.values()) / len(diffs):.3e}; launches "
-              f"{json.dumps(launched)} (want {json.dumps(want)}); "
+              f"{sum(diffs.values()) / len(diffs):.3e}; launches run "
+              f"{json.dumps(launched)} (want {json.dumps(want)}; the "
+              f"wrappers' calls at warm-up and capture "
+              f"{json.dumps(called)}); "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"training on the card disagrees with the CPU "
                   f"({cfg.name})")
@@ -3362,28 +3573,40 @@ def phase_gemma_serve(torch) -> dict:
                 "flash_prefill"]}
 
 
+def _train_model(torch, arch: str, num_layers: int):
+    """``arch`` at full width, its depth cut to ``num_layers``, bf16
+    params (AdamW's mu and nu fp32), random weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    full = get_config(arch)
+    model = Model(full.replace(num_layers=num_layers), dtype=torch.bfloat16,
+                  device=DEVICE)
+    return full, model, model.init_params(
+        torch.Generator(DEVICE).manual_seed(0))
+
+
 def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
                       batch: int, seqlen: int, steps: int,
                       breakdown: bool = False) -> dict:
-    """``arch`` at full width, its depth cut to ``num_layers``, bf16
-    params (AdamW's mu and nu fp32), random weights from seed 0: ``steps``
-    steps of ``train_lm`` on ``padded_batches`` of ``batch`` x ``seqlen``,
-    the kernels' counters zeroed just before and read just after. Checks
-    finite losses and grad norms, and K5's and K4's launches
-    (``_want_launches``: forward 2 x layers x steps, backward layers x
-    steps where the config runs the kernel). With ``breakdown``, then
-    ``_train_breakdown``. Returns the run's line, with the model and
-    params under "model_obj" and "params"."""
-    from repro_torch.configs import get_config
+    """``arch`` at full width (``_train_model``): ``steps`` steps of
+    ``train_lm`` on ``padded_batches`` of ``batch`` x ``seqlen`` through
+    one ``make_train_step`` graph, the kernels' counters zeroed just
+    before and read just after. Checks finite losses and grad norms; that
+    step 1 warmed up, step 2 captured and every later step replayed; the
+    launches the steps ran (``launches_run``: K5's and K4's forward 2 x
+    layers x steps, backward layers x steps where the config runs the
+    kernel, AdamW leaves x steps) and the wrappers' calls (warm-up and
+    capture: ``_want_launches(cfg, 2)``). The step p50 is over the
+    replay-only steps (3 on); the capture's seconds are printed apart.
+    With ``breakdown``, then ``_train_breakdown`` on the same graph.
+    Returns the run's line, with the model, params and step under
+    "model_obj", "params" and "step_obj"."""
     from repro_torch.data import DataConfig, padded_batches
-    from repro_torch.models import Model
-    from repro_torch.training import AdamWConfig, train_lm
+    from repro_torch.training import AdamWConfig, make_train_step, train_lm
     gc.collect()                 # the earlier phases' models and pools
     torch.cuda.empty_cache()
-    full = get_config(arch)
-    cfg = full.replace(num_layers=num_layers)
-    model = Model(cfg, dtype=torch.bfloat16, device=DEVICE)
-    params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
+    full, model, params = _train_model(torch, arch, num_layers)
+    cfg = model.cfg
 
     def count(tree):
         return sum(count(v) if isinstance(v, dict) else v.numel()
@@ -3434,32 +3657,110 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
         mod.launches = 0
     t0 = time.perf_counter()
     opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    step = make_train_step(model, opt_cfg)
     params, _ = train_lm(
         model, padded_batches(DataConfig(batch_size=batch, seq_len=seqlen)),
-        steps, opt_cfg, params=params, log_every=1, logger=log)
-    launched = {k: mod.launches for k, mod in counters.items()}
+        steps, opt_cfg, params=params, log_every=1, logger=log,
+        step_fn=step)
+    called = _nonzero({k: mod.launches for k, mod in counters.items()})
+    launched = step.launches_run()
     step_s = np.diff([t0] + stamps)
-    p50 = float(np.median(step_s[1:])) if steps > 1 else float(step_s[0])
+    p50 = float(np.median(step_s[2:]))
+    sig, = step.signatures.values()
     line = {"model": cfg.name, "num_layers": cfg.num_layers,
             "params_b": n_params / 1e9, "batch": batch, "seqlen": seqlen,
             "losses": [r["loss"] for r in recs],
             "grad_norms": [r["grad_norm"] for r in recs],
             "step_s": [float(x) for x in step_s],
-            "step_ms_p50": p50 * 1e3, "tokens_per_s": tokens / p50,
+            "step_ms_p50": p50 * 1e3, "p50_over": "replayed steps 3 on",
+            "warmup_step_s": float(step_s[0]),
+            "capture_s": sig.capture_seconds,
+            "tokens_per_s": tokens / p50,
             "step_bound_ms": bound_ms,
             "over_bound": p50 * 1e3 / bound_ms,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "launches": launched}
+            "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+            "captures": step.captures, "replays": step.replays,
+            "launches": launched, "wrapper_calls": called}
     print(f"[{tag}] " + json.dumps(line))
     check(all(math.isfinite(x) for x in line["losses"] + line["grad_norms"]),
           f"{tag}: a non-finite loss or grad norm")
-    want = _want_launches(cfg, steps)
-    check(launched == want, f"{tag}: {cfg.name} launched {launched}, want "
+    _check_train_graph(step, steps, f"{tag}: {cfg.name}")
+    leaves = _n_leaves(params)
+    want = _want_launches(cfg, steps, leaves)
+    check(launched == want, f"{tag}: {cfg.name} ran {launched}, want "
                             f"{want}")
+    want_called = _want_launches(cfg, 2, leaves)
+    check(called == want_called,
+          f"{tag}: {cfg.name}'s wrappers ran {called} times (warm-up and "
+          f"capture), want {want_called}")
     if breakdown:
-        line["breakdown"] = _train_breakdown(torch, tag, model, params,
-                                             batch, seqlen, opt_cfg)
-    return dict(line, model_obj=model, params=params)
+        line["breakdown"] = _train_breakdown(torch, tag, model, step, batch,
+                                             seqlen, leaves)
+    return dict(line, model_obj=model, params=params, step_obj=step)
+
+
+def _train_eager_vs_graph(torch, tag: str, arch: str, num_layers: int, *,
+                          batch: int, seqlen: int, steps: int = 3) -> dict:
+    """``arch`` at full width with ``num_layers`` layers: ``steps`` steps
+    inside ``step.eager()`` (op by op), then ``steps`` through the graph
+    (warm-up, capture and replay, replays), each from the same seed's
+    weights on the same batches, the fused AdamW in both. Losses, grad
+    norms and every param must be bit-equal, and both runs must launch
+    ``_want_launches``."""
+    from repro_torch.data import DataConfig, padded_batches
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.train_loop import to_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    runs = {}
+    for mode in ("eager", "graph"):
+        _, model, params = _train_model(torch, arch, num_layers)
+        opt = init_opt_state(params)
+        step = make_train_step(model, opt_cfg)
+        data = padded_batches(DataConfig(batch_size=batch, seq_len=seqlen))
+        metrics = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with step.eager() if mode == "eager" else contextlib.nullcontext():
+            for _ in range(steps):
+                toks, labels, mask = next(data)
+                _, _, m = step(params, opt, to_batch(
+                    {"tokens": toks, "labels": labels, "mask": mask},
+                    DEVICE))
+                metrics.append({k: float(v) for k, v in m.items()})
+        wall = time.perf_counter() - t0
+        runs[mode] = (metrics, params, step.launches_run(), wall)
+        if mode == "graph":
+            _check_train_graph(step, steps, f"{tag}: {model.cfg.name}")
+        del opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    (m_e, p_e, l_e, w_e), (m_g, p_g, l_g, w_g) = runs["eager"], runs["graph"]
+    from repro_torch.training.optimizer import tree_leaves
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(p_e), tree_leaves(p_g)))
+    want = _want_launches(model.cfg, steps, _n_leaves(p_e))
+    line = {"model": model.cfg.name, "num_layers": num_layers,
+            "batch": batch, "seqlen": seqlen, "steps": steps,
+            "losses_eager": [m["loss"] for m in m_e],
+            "losses_graph": [m["loss"] for m in m_g],
+            "grad_norms_eager": [m["grad_norm"] for m in m_e],
+            "grad_norms_graph": [m["grad_norm"] for m in m_g],
+            "metrics_equal": m_e == m_g, "params_equal": same_params,
+            "launches_eager": l_e, "launches_graph": l_g,
+            "wall_s_eager": w_e, "wall_s_graph": w_g}
+    print(f"[{tag}] eager vs graph " + json.dumps(line))
+    check(m_e == m_g and same_params,
+          f"{tag}: {model.cfg.name}'s graph steps differ from its eager "
+          f"steps")
+    check(l_e == want and l_g == want,
+          f"{tag}: {model.cfg.name} launched {l_e} eagerly and {l_g} "
+          f"through the graph, want {want}")
+    del p_e, p_g, runs
+    return line
 
 
 # device kernels of a train step by kind, from name fragments
@@ -3469,47 +3770,40 @@ TRAIN_KINDS = (("K5 backward", ("dkdv_", "dq_mma_kernel", "dq_f32_kernel",
                ("K4 backward", ("dstate_", "state_pass_kernel",
                                 "chunk_grad_", "da_reduce_kernel")),
                ("K4 forward", ("ssd_mma_kernel", "ssd_f32_kernel")),
+               ("AdamW", ("adamw_kernel",)),
                ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
-def _train_breakdown(torch, tag: str, model, params, batch: int,
-                     seqlen: int, opt_cfg) -> dict:
-    """Where a train step's time goes, on a fresh optimizer state (the
-    step's work does not depend on it): the gradient (forward, the
-    layers' recompute and backward) and the AdamW update timed apart
-    between syncs, then one whole step under torch.profiler (device
-    activity only) with its kernels summed by kind (``TRAIN_KINDS``;
-    the rest is elementwise, reduction and copy kernels) and the top
-    kernels. Runs two more steps on ``params``."""
+def _train_breakdown(torch, tag: str, model, step, batch: int,
+                     seqlen: int, leaves: int) -> dict:
+    """Where a replayed train step's time goes: one replay of ``step``'s
+    graph timed between syncs, then one under torch.profiler (device
+    activity only) with its kernels summed by kind (``TRAIN_KINDS``; the
+    rest is elementwise, reduction and copy kernels, the global norm's
+    included) and the top kernels. The AdamW ms is the fused kernel's,
+    which must run once per leaf. Runs two more steps on the bound
+    params and state."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import DataConfig, padded_batches
-    from repro_torch.training import (adamw_update, init_opt_state,
-                                      make_train_step)
-    from repro_torch.training.train_loop import (_like, lm_loss_fn,
-                                                 to_batch, trainable)
+    from repro_torch.training.train_loop import to_batch
     toks, labels, mask = next(padded_batches(
         DataConfig(batch_size=batch, seq_len=seqlen, seed=1)))
     data = to_batch({"tokens": toks, "labels": labels, "mask": mask},
                     model.device)
-    opt = init_opt_state(params)
+    replays = step.replays
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with trainable(params) as leaves:
-        total, _ = lm_loss_fn(model, params, data)
-        grads = torch.autograd.grad(total, leaves)
+    step(step.params, step.opt_state, data)
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    adamw_update(opt_cfg, params, _like(params, iter(grads)), opt)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    del total, grads
-    step = make_train_step(model, opt_cfg)
+    replay_s = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t3 = time.perf_counter()
-        step(params, opt, data)
+        t1 = time.perf_counter()
+        step(step.params, step.opt_state, data)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t3
+        wall = time.perf_counter() - t1
+    check(step.replays == replays + 2, f"{tag}: the breakdown's steps were "
+                                       f"not replays")
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.is_user_annotation]
@@ -3519,8 +3813,10 @@ def _train_breakdown(torch, tag: str, model, params, batch: int,
         kind = next((name for name, frags in TRAIN_KINDS
                      if any(f in e.key for f in frags)), "other")
         kinds[kind] += e.self_device_time_total / 1e3
+    adamw_launches = sum(e.count for e in device if "adamw_kernel" in e.key)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-    out = {"grad_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3,
+    out = {"replay_ms": replay_s * 1e3, "adamw_ms": kinds["AdamW"],
+           "adamw_launches": adamw_launches, "leaves": leaves,
            "traced_step_ms": wall * 1e3,
            "device_ms": sum(kinds.values()),
            "device_busy_share": sum(kinds.values()) / 1e3 / wall,
@@ -3530,82 +3826,100 @@ def _train_breakdown(torch, tag: str, model, params, batch: int,
                             "ms": e.self_device_time_total / 1e3}
                            for e in top]}
     print(f"[{tag}] breakdown " + json.dumps(out))
+    check(adamw_launches == leaves, f"{tag}: the traced step ran the "
+                                    f"AdamW kernel {adamw_launches} times "
+                                    f"for {leaves} leaves")
     return out
 
 
 def phase_train(torch) -> dict:
     """Phase 14: the training path on the card, after every model of
-    phases 5-13 is freed. (1) r1-distill-14b at full width (d_model 5120,
-    40/8 heads of 128, d_ff 13824, vocab 152064 untied), its depth cut
-    from 48 to 8 layers, bf16 params with fp32 AdamW moments: 8 steps of
-    ``train_lm`` at B=2, S=2048, the last loss below the first; then 3
-    steps of ``train_prm_head`` on those weights (the LM under no_grad:
-    K5's backward never launches). (2) The ssm and hybrid families
-    through K4's forward and backward: ``smoke_arch`` of mamba2-130m and
-    hymba-1.5b on the card (K4's launches exact); mamba2-130m at full
-    width and depth (24 layers, 24 SSD heads of 64, state 128), 8 steps
-    at B=2, S=2048, the last loss below the first; hymba-1.5b at full
-    width and depth (32 layers, 25/5 heads of 64 in a 1,024 window beside
-    50 SSD heads of 64, state 16), 3 steps at B=1, S=2048, finite losses.
-    (3) gemma-7b at full width, 2 of its 28 layers (16/16 heads of 256:
-    the head_dim-256 backward), 3 steps at B=1, S=2048. (4) the
-    launcher's ``train_reasoner`` with the reference's defaults (2
-    layers, d_model 128, head_dim 32, S=160; 300 LM and 200 PRM steps) in
-    a temp dir: the LM loss falls by at least 20%
-    (``tests/test_training.py``'s bar), the PRM loss is finite, and
-    lm.npz and prm.npz load back bit-equal with
-    ``load_checkpoint(like=...)``. Returns the backwards' launches on
-    (1), (2) and (3)."""
+    phases 5-13 is freed, every train step through a ``TrainGraph`` (step
+    1 warms up eagerly, step 2 captures and replays, later steps replay).
+    (1) r1-distill-14b at full width (d_model 5120, 40/8 heads of 128,
+    d_ff 13824, vocab 152064 untied), its depth cut from 48 to 8 layers,
+    bf16 params with fp32 AdamW moments: 8 steps of ``train_lm`` at B=2,
+    S=2048, the last loss below the first, with its breakdown (one traced
+    replay); then 3 steps of ``train_prm_head`` on those weights through
+    ``make_prm_step``'s graph (the LM under no_grad: K5's backward never
+    launches). (2) Eager against graph, bit-equal, 3 steps each:
+    r1-distill-14b at full width and 2 layers, and mamba2-130m at full
+    width and depth. (3) The ssm and hybrid families through K4's
+    forward and backward: ``smoke_arch`` of mamba2-130m and hymba-1.5b on
+    the card (one eager step: the wrappers' launches exact); mamba2-130m
+    at full width and depth (24 layers, 24 SSD heads of 64, state 128), 8
+    steps at B=2, S=2048, the last loss below the first; hymba-1.5b at
+    full width and depth (32 layers, 25/5 heads of 64 in a 1,024 window
+    beside 50 SSD heads of 64, state 16), 5 steps at B=1, S=2048, finite
+    losses; each with its breakdown. (4) gemma-7b at full width, 2 of its
+    28 layers (16/16 heads of 256: the head_dim-256 backward), 5 steps at
+    B=1, S=2048. (5) the launcher's ``train_reasoner`` with the
+    reference's defaults (2 layers, d_model 128, head_dim 32, S=160; 300
+    LM and 200 PRM steps) in a temp dir: the LM loss falls by at least
+    20% (``tests/test_training.py``'s bar), the PRM loss is finite, lm.npz
+    and prm.npz load back bit-equal with ``load_checkpoint(like=...)``,
+    and K5's backward wrapper ran at the warm-up and the capture only.
+    Returns the launches run on (1), (3) and (4)."""
     import tempfile
 
     from repro_torch.configs import smoke
     from repro_torch.data import DataConfig, prm_batches
-    from repro_torch.kernels.flash_prefill import flash_prefill
     from repro_torch.kernels.flash_prefill import flash_prefill_bwd
     from repro_torch.launch.train import smoke_arch, train_reasoner
-    from repro_torch.training import load_checkpoint, train_prm_head
+    from repro_torch.models import Model
+    from repro_torch.training import (load_checkpoint, make_prm_step,
+                                      train_prm_head)
     t_phase = time.perf_counter()
     tag = "train"
     r1 = _train_full_width(torch, tag, "r1-distill-14b", 8, batch=2,
                            seqlen=TRAIN_SEQLEN, steps=8, breakdown=True)
     check(r1["losses"][-1] < r1["losses"][0],
           f"{tag}: r1-distill-14b's loss did not fall: {r1['losses']}")
-    flash_prefill.launches = flash_prefill_bwd.launches = 0
+    del r1["step_obj"]           # its graph and pool
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    prm = make_prm_step(r1["model_obj"], r1["params"])
     _, phist = train_prm_head(r1["model_obj"], r1["params"], prm_batches(
-        DataConfig(batch_size=2, seq_len=TRAIN_SEQLEN)), 3)
+        DataConfig(batch_size=2, seq_len=TRAIN_SEQLEN)), 3, step_fn=prm)
     prm_s = time.perf_counter() - t0
+    prm_launched = prm.launches_run()
     print(f"[{tag}] train_prm_head on the 14B's weights, 3 steps in "
-          f"{prm_s:.2f} s: losses {[r['prm_loss'] for r in phist]}; K5 "
-          f"forward {flash_prefill.launches}, backward "
-          f"{flash_prefill_bwd.launches}")
-    check(flash_prefill_bwd.launches == 0
-          and flash_prefill.launches == 3 * r1["num_layers"]
+          f"{prm_s:.2f} s: losses {[r['prm_loss'] for r in phist]}; "
+          f"launches run {json.dumps(prm_launched)}; capture "
+          f"{next(iter(prm.signatures.values())).capture_seconds:.3f} s")
+    _check_train_graph(prm, 3, f"{tag}: train_prm_head")
+    check(prm_launched == {"flash_prefill": 3 * r1["num_layers"]}
           and all(math.isfinite(r["prm_loss"]) for r in phist),
           f"{tag}: train_prm_head ran K5's backward or no forward")
-    del r1["model_obj"], r1["params"]
+    del r1["model_obj"], r1["params"], prm
+    for arch, layers in (("r1-distill-14b", 2), ("mamba2-130m", 24)):
+        _train_eager_vs_graph(torch, tag, arch, layers, batch=2,
+                              seqlen=TRAIN_SEQLEN)
     counters = _train_counters()
     for arch in ("mamba2-130m", "hymba-1.5b"):
         for mod in counters.values():
             mod.launches = 0
         smoke_arch(arch, device=DEVICE)
-        launched = {k: mod.launches for k, mod in counters.items()}
-        want = _want_launches(smoke(arch), 1)
-        print(f"[{tag}] smoke_arch({arch!r}) on the card: launches "
-              f"{json.dumps(launched)} (want {json.dumps(want)})")
+        launched = _nonzero({k: mod.launches for k, mod in counters.items()})
+        leaves = _n_leaves(Model(smoke(arch), device="cpu").init_params(
+            torch.Generator().manual_seed(0)))
+        want = _want_launches(smoke(arch), 1, leaves)
+        print(f"[{tag}] smoke_arch({arch!r}) on the card (one eager step): "
+              f"launches {json.dumps(launched)} (want {json.dumps(want)})")
         check(launched == want, f"{tag}: smoke_arch({arch!r}) launched "
                                 f"{launched}, want {want}")
     ssm = _train_full_width(torch, tag, "mamba2-130m", 24, batch=2,
                             seqlen=TRAIN_SEQLEN, steps=8, breakdown=True)
     check(ssm["losses"][-1] < ssm["losses"][0],
           f"{tag}: mamba2-130m's loss did not fall: {ssm['losses']}")
-    del ssm["model_obj"], ssm["params"]
+    del ssm["model_obj"], ssm["params"], ssm["step_obj"]
     hybrid = _train_full_width(torch, tag, "hymba-1.5b", 32, batch=1,
-                               seqlen=TRAIN_SEQLEN, steps=3, breakdown=True)
-    del hybrid["model_obj"], hybrid["params"]
+                               seqlen=TRAIN_SEQLEN, steps=5, breakdown=True)
+    del hybrid["model_obj"], hybrid["params"], hybrid["step_obj"]
     gemma = _train_full_width(torch, tag, "gemma-7b", 2, batch=1,
-                              seqlen=TRAIN_SEQLEN, steps=3)
-    del gemma["model_obj"], gemma["params"]
+                              seqlen=TRAIN_SEQLEN, steps=5)
+    del gemma["model_obj"], gemma["params"], gemma["step_obj"]
     gc.collect()
     torch.cuda.empty_cache()
     flash_prefill_bwd.launches = 0
@@ -3630,20 +3944,26 @@ def phase_train(torch) -> dict:
     print(f"[{tag}] train_reasoner on the card: LM loss {first:.4f} -> "
           f"{last:.4f} ({(1 - last / first) * 100:.1f}% lower), PRM loss "
           f"{prm_last:.4f}, checkpoints round-trip bit-equal {round_trip}; "
-          f"K5 backward launches {flash_prefill_bwd.launches}; "
-          f"{reasoner_s:.1f} s")
+          f"K5 backward wrapper calls {flash_prefill_bwd.launches} (2 "
+          f"layers at the warm-up and the capture; the other "
+          f"{REASONER_STEPS[0] - 2} steps replay); {reasoner_s:.1f} s")
     check(last < 0.8 * first, f"{tag}: train_reasoner's loss fell less "
                               f"than 20%: {first} -> {last}")
     check(math.isfinite(prm_last), f"{tag}: a non-finite PRM loss")
     check(round_trip, f"{tag}: lm.npz or prm.npz did not load back "
                       f"bit-equal")
+    check(flash_prefill_bwd.launches == 2 * 2,
+          f"{tag}: train_reasoner's K5 backward wrapper ran "
+          f"{flash_prefill_bwd.launches} times, want 4 (warm-up and "
+          f"capture of 2 layers)")
     print(f"[{tag}] phase {time.perf_counter() - t_phase:.1f} s")
     return {"flash_prefill_bwd": r1["launches"]["flash_prefill_bwd"],
             kernel_key("flash_prefill_bwd", WIDE):
                 gemma["launches"]["flash_prefill_bwd"],
             "ssd_scan_bwd": ssm["launches"]["ssd_scan_bwd"],
             "ssd_scan_bwd_hymba": hybrid["launches"]["ssd_scan_bwd"],
-            "train_reasoner": flash_prefill_bwd.launches,
+            "adamw": r1["launches"]["adamw"],
+            "adamw_mamba": ssm["launches"]["adamw"],
             "r1": {k: v for k, v in r1.items()
                    if k not in ("model_obj", "params")}}
 
@@ -3795,6 +4115,9 @@ def main() -> int:
     ssd_bwd_errs, ssd_bwd_timing = phase_ssd_bwd_kernels(torch)
     errs.update(ssd_bwd_errs)
     timing.update(ssd_bwd_timing)
+    adamw_errs, adamw_timing = phase_adamw_kernel(torch)
+    errs.update(adamw_errs)
+    timing.update(adamw_timing)
     if args.skip_serve:
         print(json.dumps(timing))
         return 0
@@ -3819,10 +4142,11 @@ def main() -> int:
                            num_requests=2, max_tokens=48)
     # phase 12: gemma-7b at full width and depth, the head_dim-256 kernels
     launches.update(phase_gemma_serve(torch))
-    # phase 14: the training path, K5's and K4's backward
+    # phase 14: the training path through graphs, K5's and K4's backward
+    # and the fused AdamW
     train = phase_train(torch)
     for name in ("flash_prefill_bwd", kernel_key("flash_prefill_bwd", WIDE),
-                 "ssd_scan_bwd"):
+                 "ssd_scan_bwd", "adamw"):
         launches[name] = train[name]
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
@@ -3878,6 +4202,15 @@ def main() -> int:
         f"{BWD_TOL['fp32']} fp32 (CUDA cores); bit-repeatable; the forward "
         f"with its chunk states bit-equal to the forward without",
         "none: no single PyTorch call computes the SSD scan's gradient")
+    meta["adamw"] = (
+        "src/repro_torch/csrc/adamw.cu",
+        "src/repro/training/optimizer.py:46 (no Pallas kernel: XLA fuses "
+        "adamw_update inside the jitted train step, "
+        "src/repro/training/train_loop.py:54)",
+        "bit-equal (0 ulp) to the plain loop body on p, mu and nu",
+        "torch.optim.AdamW(fused=True).step() over the same bf16 leaves "
+        "and gradients (its moments bf16; decoupled decay, no clip): a "
+        "yardstick the port never calls")
     # the head_dim-256 instantiations (gemma-7b, phases 12 and 14): rows
     # of their own, timed at gemma-7b's serve (training) shapes
     meta.update({kernel_key(name, WIDE): meta[name] for name in
@@ -3887,7 +4220,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces, tol, library) in meta.items():
         tm = timing[name]
-        b_ms, b_by = bound(tm["bytes"], tm["ops"], "bf16")
+        b_ms, b_by = bound(tm["bytes"], tm["ops"], tm.get("ops_dtype",
+                                                          "bf16"))
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -3910,8 +4244,8 @@ def main() -> int:
             kernels[-1]["launches_qwen3_moe"] = moe_line["launches"][name]
         if chaos.get(name):
             kernels[-1]["launches_chaos"] = chaos[name]
-        if name == "flash_prefill_bwd":
-            kernels[-1]["launches_train_reasoner"] = train["train_reasoner"]
+        if name == "adamw":
+            kernels[-1]["launches_mamba"] = train["adamw_mamba"]
         if name == "ssd_scan_bwd":
             kernels[-1]["launches_hymba"] = train["ssd_scan_bwd_hymba"]
             kernels[-1]["plain_autograd_ms"] = tm["plain_autograd_ms"]

@@ -17,7 +17,10 @@
 #                     binding flash_prefill_bwd.py);
 #   ssd_scan        — the Mamba-2 SSD chunked scan with state in and out of
 #                     the ssm/hybrid chunk lanes (K4, csrc/ssd_scan.cu,
-#                     wrapper ssd_scan.py; plain versions in ref.py).
+#                     wrapper ssd_scan.py; plain versions in ref.py);
+#   adamw           — AdamW's update of one leaf in one fused pass (not a
+#                     TPU kernel: what XLA fuses in the reference's jitted
+#                     update; csrc/adamw.cu, wrapper adamw.py).
 # build.py compiles csrc/ with nvcc at first use. Nothing is re-exported
 # here, so each wrapper module stays importable under its own name (its
 # launch counters are module attributes).

@@ -26,7 +26,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 SOURCES = ("paged_decode", "paged_prefill", "paged_tree_decode", "ssd_scan",
            "flash_prefill", "flash_prefill_sm90", "flash_prefill_bwd",
-           "ssd_scan_bwd")
+           "ssd_scan_bwd", "adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

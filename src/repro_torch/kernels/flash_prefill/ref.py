@@ -46,8 +46,9 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device)
     for r0 in range(0, s, block):
         rows = pos[r0:r0 + block]
-        # a causal block sees no key past its last row
-        sk = min(int(rows[-1]) + 1, s) if causal else s
+        # a causal block sees no key past its last row (from host ints:
+        # a train step's body reads no tensor value on the host)
+        sk = min(r0 + block, s) if causal else s
         scores = torch.einsum("bqkgd,bskd->bkgqs", qg[:, r0:r0 + block],
                               kf[:, :sk]) / (hd ** 0.5)
         mask = (pos[:sk] < n)[None, :].expand(len(rows), sk)   # [Sq, Sk]

@@ -220,8 +220,13 @@ class Model(nn.Module):
 
         def layer_recomputed(lp, _, x):
             # the reference's jax.checkpoint(nothing_saveable): a layer's
-            # activations live only while its gradient is taken
-            return checkpoint(layer, lp, None, x, use_reentrant=False)
+            # activations live only while its gradient is taken. No layer
+            # draws a random number in training (no dropout; the RNG
+            # serves the initialisers only), so the recompute gives the
+            # same values without the RNG state saved and put back, whose
+            # read of the CUDA generator a CUDA graph capture refuses.
+            return checkpoint(layer, lp, None, x, use_reentrant=False,
+                              preserve_rng_state=False)
         train = torch.is_grad_enabled() and any(
             t.requires_grad for t in _leaves(params["layers"]))
         x, aux = self._run_layers(params, layer_recomputed if train

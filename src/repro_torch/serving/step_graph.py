@@ -35,24 +35,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..kernels.flash_prefill import flash_prefill, paged_prefill
-from ..kernels.paged_attention import paged_attention, tree_decode
-from ..kernels.ssd_scan import ssd_scan
-
-
-def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch counter, by kernel name."""
-    return {"paged_decode": paged_attention.launches,
-            "paged_prefill": paged_prefill.launches,
-            "paged_tree_shared": tree_decode.shared_launches,
-            "paged_tree_branch": tree_decode.branch_launches,
-            "ssd_scan": ssd_scan.launches,
-            "flash_prefill": flash_prefill.launches}
-
-
-def _since(before: Dict[str, int]) -> Dict[str, int]:
-    return {k: n - before[k] for k, n in launch_counts().items()
-            if n != before[k]}
+from ..kernels.launches import launch_counts, launches_since
 
 
 class StepGraph:
@@ -119,7 +102,7 @@ class StepGraph:
             return self.outputs
         before = launch_counts()
         out = self._body(self.dev, self.lane_state)
-        for k, n in _since(before).items():
+        for k, n in launches_since(before).items():
             self.eager_launches[k] = self.eager_launches.get(k, 0) + n
         if self.outputs is None:
             self.outputs = tuple(torch.empty_like(t) for t in out)
@@ -153,7 +136,7 @@ class StepGraph:
         finally:
             if collecting:
                 gc.enable()
-        self.recorded = _since(before)
+        self.recorded = launches_since(before)
         torch.cuda.synchronize()
         self.graph, self.outputs = graph, tuple(out)
         self.captures += 1

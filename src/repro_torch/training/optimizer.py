@@ -13,7 +13,12 @@ Unlike the reference's pure function, ``adamw_update`` writes the params
 and the optimizer state IN PLACE (under ``torch.no_grad()``) and returns
 the same trees: at full width a second copy of the params and of mu and
 nu would not fit beside them. The step count and the learning rate stay
-on the params' device, so an update reads nothing back to the host.
+on the params' device, so an update reads nothing back to the host. The
+norm, clip scale, step and schedule are torch ops
+(``update_scalars``); each leaf's update is one
+``kernels/adamw/ops.py:adamw_leaf``, the fused kernel ``csrc/adamw.cu``
+on the card (the counterpart of XLA's fusion of the reference's update)
+and the plain loop body on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import math
 from typing import Any, Iterator, Tuple
 
 import torch
+
+from ..kernels.adamw.ops import adamw_leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,28 +85,32 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state
-                 ) -> Tuple[Any, dict, torch.Tensor]:
-    """One AdamW step, in place. Returns (params, state, grad_norm): the
-    same trees, and the norm of the gradients before clipping."""
+def update_scalars(cfg: AdamWConfig, grads, state
+                   ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The step's scalars, as torch ops on the grads' device: advances
+    ``state["step"]`` by one in place and returns (grad_norm, (scale, lr,
+    bc1, bc2)), the norm before clipping and the 0-d fp32 clip scale,
+    learning rate and bias corrections that every leaf's update reads."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     state["step"] += 1
     step = state["step"].float()
     lr = schedule(cfg, state["step"])
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - torch.pow(b1, step)
-    bc2 = 1 - torch.pow(b2, step)
+    bc1 = 1 - torch.pow(cfg.beta1, step)
+    bc2 = 1 - torch.pow(cfg.beta2, step)
+    return gnorm, (scale, lr, bc1, bc2)
+
+
+@torch.no_grad()
+def adamw_update(cfg: AdamWConfig, params, grads, state
+                 ) -> Tuple[Any, dict, torch.Tensor]:
+    """One AdamW step, in place. Returns (params, state, grad_norm): the
+    same trees, and the norm of the gradients before clipping. Each leaf
+    is one ``kernels.adamw.ops.adamw_leaf``: on the card one launch of
+    the fused kernel, on the CPU the plain loop body."""
+    gnorm, scalars = update_scalars(cfg, grads, state)
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(state["mu"]), tree_leaves(state["nu"])):
-        g32 = g.float() * scale
-        m.mul_(b1).add_(g32 * (1 - b1))
-        v.mul_(b2).add_(g32.square_().mul_(1 - b2))
-        del g32
-        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if p.dim() >= 2:   # decay matrices only (norms/bias exempt)
-            delta.add_(p.float() * cfg.weight_decay)
-        # (p.float() is p itself for an fp32 leaf: nothing here writes it
-        # before the copy)
-        p.copy_(p.float() - delta.mul_(lr))
+        adamw_leaf(p, g, m, v, *scalars, beta1=cfg.beta1, beta2=cfg.beta2,
+                   eps=cfg.eps, weight_decay=cfg.weight_decay)
     return params, state, gnorm

@@ -459,7 +459,8 @@ def test_launches_run_are_recorded_times_replays():
     assert eng.graph_replays == 8
     assert set(launch_counts()) == {
         "paged_decode", "paged_prefill", "paged_tree_shared",
-        "paged_tree_branch", "ssd_scan", "flash_prefill"}
+        "paged_tree_branch", "ssd_scan", "ssd_scan_bwd", "flash_prefill",
+        "flash_prefill_bwd", "adamw"}
 
 
 def test_eager_block_nests_and_restores():
