@@ -261,7 +261,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                temp dir: the LM loss falls by at least 20%, the PRM loss
                is finite, lm.npz and prm.npz load back bit-equal, K5's
                backward wrapper ran at the warm-up and the capture
-               only.
+               only. The 14B's line holds a digest of every param
+               leaf's bits after its 8 steps (``_param_digest``).
+ 15. dist    — the distribution layer, after phase 14: a 1 x 1
+               ``("data", "model")`` DeviceMesh on the card, the process
+               group NCCL, world size 1, on an in-process ``HashStore``.
+               ``launch/steps.py:build_step``'s train step of
+               r1-distill-14b (8 layers, B=2, S=2048, phase 14's seed,
+               AdamW settings and batches) through its ``TrainGraph``
+               on DTensor params: every loss and grad norm and the
+               params' digest after step 8 equal to phase 14's, the
+               step p50 beside phase 14's (and the ratio), the
+               collectives ``CommDebugMode`` counts in the warm-up step,
+               the peak memory, launches as phase 14's; the prefill
+               step (a 4,096-token prompt, B=1, K5 once a layer) and 8
+               serve steps on its cache, logits and cache bit-equal to
+               ``Model.prefill``/``decode_step`` on the same weights;
+               mamba2-130m at full width and depth, 3 steps, bit-equal
+               to its unsharded train graph (K4 and its backward); the
+               smoke qwen3-moe-235b-a22b's prefill step with
+               ``moe_dp=2`` (the shard-local dispatch) against the same
+               dispatch on the CPU, within atol 1e-4. K4, K5, their
+               backwards and AdamW run on the DTensors' local shards.
 
 Phase 3 also holds the head_dim-256 instantiations of K1, K2, both K3
 passes and K5 at gemma-7b's serve shapes (16/16 heads of 256, group 1):
@@ -284,7 +305,8 @@ Then one JSON line ``{"kernels": [...]}`` (``launches_chaos``: phase
 runs, K4's backward row ``ssd_scan_bwd`` its mamba2-130m run and
 ``launches_hymba`` its hymba-1.5b run, the ``adamw`` row the 14B's run
 and ``launches_mamba`` mamba2-130m's; phase 14's counts are the launches
-its graphs ran), the nvidia-smi line, and last
+its graphs ran; ``launches_sharded``: what phase 15 ran of K5, its
+backward, K4, its backward and AdamW), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
 ``src/`` beside this file, it exits non-zero and prints no result.
 """
@@ -3587,7 +3609,7 @@ def _train_model(torch, arch: str, num_layers: int):
 
 def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
                       batch: int, seqlen: int, steps: int,
-                      breakdown: bool = False) -> dict:
+                      breakdown: bool = False, digest: bool = False) -> dict:
     """``arch`` at full width (``_train_model``): ``steps`` steps of
     ``train_lm`` on ``padded_batches`` of ``batch`` x ``seqlen`` through
     one ``make_train_step`` graph, the kernels' counters zeroed just
@@ -3598,7 +3620,9 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
     kernel, AdamW leaves x steps) and the wrappers' calls (warm-up and
     capture: ``_want_launches(cfg, 2)``). The step p50 is over the
     replay-only steps (3 on); the capture's seconds are printed apart.
-    With ``breakdown``, then ``_train_breakdown`` on the same graph.
+    With ``digest``, the line holds ``_param_digest`` of the params after
+    the last step (phase 15 holds its sharded steps to it). With
+    ``breakdown``, then ``_train_breakdown`` on the same graph.
     Returns the run's line, with the model, params and step under
     "model_obj", "params" and "step_obj"."""
     from repro_torch.data import DataConfig, padded_batches
@@ -3682,6 +3706,8 @@ def _train_full_width(torch, tag: str, arch: str, num_layers: int, *,
             "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
             "captures": step.captures, "replays": step.replays,
             "launches": launched, "wrapper_calls": called}
+    if digest:
+        line["digest"] = _param_digest(torch, params)
     print(f"[{tag}] " + json.dumps(line))
     check(all(math.isfinite(x) for x in line["losses"] + line["grad_norms"]),
           f"{tag}: a non-finite loss or grad norm")
@@ -3872,7 +3898,8 @@ def phase_train(torch) -> dict:
     t_phase = time.perf_counter()
     tag = "train"
     r1 = _train_full_width(torch, tag, "r1-distill-14b", 8, batch=2,
-                           seqlen=TRAIN_SEQLEN, steps=8, breakdown=True)
+                           seqlen=TRAIN_SEQLEN, steps=8, breakdown=True,
+                           digest=True)
     check(r1["losses"][-1] < r1["losses"][0],
           f"{tag}: r1-distill-14b's loss did not fall: {r1['losses']}")
     del r1["step_obj"]           # its graph and pool
@@ -3966,6 +3993,322 @@ def phase_train(torch) -> dict:
             "adamw_mamba": ssm["launches"]["adamw"],
             "r1": {k: v for k, v in r1.items()
                    if k not in ("model_obj", "params")}}
+
+
+def _param_digest(torch, params) -> str:
+    """A digest of every param leaf's bits (a DTensor leaf's local
+    shard), made on the card: per leaf, the int64 sums of its bit
+    patterns and of them times (position mod 65521) + 1, in chunks of
+    16 M elements (wrapping as int64 does), then sha256 over the leaves'
+    shapes, dtypes and sums. Two trees with equal digests are equal to
+    the bit but for a collision."""
+    import hashlib
+
+    from repro_torch.training.optimizer import tree_leaves
+    h = hashlib.sha256()
+    chunk = 1 << 24
+    for t in tree_leaves(params):
+        t = t.to_local() if hasattr(t, "to_local") else t
+        bits = t.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[t.element_size()])
+        s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+        s2 = torch.zeros_like(s1)
+        for i in range(0, bits.numel(), chunk):
+            c = bits[i:i + chunk].to(torch.int64)
+            w = torch.arange(i, i + c.numel(), device=t.device) % 65521 + 1
+            s1 += c.sum()
+            s2 += (c * w).sum()
+        h.update(f"{tuple(t.shape)}:{t.dtype}:{int(s1)}:{int(s2)};".encode())
+    return h.hexdigest()
+
+
+DIST_PREFILL = 4096        # phase 15's prompt (B=1), then 8 decode steps
+DIST_DECODE = 8
+
+
+def _dist_train_r1(torch, tag: str, mesh, r1: dict) -> dict:
+    """Phase 15 (1): ``build_step``'s train step of r1-distill-14b at full
+    width and 8 of 48 layers on the 1 x 1 mesh, from phase 14's seed, its
+    AdamW settings and its 8 batches (B=2, S=2048), through the step's
+    ``TrainGraph``: every loss and grad norm, and the digest of every
+    param leaf after step 8, equal to phase 14's (``r1``). Launches as
+    phase 14's. Returns the run's line, the trained DTensor params under
+    "params" and the model under "model"."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.data import DataConfig, padded_batches
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    from repro_torch.training import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import to_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, model, params = _train_model(torch, "r1-distill-14b", 8)
+    cfg, steps = model.cfg, len(r1["losses"])
+    opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    step, _ = build_step(cfg, ShapeSpec("phase15", TRAIN_SEQLEN, 2, "train"),
+                         mesh, dtype=model.dtype, opt_cfg=opt_cfg)
+    params, = step.shard(params)
+    leaves = _n_leaves(params)
+    opt = init_opt_state(params)
+    data = padded_batches(DataConfig(batch_size=2, seq_len=TRAIN_SEQLEN))
+    counters = _train_counters()
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    recs, stamps, comm = [], [], {}
+    t0 = time.perf_counter()
+    for i in range(steps):
+        toks, labels, mask = next(data)
+        _, _, batch = step.shard(None, None, to_batch(
+            {"tokens": toks, "labels": labels, "mask": mask}, DEVICE))
+        with CommDebugMode() if i == 0 else contextlib.nullcontext() as cm:
+            _, _, m = step(params, opt, batch)
+        if i == 0:
+            comm = {"total": cm.get_total_counts(),
+                    "by_op": {str(k): v for k, v in
+                              cm.get_comm_counts().items()}}
+        recs.append({k: float(v) for k, v in m.items()})
+        stamps.append(time.perf_counter())
+    called = _nonzero({k: mod.launches for k, mod in counters.items()})
+    graph = step.fn
+    launched = graph.launches_run()
+    step_s = np.diff([t0] + stamps)
+    p50 = float(np.median(step_s[2:]))
+    digest = _param_digest(torch, params)
+    line = {"model": cfg.name, "num_layers": cfg.num_layers,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "losses": [r["loss"] for r in recs],
+            "grad_norms": [r["grad_norm"] for r in recs],
+            "losses_equal": [r["loss"] for r in recs] == r1["losses"],
+            "grad_norms_equal":
+                [r["grad_norm"] for r in recs] == r1["grad_norms"],
+            "digest": digest, "digest_equal": digest == r1["digest"],
+            "step_ms_p50": p50 * 1e3,
+            "unsharded_step_ms_p50": r1["step_ms_p50"],
+            "ratio": p50 * 1e3 / r1["step_ms_p50"],
+            "p50_over": "replayed steps 3 on",
+            "warmup_step_s": float(step_s[0]),
+            "capture_s": next(iter(graph.signatures.values())
+                              ).capture_seconds,
+            "collectives_warmup_step": comm,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "captures": graph.captures, "replays": graph.replays,
+            "launches": launched, "wrapper_calls": called}
+    print(f"[{tag}] " + json.dumps(line))
+    check(line["losses_equal"] and line["grad_norms_equal"],
+          f"{tag}: the sharded step's losses or grad norms differ from "
+          f"phase 14's: {line['losses']} {line['grad_norms']} against "
+          f"{r1['losses']} {r1['grad_norms']}")
+    check(line["digest_equal"], f"{tag}: the params after the sharded "
+                                f"steps differ from phase 14's (digest)")
+    _check_train_graph(graph, steps, f"{tag}: {cfg.name}")
+    want = _want_launches(cfg, steps, leaves)
+    check(launched == want, f"{tag}: {cfg.name} ran {launched}, want {want}")
+    check(called == _want_launches(cfg, 2, leaves),
+          f"{tag}: {cfg.name}'s wrappers ran {called} times")
+    del opt, step, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(line, params=params, model=model)
+
+
+def _dist_prefill_serve(torch, tag: str, mesh, model, params) -> dict:
+    """Phase 15 (3): ``build_step``'s prefill step of the 14B (B=1, a
+    4,096-token prompt, K5 once a layer) and ``DIST_DECODE`` calls of its
+    serve step on the prefill's cache, against ``Model.prefill`` and
+    ``Model.decode_step`` on the same weights (the DTensors' local
+    tensors): logits bit-equal at every call, and the caches too."""
+    from repro_torch.distributed.sharding import local_tree
+    from repro_torch.kernels.flash_prefill import flash_prefill
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    cfg = model.cfg
+    plain = local_tree(params)
+    gen = torch.Generator(DEVICE).manual_seed(15)
+    toks = torch.randint(0, cfg.vocab_size, (1, DIST_PREFILL + DIST_DECODE),
+                         generator=gen, device=DEVICE)
+    max_len = DIST_PREFILL + DIST_DECODE
+    with torch.no_grad():
+        ref_logits, ref_cache = model.prefill(
+            plain, tokens=toks[:, :DIST_PREFILL], max_len=max_len)
+        pre, _ = build_step(cfg, ShapeSpec("phase15", max_len, 1, "prefill"),
+                            mesh, dtype=model.dtype)
+        dec, _ = build_step(cfg, ShapeSpec("phase15", max_len, 1, "decode"),
+                            mesh, dtype=model.dtype)
+        _, batch = pre.shard(None, {"tokens": toks[:, :DIST_PREFILL]})
+        flash_prefill.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = pre(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        k5 = flash_prefill.launches
+        same = [torch.equal(logits.full_tensor(), ref_logits)]
+        for i in range(DIST_DECODE):
+            tok = toks[:, DIST_PREFILL + i]
+            pos = torch.full((1,), DIST_PREFILL + i, dtype=torch.long,
+                             device=DEVICE)
+            ref, ref_cache, _ = model.decode_step(plain, tok, ref_cache, pos)
+            _, _, t_d, p_d = dec.shard(None, None, tok, pos)
+            out, cache, _ = dec(params, cache, t_d, p_d)
+            same.append(torch.equal(out.full_tensor(), ref))
+        cache_same = all(torch.equal(cache[k].full_tensor(), ref_cache[k])
+                         for k in ref_cache)
+    line = {"prefill_tokens": DIST_PREFILL, "decode_steps": DIST_DECODE,
+            "logits_equal": same, "cache_equal": cache_same,
+            "prefill_s": prefill_s, "k5_launches": k5,
+            "cache_placements": {k: str(tuple(v.placements))
+                                 for k, v in cache.items()}}
+    print(f"[{tag}] prefill and serve steps " + json.dumps(line))
+    check(all(same) and cache_same, f"{tag}: the sharded prefill or serve "
+                                    f"logits (or cache) differ: {same}")
+    check(k5 == cfg.num_layers, f"{tag}: the prefill step launched K5 {k5} "
+                                f"times, want {cfg.num_layers}")
+    return {"flash_prefill": k5}
+
+
+def _dist_train_pair(torch, tag: str, mesh, arch: str, num_layers: int, *,
+                     steps: int = 3) -> dict:
+    """Phase 15 (2): ``arch`` at full width, ``steps`` steps of the
+    unsharded train graph, then of ``build_step``'s train step on the 1 x
+    1 mesh, from the same seed and batches (B=2, S=2048): losses, grad
+    norms and every param bit-equal; both graphs launch
+    ``_want_launches``."""
+    from repro_torch.data import DataConfig, padded_batches
+    from repro_torch.distributed.sharding import local_tree
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import to_batch
+    opt_cfg = AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps)
+    runs = {}
+    for mode in ("unsharded", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        _, model, params = _train_model(torch, arch, num_layers)
+        if mode == "unsharded":
+            graph = step = make_train_step(model, opt_cfg)
+        else:
+            step, _ = build_step(model.cfg, ShapeSpec(
+                "phase15", TRAIN_SEQLEN, 2, "train"), mesh,
+                dtype=model.dtype, opt_cfg=opt_cfg)
+            graph = step.fn
+            params, = step.shard(params)
+        opt = init_opt_state(params)
+        data = padded_batches(DataConfig(batch_size=2, seq_len=TRAIN_SEQLEN))
+        metrics = []
+        for _ in range(steps):
+            toks, labels, mask = next(data)
+            batch = to_batch({"tokens": toks, "labels": labels,
+                              "mask": mask}, DEVICE)
+            if mode == "sharded":
+                batch = step.shard(None, None, batch)[2]
+            _, _, m = step(params, opt, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        _check_train_graph(graph, steps, f"{tag}: {arch} {mode}")
+        runs[mode] = (metrics, local_tree(params), graph.launches_run())
+        del opt, step, graph
+    (m_u, p_u, l_u), (m_s, p_s, l_s) = runs["unsharded"], runs["sharded"]
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(p_u),
+                                                 tree_leaves(p_s)))
+    want = _want_launches(model.cfg, steps, _n_leaves(p_u))
+    line = {"model": model.cfg.name, "num_layers": num_layers,
+            "losses": [m["loss"] for m in m_s],
+            "metrics_equal": m_u == m_s, "params_equal": same,
+            "launches_unsharded": l_u, "launches_sharded": l_s}
+    print(f"[{tag}] unsharded vs sharded " + json.dumps(line))
+    check(m_u == m_s and same, f"{tag}: {arch}'s sharded steps differ from "
+                               f"its unsharded steps")
+    check(l_u == want and l_s == want,
+          f"{tag}: {arch} launched {l_u} / {l_s}, want {want}")
+    del runs, p_u, p_s
+    return l_s
+
+
+def _dist_moe_prefill(torch, tag: str, mesh) -> dict:
+    """Phase 15 (4): the smoke qwen3-moe-235b-a22b's prefill step with
+    ``moe_dp=2`` (the shard-local dispatch: two groups, each with its own
+    capacity), fp32, on the card against the same step's dispatch on the
+    CPU (``Model.prefill`` under ``activation_rules(None, {"_moe_dp":
+    2})``), from the same weights and tokens: logits within atol 1e-4."""
+    from repro_torch.configs import smoke
+    from repro_torch.distributed.logical import activation_rules
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import Model
+    cfg = smoke("qwen3-moe-235b-a22b")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init_params(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 64),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        with activation_rules(None, {"_moe_dp": 2}):
+            ref, _ = cpu.prefill(params, tokens=toks, max_len=64)
+        pre, _ = build_step(cfg, ShapeSpec("phase15", 64, 4, "prefill"),
+                            mesh, dtype=torch.float32, moe_dp=2)
+        p_d, batch = pre.shard(_to(params, DEVICE),
+                               {"tokens": toks.to(DEVICE)})
+        logits, _ = pre(p_d, batch)
+        err = float((logits.full_tensor().cpu() - ref).abs().max())
+    line = {"model": cfg.name, "moe_dp": 2, "batch": 4, "seqlen": 64,
+            "max_abs_err": err, "scale": float(ref.abs().max()),
+            "atol": 1e-4}
+    print(f"[{tag}] shard-local MoE prefill, card vs CPU " + json.dumps(line))
+    check(math.isfinite(err) and err <= 1e-4,
+          f"{tag}: the shard-local MoE prefill differs from the CPU's by "
+          f"{err}")
+    return line
+
+
+def phase_distributed(torch, r1: dict) -> dict:
+    """Phase 15: the distribution layer (``launch/steps.py:build_step``
+    over a ``DeviceMesh`` of DTensors) on a 1 x 1 ``("data", "model")``
+    mesh on the card; the process group is NCCL, world size 1, on an
+    in-process ``HashStore`` (no network). (1) r1-distill-14b's sharded
+    train step (``_dist_train_r1``), bit-equal to phase 14; (2)
+    mamba2-130m at full width and depth, 3 steps, bit-equal to the
+    unsharded train graph; (3) the 14B's prefill and serve steps,
+    bit-equal to ``Model.prefill``/``decode_step``; (4) the smoke MoE's
+    shard-local prefill against the CPU. K4, K5, their backwards and
+    AdamW run on the DTensors' local shards. Returns the launches the
+    phase ran, by kernel (checked exact in each part)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    t_phase = time.perf_counter()
+    tag = "dist"
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device(DEVICE, 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
+        line = _dist_train_r1(torch, tag, mesh, r1)
+        model, params = line.pop("model"), line.pop("params")
+        print(f"[{tag}] sharded train step p50 {line['step_ms_p50']:.2f} ms "
+              f"beside phase 14's {r1['step_ms_p50']:.2f} ms: ratio "
+              f"{line['ratio']:.4f}; collectives in the warm-up step "
+              f"{json.dumps(line['collectives_warmup_step'])}; peak "
+              f"{line['peak_mem_gb']:.2f} GB")
+        launches = dict(line["launches"])
+        _add_counts(launches, _dist_prefill_serve(torch, tag, mesh, model,
+                                                  params))
+        del model, params
+        _add_counts(launches, _dist_train_pair(torch, tag, mesh,
+                                               "mamba2-130m", 24))
+        _dist_moe_prefill(torch, tag, mesh)
+    finally:
+        dist.destroy_process_group()
+    print(f"[{tag}] launches run {json.dumps(launches)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _add_counts(into: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        into[k] = into.get(k, 0) + n
 
 
 def _step_stats(engine, wall: float) -> dict:
@@ -4148,6 +4491,9 @@ def main() -> int:
     for name in ("flash_prefill_bwd", kernel_key("flash_prefill_bwd", WIDE),
                  "ssd_scan_bwd", "adamw"):
         launches[name] = train[name]
+    # phase 15: the sharded steps on a 1 x 1 DeviceMesh, K4, K5, their
+    # backwards and AdamW on the DTensors' local shards
+    sharded = phase_distributed(torch, train["r1"])
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
             "K/V (a yardstick; the port never calls it)")
@@ -4244,6 +4590,8 @@ def main() -> int:
             kernels[-1]["launches_qwen3_moe"] = moe_line["launches"][name]
         if chaos.get(name):
             kernels[-1]["launches_chaos"] = chaos[name]
+        if name in sharded:
+            kernels[-1]["launches_sharded"] = sharded[name]
         if name == "adamw":
             kernels[-1]["launches_mamba"] = train["adamw_mamba"]
         if name == "ssd_scan_bwd":

@@ -11,7 +11,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..distributed.local import (as_dtensor, partial_where, shard_count,
+                                 shard_dims, shard_index)
 from .config import ModelConfig
 
 # ---------------------------------------------------------------------------
@@ -195,10 +199,48 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig,
 
 def embed_tokens(cfg: ModelConfig, p: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = p["embedding"][tokens]
+    emb = p["embedding"]
+    x = _embed_sharded(emb, tokens) if isinstance(emb, DTensor) \
+        else emb[tokens]
     if cfg.embedding_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
+
+
+def _embed_sharded(emb: DTensor, tokens) -> DTensor:
+    """The lookup of a vocab-parallel table on each rank's local rows
+    (DTensor's index and its backward's ``index_put`` are not used: the
+    latter has no strategy for the gradient's placements in every torch
+    release). Where the vocab is split over n > 1 ranks, each looks up the
+    tokens in its rows, zeros the others, and the output is a partial sum
+    there; the table's gradient is a partial sum over the tokens' batch
+    axes."""
+    mesh = emb.device_mesh
+    vdims = shard_dims(emb.placements, 0)
+    n = shard_count(mesh, vdims)
+    index = shard_index(mesh, vdims)
+    ep = tuple(Shard(0) if i in vdims else Replicate()
+               for i in range(mesh.ndim))
+    tp = tuple(Shard(0) if isinstance(tokens, DTensor) and i not in vdims
+               and tokens.placements[i] == Shard(0) else Replicate()
+               for i in range(mesh.ndim))
+    bdims = shard_dims(tp, 0)
+    op = tuple(Partial() if i in vdims and n > 1 else p
+               for i, p in enumerate(tp))
+
+    def body(el, tl):
+        if n == 1:
+            return el[tl]
+        rows = el.shape[0]
+        rel = tl - index * rows
+        inside = (rel >= 0) & (rel < rows)
+        return torch.where(inside[..., None], el[rel.clamp(0, rows - 1)],
+                           0)
+
+    return local_map(body, out_placements=list(op), in_placements=(ep, tp),
+                     in_grad_placements=(partial_where(ep, bdims), tp),
+                     device_mesh=mesh)(as_dtensor(emb, mesh, ep),
+                                       as_dtensor(tokens, mesh, tp))
 
 
 def unembed(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

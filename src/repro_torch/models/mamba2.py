@@ -13,6 +13,16 @@ on CUDA tensors, the plain ``ssd_chunked`` (defined beside K4 in
 one-token ``ssd_decode_step`` stays in plain torch ops, as the reference
 keeps it in jnp. The causal conv is the reference's sum of shifted
 products, not ``F.conv1d`` (which cuDNN would run in TF32 on the card).
+
+Sharded (DTensor inputs, the steps of ``launch/steps.py``): the
+projections are DTensor matmuls; the mixer between them (conv, the scan,
+the gated norm: ``_mixer_forward``, ``_mixer_decode``) runs on each
+rank's local rows under ``local_map``, replicated over ``"model"`` (K4
+and ``SsdScanFn`` on the card). Its SSD head counts (24, 50) rarely
+divide the model axis, and DTensor cannot split or fold a sharded dim
+across heads in the forward or in the backward. The states it returns
+go to the cache's layout (``cache_pspecs``: conv channels and the SSD
+head_dim on ``"model"``) when stored.
 """
 from __future__ import annotations
 
@@ -20,7 +30,10 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from ..distributed.local import as_dtensor, batch_placements, partial_where
 from ..kernels.ssd_scan.ops import ssd_with_state
 from ..kernels.ssd_scan.ref import _segsum, ssd_chunked  # noqa: F401
 from .config import ModelConfig
@@ -161,12 +174,25 @@ def mamba2_forward(cfg: ModelConfig, p, x_in, initial=None, valid_len=None):
     Outputs at padded positions are unspecified. The scan runs through
     ``ssd_with_state`` (K4 on the card; in training its forward and
     backward, ``SsdScanFn``)."""
-    bs, s, _ = x_in.shape
-    h, pp = cfg.ssm_heads, cfg.ssm_head_dim
     proj = x_in @ p["in_proj"]
+    if isinstance(proj, DTensor):
+        y, states = _on_local_rows(_mixer_forward, cfg, p, proj,
+                                   initial or (), batch_placements(x_in),
+                                   valid_len=valid_len)
+    else:
+        y, states = _mixer_forward(cfg, p, proj, *(initial or ()),
+                                   valid_len=valid_len)
+    return y @ p["out_proj"], states
+
+
+def _mixer_forward(cfg: ModelConfig, p, proj, conv_state_in=None,
+                   ssd_state_in=None, valid_len=None):
+    """The mixer between its projections: conv, the scan, the gated
+    norm. proj [B, S, in_proj's width] -> (y [B, S, d_inner],
+    (conv_state, ssd_state))."""
+    bs, s, _ = proj.shape
+    h, pp = cfg.ssm_heads, cfg.ssm_head_dim
     z, xbc, dt_raw = _split_proj(cfg, proj)
-    conv_state_in = initial[0] if initial is not None else None
-    ssd_state_in = initial[1] if initial is not None else None
     xbc, conv_state = _causal_conv(p, xbc, conv_state_in, valid_len)
     xs, b, c = _split_xbc(cfg, xbc)
     xs = xs.reshape(bs, s, h, pp)
@@ -176,14 +202,48 @@ def mamba2_forward(cfg: ModelConfig, p, x_in, initial=None, valid_len=None):
     a = -torch.exp(p["a_log"])
     valid = None
     if valid_len is not None:
-        vl = _valid_lens(valid_len, bs, x_in.device)
-        valid = torch.arange(s, device=x_in.device)[None, :] < vl[:, None]
+        vl = _valid_lens(valid_len, bs, proj.device)
+        valid = torch.arange(s, device=proj.device)[None, :] < vl[:, None]
     y, ssd_state = ssd_with_state(xs, dt, a, bh, ch, cfg.ssm_chunk,
                                   ssd_state_in, valid=valid)
     y = y + xs * p["d_skip"][None, None, :, None].to(y.dtype)
     y = y.reshape(bs, s, cfg.d_inner)
     y = apply_norm(cfg, p["norm"], y * F.silu(z))
-    return y @ p["out_proj"], (conv_state, ssd_state)
+    return y, (conv_state, ssd_state)
+
+
+def _on_local_rows(fn, cfg: ModelConfig, p, proj: DTensor, states, bp,
+                   **kw):
+    """``fn(cfg, p, proj, *states, **kw)`` (the mixer between its
+    projections) on each rank's local rows under ``local_map``: the
+    batch on its data axes (``bp``, the mixer input's batch placements),
+    every other dim whole (the mixer's own
+    weights gathered; their gradients partial sums over the batch axes).
+    Its splits and head reshapes then meet no sharded dim, and the scan
+    runs on local tensors (K4 on the card). Returns fn's outputs as
+    DTensors with the batch sharding."""
+    mesh = proj.device_mesh
+    proj = proj.redistribute(mesh, bp)
+    bdims = tuple(i for i, pl in enumerate(bp) if pl == Shard(0))
+    rep = (Replicate(),) * mesh.ndim
+    names = sorted(k for k in p if k not in ("in_proj", "out_proj", "norm"))
+    norm = sorted(p["norm"])
+    weights = [as_dtensor(p[k], mesh, rep) for k in names] + \
+        [as_dtensor(p["norm"][k], mesh, rep) for k in norm]
+    states = [as_dtensor(t, mesh, bp) for t in states]
+    n_w = len(weights)
+
+    def body(pl, *rest):
+        lp = dict(zip(names, rest[:len(names)]))
+        lp["norm"] = dict(zip(norm, rest[len(names):n_w]))
+        return fn(cfg, lp, pl, *rest[n_w:], **kw)
+
+    n_out = 3
+    return local_map(
+        body, out_placements=(bp,) * n_out,
+        in_placements=(bp,) + (rep,) * n_w + (bp,) * len(states),
+        in_grad_placements=(bp,) + (partial_where(rep, bdims),) * n_w
+        + (bp,) * len(states), device_mesh=mesh)(proj, *weights, *states)
 
 
 def mamba2_decode(cfg: ModelConfig, p, x_in, conv_state, ssd_state,
@@ -192,9 +252,23 @@ def mamba2_decode(cfg: ModelConfig, p, x_in, conv_state, ssd_state,
     ssd_state: [B, H, P, N]; valid: [B] bool or None — rows marked False
     keep BOTH states bit-identical (inert rows in the serving mixed step).
     Returns (y [B,1,D], conv_state, ssd_state), new tensors."""
-    bs = x_in.shape[0]
-    h, pp = cfg.ssm_heads, cfg.ssm_head_dim
     proj = x_in @ p["in_proj"]                              # [B,1,·]
+    if isinstance(proj, DTensor):
+        y, (conv_state, ssd_state) = _on_local_rows(
+            _mixer_decode, cfg, p, proj, (conv_state, ssd_state),
+            batch_placements(x_in), valid=valid)
+    else:
+        y, (conv_state, ssd_state) = _mixer_decode(
+            cfg, p, proj, conv_state, ssd_state, valid=valid)
+    return y @ p["out_proj"], conv_state, ssd_state
+
+
+def _mixer_decode(cfg: ModelConfig, p, proj, conv_state, ssd_state,
+                  valid=None):
+    """The one-token mixer between its projections. Returns (y [B, 1,
+    d_inner], (conv_state, ssd_state))."""
+    bs = proj.shape[0]
+    h, pp = cfg.ssm_heads, cfg.ssm_head_dim
     z, xbc, dt_raw = _split_proj(cfg, proj)
     conv_state_in = conv_state
     xbc, conv_state = _causal_conv(p, xbc, conv_state)
@@ -211,7 +285,7 @@ def mamba2_decode(cfg: ModelConfig, p, x_in, conv_state, ssd_state,
     y = y + xs1 * p["d_skip"][None, :, None].to(y.dtype)
     y = y.reshape(bs, 1, cfg.d_inner)
     y = apply_norm(cfg, p["norm"], y * F.silu(z))
-    return y @ p["out_proj"], conv_state, ssd_state
+    return y, (conv_state, ssd_state)
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype=torch.float32,

@@ -29,6 +29,14 @@ their aux losses; vlm configs rotate by M-RoPE over ``[B, S, 3]``
 positions (``[B, S]`` ones are broadcast to three equal streams); audio
 configs add sinusoidal position embeddings to the inputs. vlm and audio
 take ``embeds`` (the stubbed frontend's output) in place of token ids.
+
+Sharded (DTensor params and inputs, the steps of ``launch/steps.py``):
+``constrain`` pins the activations where the reference does (after the
+embedding, after each layer, the logits; the identity outside
+``activation_rules``), and the mixer's and the MLP's outputs before each
+residual add. The prompt's k/v and the SSM states go into the cache
+shard by shard (``_write_prompt_kv``, ``_store``), and the loss runs on
+each rank's rows and vocab slice (``_cross_entropy_sharded``).
 """
 from __future__ import annotations
 
@@ -36,10 +44,16 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.local import (as_dtensor, shard_count, shard_dims,
+                                 shard_index)
+from ..distributed.logical import constrain
 from .attention import (attention_decode, attention_prefill, attention_train,
                         init_attention)
 from .config import ModelConfig
@@ -199,6 +213,7 @@ class Model(nn.Module):
             layer_cache = ({k: v[i] for k, v in cache.items()}
                            if cache is not None else None)
             x, aux_l = step(lp, layer_cache, x)
+            x = constrain(x, "btd")
             if aux_l is not None:
                 aux = aux + aux_l
         return x, aux
@@ -211,7 +226,7 @@ class Model(nn.Module):
         under ``torch.utils.checkpoint`` and is recomputed in the backward
         pass."""
         cfg = self.cfg
-        x = self._embed_inputs(params, tokens, embeds)
+        x = constrain(self._embed_inputs(params, tokens, embeds), "btd")
         b, s, _ = x.shape
         positions = self._positions(positions, b, s, x.device)
 
@@ -232,7 +247,7 @@ class Model(nn.Module):
         x, aux = self._run_layers(params, layer_recomputed if train
                                   else layer, x, None)
         x = apply_norm(cfg, params["final_norm"], x)
-        return unembed(cfg, params["embed"], x), aux
+        return constrain(unembed(cfg, params["embed"], x), "btv"), aux
 
     def _layer_train(self, p: Params, x, positions):
         cfg = self.cfg
@@ -248,11 +263,13 @@ class Model(nn.Module):
     def _finish_layer(self, p: Params, x, mix):
         """Residual of the mixer (hybrids average their two heads, as
         Hymba), then the MLP or MoE block over every row of x. Returns (x,
-        the MoE aux loss or None)."""
+        the MoE aux loss or None). Under activation rules the mixer's and
+        the block's outputs are pinned to ``"btd"`` before each residual
+        add, so the stream keeps its batch sharding alone."""
         cfg = self.cfg
         if cfg.arch_type == "hybrid":
             mix = mix * 0.5
-        x = x + mix
+        x = x + constrain(mix, "btd")
         aux = None
         if cfg.d_ff:
             h = apply_norm(cfg, p["norm2"], x)
@@ -260,7 +277,7 @@ class Model(nn.Module):
                 y, aux = apply_moe(cfg, p["moe"], h)
             else:
                 y = apply_mlp(cfg, p["mlp"], h)
-            x = x + y
+            x = x + constrain(y, "btd")
         return x, aux
 
     def prefill(self, params: Params, tokens=None, embeds=None,
@@ -270,7 +287,7 @@ class Model(nn.Module):
         or cfg.max_seq_len)`` unless one is passed; written in place).
         Returns (logits of the last position [B,V], cache)."""
         cfg = self.cfg
-        x = self._embed_inputs(params, tokens, embeds)
+        x = constrain(self._embed_inputs(params, tokens, embeds), "btd")
         b, s, _ = x.shape
         positions = self._positions(positions, b, s, x.device)
         if cache is None:
@@ -280,7 +297,7 @@ class Model(nn.Module):
                                                           positions, s),
             x, cache)
         x = apply_norm(cfg, params["final_norm"], x[:, -1:])
-        return unembed(cfg, params["embed"], x)[:, 0], cache
+        return constrain(unembed(cfg, params["embed"], x)[:, 0], "bv"), cache
 
     def _layer_prefill(self, p: Params, layer_cache: Cache, x, positions,
                        s: int):
@@ -290,17 +307,12 @@ class Model(nn.Module):
         if cfg.uses_attention:
             mix, (k, v) = attention_prefill(cfg, p["attn"], h, positions)
             for key, new in (("k", k), ("v", v)):
-                dst = layer_cache[key]
-                klen = dst.shape[1]
-                if s <= klen:
-                    dst[:, :s] = new
-                else:  # a ring smaller than the prompt: the tail at p % klen
-                    dst.copy_(torch.roll(new[:, -klen:], s % klen, dims=1))
+                _write_prompt_kv(layer_cache[key], new, s)
         if cfg.uses_ssm:
             y, (conv, ssd) = mamba2_forward(cfg, p["mamba"], h)
             mix = y if mix is None else mix + y
-            layer_cache["conv"].copy_(conv)
-            layer_cache["ssd"].copy_(ssd)
+            _store(layer_cache["conv"], conv)
+            _store(layer_cache["ssd"], ssd)
         return self._finish_layer(p, x, mix)
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
@@ -313,12 +325,14 @@ class Model(nn.Module):
         if cfg.pos_embedding == "sinusoidal":
             x = x + sinusoidal_embedding(positions, cfg.d_model)[:, None].to(
                 x.dtype)
+        x = constrain(x, "btd")
         x, _ = self._run_layers(
             params, lambda lp, lc, x: self._layer_decode(lp, lc, x,
                                                          positions),
             x, cache)
         hidden = apply_norm(cfg, params["final_norm"], x)[:, 0]
-        return unembed(cfg, params["embed"], hidden), cache, hidden
+        logits = constrain(unembed(cfg, params["embed"], hidden), "bv")
+        return logits, cache, hidden
 
     def _layer_decode(self, p: Params, layer_cache: Cache, x, positions):
         cfg = self.cfg
@@ -331,22 +345,144 @@ class Model(nn.Module):
             y, conv, ssd = mamba2_decode(cfg, p["mamba"], h,
                                          layer_cache["conv"],
                                          layer_cache["ssd"])
-            layer_cache["conv"].copy_(conv)
-            layer_cache["ssd"].copy_(ssd)
+            _store(layer_cache["conv"], conv)
+            _store(layer_cache["ssd"], ssd)
             mix = y if mix is None else mix + y
         return self._finish_layer(p, x, mix)
+
+
+def _store(dst, src) -> None:
+    """``dst.copy_(src)``; a DTensor ``dst`` takes ``src`` brought to its
+    placements, local shard into local shard (in place)."""
+    if isinstance(dst, DTensor):
+        src = as_dtensor(src, dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
+
+
+def _write_prompt_kv(dst, new, s: int) -> None:
+    """Seed a layer's cache ``dst`` [B, Smax, KV, hd] with the prompt's
+    ``new`` [B, s, KV, hd] in place: positions 0..s-1, or, in a ring
+    smaller than the prompt, the last ``Smax`` at ``p % Smax``. A sharded
+    ``dst`` is written on each rank's local shard: its batch rows and kv
+    heads, and of a sequence-sharded cache its slab of slots."""
+    klen = dst.shape[1]
+    if not isinstance(dst, DTensor):
+        if s <= klen:
+            dst[:, :s] = new
+        else:  # a ring smaller than the prompt: the tail at p % klen
+            dst.copy_(torch.roll(new[:, -klen:], s % klen, dims=1))
+        return
+    mesh, cp = dst.device_mesh, tuple(dst.placements)
+    sdims = shard_dims(cp, 1)
+    # the prompt with the cache's batch and head sharding, whole sequence
+    full = as_dtensor(new, mesh, tuple(Replicate() if i in sdims else p
+                                       for i, p in enumerate(cp)))
+    local, src = dst.to_local(), full.to_local()
+    if s > klen:
+        src = torch.roll(src[:, -klen:], s % klen, dims=1)
+    off = shard_index(mesh, sdims) * local.shape[1]
+    n = min(src.shape[1] - off, local.shape[1])
+    if n > 0:
+        local[:, :n] = src[:, off:off + n]
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits [B,S,V], labels [B,S] -> mean token NLL in fp32 (mask:
-    [B,S] 0/1; the masked mean divides by max(sum(mask), 1))."""
+    [B,S] 0/1; the masked mean divides by max(sum(mask), 1)). DTensor
+    logits: ``_cross_entropy_sharded``."""
+    if isinstance(logits, DTensor):
+        return _cross_entropy_sharded(logits, labels, mask)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _cross_entropy_sharded(logits: DTensor, labels, mask) -> DTensor:
+    """``cross_entropy_loss`` on each rank's rows under ``local_map``,
+    each rank's sums of NLL and mask partial over the batch axes, then the
+    masked mean as DTensor ops. Where the vocab is sharded over mesh dims
+    of more than one rank, the loss stays vocab-parallel
+    (``_VocabParallelNLL``: no rank holds the whole vocab); otherwise the
+    logits are gathered over the vocab (a no-op on one rank), as DTensor's
+    ``log_softmax`` would. (DTensor's backward of ``gather`` would make
+    its zeros at the global shape on every rank.)"""
+    mesh = logits.device_mesh
+    vocab = logits.dim() - 1
+    vdims = tuple(i for i in shard_dims(logits.placements, vocab)
+                  if mesh.size(i) > 1)
+    rp = tuple(Shard(0) if p == Shard(0) else Replicate()
+               for p in logits.placements)
+    lp = tuple(Shard(vocab) if i in vdims else p for i, p in enumerate(rp))
+    op = tuple(Partial() if p == Shard(0) and mesh.size(i) > 1
+               else Replicate() for i, p in enumerate(rp))
+    mask_ = torch.ones(labels.shape, dtype=torch.float32,
+                       device=logits.device) if mask is None else mask
+    if vdims and logits.shape[vocab] % shard_count(mesh, vdims):
+        raise ValueError(f"vocab {logits.shape[vocab]} is sharded unevenly "
+                         f"over mesh dims {vdims}")
+    groups = [(mesh, i) for i in vdims]
+    index = shard_index(mesh, vdims)
+
+    def body(lg, lb, mk):
+        if groups:
+            nll = _VocabParallelNLL.apply(lg, lb.long(),
+                                          index * lg.shape[-1], groups)
+        else:
+            logp = torch.log_softmax(lg.float(), dim=-1)
+            nll = -torch.gather(logp, -1, lb.long()[..., None])[..., 0]
+        mk = mk.float()
+        return (nll * mk).sum(), mk.sum()
+
+    total, count = local_map(
+        body, out_placements=(op, op), in_placements=(lp, rp, rp),
+        device_mesh=mesh)(logits.redistribute(mesh, lp),
+                          as_dtensor(labels, mesh, rp),
+                          as_dtensor(mask_, mesh, rp))
+    return total / torch.clamp(count, min=1.0)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Token NLL [b, s] from one rank's vocab slice of the logits
+    [b, s, V/n] (its first id ``v0``): the row max, the sum of exps and
+    the target's logit each all-reduced over ``groups`` (the vocab's mesh
+    dims; the owner of a label gives its logit, the others 0), in fp32.
+    The backward needs no collective: each rank's slice of the gradient
+    is (softmax - one-hot) times the NLL's gradient, which every rank of
+    the vocab group holds whole."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0: int, groups):
+        x = logits.float()
+        m = x.amax(-1)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        e = torch.exp(x - m[..., None])
+        denom = e.sum(-1)
+        local = labels - v0
+        owner = (local >= 0) & (local < x.shape[-1])
+        idx = local.clamp(0, x.shape[-1] - 1)
+        target = torch.where(
+            owner, torch.gather(x, -1, idx[..., None])[..., 0], 0.0)
+        for g in groups:
+            denom = funcol.all_reduce(denom, "sum", g)
+            target = funcol.all_reduce(target, "sum", g)
+        ctx.save_for_backward(e / denom[..., None], idx, owner)
+        ctx.dtype = logits.dtype
+        return torch.log(denom) + m - target
+
+    @staticmethod
+    def backward(ctx, grad):
+        probs, idx, owner = ctx.saved_tensors
+        out = probs * grad[..., None]
+        out.scatter_add_(-1, idx[..., None],
+                         -(grad * owner)[..., None])
+        return out.to(ctx.dtype), None, None, None
 
 
 #: leaves the reference keeps in fp32 whatever the model dtype

@@ -19,6 +19,18 @@ norm, clip scale, step and schedule are torch ops
 ``kernels/adamw/ops.py:adamw_leaf``, the fused kernel ``csrc/adamw.cu``
 on the card (the counterpart of XLA's fusion of the reference's update)
 and the plain loop body on the CPU.
+
+Sharded (a DTensor params tree, the train step of ``launch/steps.py``):
+mu and nu are DTensors with their param's placements (``opt_pspecs``:
+each rank holds its own shard, never the whole). ``adamw_update`` first
+brings each gradient to its param's placements, one collective a leaf
+(a reduce-scatter where it comes back as a partial sum over the batch
+axes). The global norm is then taken from the local shards: each leaf's
+local sum of squares, counted on one rank of each replica group, and a
+scalar all-reduce over each mesh dim, a plain 0-d tensor that the
+kernels read. ``adamw_leaf`` runs on the four local tensors: on the card
+one fused launch a leaf, as unsharded. The decay rule reads ``ndim``,
+which a local shard shares with its global tensor.
 """
 from __future__ import annotations
 
@@ -27,6 +39,8 @@ import math
 from typing import Any, Iterator, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from ..kernels.adamw.ops import adamw_leaf
 
@@ -67,21 +81,61 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init_opt_state(params) -> dict:
     """Zero fp32 mu and nu shaped like ``params``, and step 0 (an int32
-    tensor on the params' device)."""
+    tensor on the params' device). A DTensor leaf gets DTensor moments
+    with its placements, made shard by shard."""
     def zeros(tree):
         if isinstance(tree, dict):
             return {k: zeros(v) for k, v in tree.items()}
+        if isinstance(tree, DTensor):
+            return dtensor_zeros(tree.shape, dtype=torch.float32,
+                                 device_mesh=tree.device_mesh,
+                                 placements=tree.placements)
         return torch.zeros(tree.shape, dtype=torch.float32,
                            device=tree.device)
-    device = next(tree_leaves(params)).device
+    device = _local(next(tree_leaves(params))).device
     return {"mu": zeros(params), "nu": zeros(params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+    """sqrt of the sum of every leaf's squares, in fp32. For DTensor
+    leaves (sharded or replicated, never a partial sum) a plain 0-d
+    tensor, the same on every rank: the local sums, a scalar all-reduce
+    over each mesh dim, then the root."""
+    leaves = list(tree_leaves(tree))
+    total = sum(_sum_squares(g) for g in leaves)
+    mesh = next((g.device_mesh for g in leaves if isinstance(g, DTensor)),
+                None)
+    if mesh is not None:
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                                   run_check=False).full_tensor()
+    return torch.sqrt(total)
+
+
+def _sum_squares(g) -> torch.Tensor:
+    """The fp32 sum of ``g``'s squares; of a DTensor, its local shard's,
+    and 0 on a rank that is not the first of a mesh dim over which ``g``
+    is replicated (so the all-reduce counts each element once)."""
+    if not isinstance(g, DTensor):
+        return torch.sum(torch.square(g.float()))
+    if any(p.is_partial() for p in g.placements):
+        raise ValueError("global_norm takes sharded or replicated "
+                         f"gradients, not {g.placements}")
+    s = torch.sum(torch.square(g.to_local().float()))
+    coord = g.device_mesh.get_coordinate()
+    if any(p.is_replicate() and c for p, c in zip(g.placements, coord)):
+        return torch.zeros_like(s)
+    return s
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def replicated(t):
+    """A DTensor's whole value as a plain tensor (a 0-d result, the same
+    on every rank); a plain tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 @torch.no_grad()
@@ -108,9 +162,14 @@ def adamw_update(cfg: AdamWConfig, params, grads, state
     same trees, and the norm of the gradients before clipping. Each leaf
     is one ``kernels.adamw.ops.adamw_leaf``: on the card one launch of
     the fused kernel, on the CPU the plain loop body."""
-    gnorm, scalars = update_scalars(cfg, grads, state)
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(p, DTensor) else g
+             for p, g in zip(tree_leaves(params), tree_leaves(grads))]
+    gnorm, scalars = update_scalars(cfg, dict(enumerate(grads)), state)
+    for p, g, m, v in zip(tree_leaves(params), grads,
                           tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+        if isinstance(p, DTensor):
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         adamw_leaf(p, g, m, v, *scalars, beta1=cfg.beta1, beta2=cfg.beta2,
                    eps=cfg.eps, weight_decay=cfg.weight_decay)
     return params, state, gnorm

@@ -24,6 +24,10 @@ inside ``eager()``) the body runs on the same buffers and its outputs are
 copied into the same static outputs, so a metric kept past the next call
 is overwritten on the CPU too.
 
+A sharded step (DTensor trees, ``launch/steps.py``) is bound to the
+addresses of its leaves' local tensors, and its batch buffers are
+DTensors with the batch's placements.
+
 The kernel wrappers' launch counters count launches when the wrapper
 runs: under capture, the launches the graph records. ``recorded`` keeps
 them per signature; ``launches_run`` is what the steps launched on the
@@ -37,6 +41,7 @@ import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..kernels.launches import launch_counts, launches_since
 from .optimizer import tree_leaves
@@ -60,7 +65,8 @@ class Signature:
     its graph."""
 
     def __init__(self, batch: Dict[str, torch.Tensor], device):
-        self.batch = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+        self.batch = {k: torch.empty_like(v) if isinstance(v, DTensor)
+                      else torch.empty(v.shape, dtype=v.dtype, device=device)
                       for k, v in batch.items()}
         self.outputs: Optional[Dict[str, torch.Tensor]] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -123,10 +129,11 @@ class TrainGraph:
         return params, opt_state, sig.outputs
 
     def _bind(self, params, opt_state) -> None:
-        """Bind to the first call's trees; raise on another tree."""
+        """Bind to the first call's trees (a DTensor leaf by its local
+        tensor); raise on another tree."""
         trees = (params,) if opt_state is None else (params, opt_state)
-        ptrs = tuple(t.data_ptr() for tree in trees
-                     for t in tree_leaves(tree))
+        ptrs = tuple((t.to_local() if isinstance(t, DTensor) else t)
+                     .data_ptr() for tree in trees for t in tree_leaves(tree))
         if self._ptrs is None:
             self._ptrs, self.params, self.opt_state = ptrs, params, opt_state
         elif ptrs != self._ptrs:

@@ -27,7 +27,8 @@ import torch
 from ..core.prm import init_prm_head, reward_logit
 from ..models import Model, cross_entropy_loss
 from ..models.layers import apply_norm
-from .optimizer import AdamWConfig, adamw_update, init_opt_state, tree_leaves
+from .optimizer import (AdamWConfig, replicated, adamw_update,
+                        init_opt_state, tree_leaves)
 from .train_graph import TrainGraph
 
 
@@ -72,6 +73,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
     the step's static 0-d tensors on the model's device (``loss``,
     ``aux_loss``, ``grad_norm``), overwritten by the next step of the same
     batch signature. The step is bound to the first call's trees."""
+    return TrainGraph(train_body(model, opt_cfg, loss_fn), model.device)
+
+
+def train_body(model: Model, opt_cfg: AdamWConfig,
+               loss_fn: Optional[Callable] = None):
+    """The train step's body, ``body(params, opt_state, batch) ->
+    metrics`` (what ``make_train_step`` wraps in a ``TrainGraph``). With
+    DTensor params the metrics come back replicated, as plain tensors."""
     loss_fn = loss_fn or lm_loss_fn
 
     def body(params, opt_state, batch):
@@ -83,11 +92,11 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
         del total
         _, _, gnorm = adamw_update(opt_cfg, params,
                                    _like(params, iter(grads)), opt_state)
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: replicated(v.detach()) for k, v in metrics.items()}
         metrics["grad_norm"] = gnorm
         return metrics
 
-    return TrainGraph(body, model.device)
+    return body
 
 
 def _like(tree, leaves):

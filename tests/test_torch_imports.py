@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither ``jax`` nor ``repro``, and
-importing it builds nothing and does not import ``triton``. Its entry
+importing it builds nothing, does not import ``triton``, sets no
+environment variable and makes no process group (the dry-run's fake
+group is made, and its store imported, when ``run_one`` runs). Its entry
 points run on the CUDA card by default and raise without one."""
 import subprocess
 import sys
@@ -15,15 +17,22 @@ from repro_torch.models import Model, ModelConfig
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.modules["jax"] = None          # any import of jax now fails
 sys.modules["repro"] = None        # ... and of the JAX package
+env = dict(os.environ)
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
 assert "triton" not in sys.modules, "importing the port imported triton"
+# the dry-run (and every other module) sets no variable, makes no process
+# group and leaves the fake group's store unimported until it runs
+import torch.distributed as dist
+assert dict(os.environ) == env, "importing the port set a variable"
+assert not dist.is_initialized(), "importing the port made a group"
+assert "torch.testing._internal.distributed.fake_pg" not in sys.modules
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "repro" or m.startswith("repro.")]
 assert not [m for m in bad if sys.modules[m] is not None], bad
@@ -33,7 +42,9 @@ print(" ".join(names))
 
 def test_every_module_imports_without_jax_or_repro():
     """Each repro_torch module imports in a fresh process where jax and
-    repro cannot be imported, and triton stays unimported."""
+    repro cannot be imported; triton and the fake process group's store
+    stay unimported, no environment variable changes and no process
+    group exists."""
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=SRC,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -53,7 +64,15 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.training.checkpoint",
             "repro_torch.training.train_loop", "repro_torch.launch.train",
             "repro_torch.kernels.flash_prefill.flash_prefill_bwd",
-            "repro_torch.kernels.ssd_scan.ssd_scan_bwd"} <= names
+            "repro_torch.kernels.ssd_scan.ssd_scan_bwd",
+            "repro_torch.distributed", "repro_torch.distributed.logical",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.local", "repro_torch.launch.mesh",
+            "repro_torch.launch.shapes", "repro_torch.launch.steps",
+            "repro_torch.launch.dryrun"} <= names
+
+
+
 
 
 def test_no_source_mentions_jax_or_the_reference_package():

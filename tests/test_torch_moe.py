@@ -205,3 +205,67 @@ def test_bf16_layer_stays_bf16_and_near_fp32():
     y16, _ = moe.apply_moe(tcfg, bf, xt.to(torch.bfloat16))
     assert y16.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(y16), _np(y32), atol=5e-2, rtol=5e-2)
+
+
+# ------------------------------------------------- the shard-local dispatch
+
+
+def _moe_cfg(**kw):
+    """The reference test's MoE config (``tests/test_moe.py:_moe_cfg``)."""
+    from conftest import tiny_config
+    base = dict(arch_type="moe", d_ff=96, num_experts=4,
+                num_experts_per_tok=2, moe_capacity_factor=4.0)
+    base.update(kw)
+    return tiny_config(**base)
+
+
+def test_shard_local_dispatch_matches_dense_eval():
+    """The reference's test on the port: the shard-local dispatch
+    (``moe_dp_chunks() > 1``) keeps the routing, each group with its own
+    capacity, and matches dense eval when nothing drops (atol 2e-5)."""
+    from repro.models.moe import init_moe as jinit
+    from repro_torch.distributed.logical import activation_rules
+
+    jcfg = _moe_cfg(moe_capacity_factor=8.0)
+    cfg = ModelConfig(**dataclasses.asdict(jcfg))
+    p = {k: torch.from_numpy(np.array(v))
+         for k, v in jinit(jax.random.PRNGKey(0), jcfg).items()}
+    x = torch.from_numpy(np.array(jax.random.normal(
+        jax.random.PRNGKey(1), (2, 16, cfg.d_model)), np.float32))
+    ref = moe.apply_moe_dense_eval(cfg, p, x)
+    with activation_rules(None, {"_moe_dp": 4}):
+        y, _ = moe.apply_moe(cfg, p, x)
+    np.testing.assert_allclose(_np(y), _np(ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("name,moe_dp", [("dbrx", 2), ("qwen3_moe", 4)])
+def test_shard_local_dispatch_matches_jax(name, moe_dp):
+    """``apply_moe`` under ``{"_moe_dp": G}`` against the reference's
+    under the same rules, the weights carried across, fp32, at a
+    capacity that binds within a group (64 rows in G groups): outputs and
+    the aux loss within 1e-5."""
+    from repro.distributed.logical import activation_rules as jrules
+    from repro_torch.distributed.logical import activation_rules
+    jcfg, tcfg, jp, tp, x = _setup(name, 64)
+    x3 = x.reshape(2, 32, -1)
+    with jrules(None, {"_moe_dp": moe_dp}):
+        jy, jaux = jmoe.apply_moe(jcfg, jp, jnp.asarray(x3))
+    with activation_rules(None, {"_moe_dp": moe_dp}):
+        ty, taux = moe.apply_moe(tcfg, tp, torch.from_numpy(x3))
+    np.testing.assert_allclose(_np(ty), _np(jy), **TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), **TOL)
+    # the groups' own capacity: not the global dispatch's result
+    gy, _ = moe.apply_moe(tcfg, tp, torch.from_numpy(x3))
+    assert not torch.equal(gy, ty)
+
+
+def test_shard_local_dispatch_needs_divisible_rows():
+    """With G not dividing the rows the dispatch stays global, as in the
+    reference."""
+    from repro_torch.distributed.logical import activation_rules
+    _, tcfg, _, tp, x = _setup("dbrx", 15)
+    x3 = torch.from_numpy(x.reshape(3, 5, -1))
+    with activation_rules(None, {"_moe_dp": 4}):
+        y, _ = moe.apply_moe(tcfg, tp, x3)
+    g, _ = moe.apply_moe(tcfg, tp, x3)
+    assert torch.equal(y, g)
