@@ -283,6 +283,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``moe_dp=2`` (the shard-local dispatch) against the same
                dispatch on the CPU, within atol 1e-4. K4, K5, their
                backwards and AdamW run on the DTensors' local shards.
+ 16. verifiers — the launch-grid check and STEP007 on the card, after
+               phase 15 (``[verifiers]`` lines). Each serve-path
+               launcher (K1, K2, both K3 passes, K4 and K5, bf16 and
+               fp32: 12) is called once through its wrapper with its
+               grid function's grid off by one in x, and must raise
+               (the launcher refuses it before launching; the wrapper
+               counts no launch). Then every STEP007 lattice case
+               (``repro_torch.stepcheck.bounds.engine_lattice``, both
+               routes, head_dim 128) runs on its kernel with every
+               input a view between NaN guard regions (ints: an
+               out-of-pool value): each output equal to the plain
+               version within the phase-3 tolerance, exact zeros where
+               the plain row is zero, finite, and every guard unchanged.
+               Last the examples at smoke size on the card, in-process:
+               ``examples/torch_quickstart.py`` (no page leaked), then
+               ``torch_train_tiny_reasoner.py`` into a temp dir and
+               ``torch_serve_reasoning.py`` and
+               ``torch_sart_vs_baselines.py`` over its checkpoint.
 
 Phase 3 also holds the head_dim-256 instantiations of K1, K2, both K3
 passes and K5 at gemma-7b's serve shapes (16/16 heads of 256, group 1):
@@ -329,6 +347,7 @@ import numpy as np
 
 SRC = Path(__file__).resolve().parent / "src"
 DEVICE = "cuda"
+T_START = time.perf_counter()
 
 # the card's published peaks (H100 SXM data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -4306,6 +4325,259 @@ def phase_distributed(torch, r1: dict) -> dict:
     return launches
 
 
+GUARD = 1024                 # elements of each guard region (phase 16)
+INT_GUARD = 2 ** 30          # an int guard: a page far past any pool
+
+
+def grid_lookup_us(torch, n: int = 100_000) -> dict:
+    """The host time a serve-path wrapper spends on its grids per call:
+    its grid function's cached lookup at a serve shape of phase 3 plus
+    ``grid_args``, in microseconds (the best of 5 ``timeit`` rounds of
+    ``n`` calls). Host only: no card needed."""
+    import timeit
+    from repro_torch.kernels import introspect as ix
+    from repro_torch.kernels.flash_prefill import flash_prefill as k5
+    from repro_torch.kernels.flash_prefill import paged_prefill as k2
+    from repro_torch.kernels.paged_attention import paged_attention as k1
+    from repro_torch.kernels.paged_attention import tree_decode as k3
+    from repro_torch.kernels.ssd_scan import ssd_scan as k4
+    bf = torch.bfloat16
+    lookups = {   # r1-distill-14b's heads and pages; mamba2-130m's scan
+        "paged_decode": lambda: k1.paged_attention_grid(
+            16, 40, 128, 8, 4097, 16, 32, bf),
+        "paged_prefill": lambda: k2.paged_prefill_grid(
+            64, 40, 128, 8, 4097, 16, 32, bf, 1),
+        "paged_tree_shared": lambda: k3.paged_tree_shared_grid(
+            16, 40, 128, 8, 4097, 16, 16, 32, bf),
+        "paged_tree_branch": lambda: k3.paged_tree_branch_grid(
+            16, 40, 128, 8, 4097, 16, 32, bf, 16, 16, 32),
+        "ssd_scan": lambda: k4.ssd_scan_grid(
+            1, 2048, 24, 64, 128, 256, bf, False, False),
+        "flash_prefill": lambda: k5.flash_prefill_grid(
+            1, 4096, 40, 128, 8, bf, 132, False),
+    }
+    out = {}
+    for name, lookup in lookups.items():
+        def call(lookup=lookup):
+            return ix.grid_args(lookup())
+        call()
+        out[name] = min(timeit.repeat(call, number=n, repeat=5)) / n * 1e6
+    return out
+
+
+def _verifier_refusals(torch) -> int:
+    """Each serve-path launcher, both routes, called once through its
+    wrapper with its grid function's first grid off by one in x: the
+    launcher must refuse it (RuntimeError from ``build.raise_on_error``)
+    and the wrapper must count no launch. Returns the refusals."""
+    import dataclasses
+    from repro_torch.kernels import introspect as ix
+    from repro_torch.kernels.flash_prefill import flash_prefill as k5
+    from repro_torch.kernels.flash_prefill import paged_prefill as k2
+    from repro_torch.kernels.launches import launch_counts
+    from repro_torch.kernels.paged_attention import paged_attention as k1
+    from repro_torch.kernels.paged_attention import tree_decode as k3
+    from repro_torch.kernels.ssd_scan import ssd_scan as k4
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(16)
+
+    def off_by_one(fn):
+        def wrong(*a, **kw):
+            good = fn(*a, **kw)
+            first = dataclasses.replace(good[0], grid=(
+                good[0].grid[0] + 1,) + tuple(good[0].grid[1:]))
+            return ix.Launches((first,) + tuple(good[1:]))
+        return wrong
+
+    refused = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        def f(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        def i32(*shape, v=0):
+            return torch.full(shape, v, dtype=torch.int32, device=dev)
+        q, kp, vp = f(3, 8, 128), f(2, 16, 16, 128), f(2, 16, 16, 128)
+        bt, ln = i32(3, 8), i32(3, v=20)
+        part, keys = k3.paged_tree_shared_fwd(q, kp, vp, i32(3), bt,
+                                              i32(3, v=16), ln)
+        calls = [
+            (k1, "paged_attention_grid",
+             lambda: k1.paged_attention_decode(q, kp, vp, bt, ln)),
+            (k2, "paged_prefill_grid",
+             lambda: k2.paged_flash_prefill_lanes_fwd(
+                 f(16, 8, 128), kp, vp, i32(16, 8), i32(16),
+                 i32(2, v=5), (8, 8))),
+            (k3, "paged_tree_shared_grid",
+             lambda: k3.paged_tree_shared_fwd(q, kp, vp, i32(3), bt,
+                                              i32(3, v=16), ln)),
+            (k3, "paged_tree_branch_grid",
+             lambda: k3.paged_tree_branch_fwd(q, kp, vp, i32(3),
+                                              i32(3, v=16), bt, ln, part,
+                                              keys)),
+            (k4, "ssd_scan_grid",
+             lambda: k4.ssd_scan(f(2, 16, 2, 64), torch.rand(
+                 2, 16, 2, device=dev), -torch.rand(2, device=dev),
+                 f(2, 16, 2, 16), f(2, 16, 2, 16), chunk=8)),
+            (k5, "flash_prefill_grid",
+             lambda: k5.flash_prefill(f(1, 100, 8, 128), f(1, 100, 2, 128),
+                                      f(1, 100, 2, 128))),
+        ]
+        for mod, name, call in calls:
+            call()                      # the true grid launches
+            torch.cuda.synchronize()
+            real = getattr(mod, name)
+            setattr(mod, name, off_by_one(real))
+            before = launch_counts()
+            try:
+                call()
+            except RuntimeError as exc:
+                check("CUDA launch failed" in str(exc),
+                      f"{name} ({dtype}): unexpected error {exc}")
+                refused += 1
+            else:
+                fail(f"{name} ({dtype}): the launcher took a grid off by "
+                     "one")
+            finally:
+                setattr(mod, name, real)
+            check(launch_counts() == before,
+                  f"{name} ({dtype}): a refused launch was counted")
+            torch.cuda.synchronize()
+    return refused
+
+
+def _guarded(torch, dev, buffers):
+    """An ``alloc(shape, dtype)`` for ``calls.make_inputs``: each tensor a
+    view between two guard regions of GUARD elements (NaN, or INT_GUARD
+    for ints) of a larger buffer, kept in ``buffers``."""
+    def alloc(shape, dtype):
+        n = math.prod(shape)
+        buf = torch.empty(n + 2 * GUARD, dtype=dtype, device=dev)
+        buf.fill_(float("nan") if dtype.is_floating_point else INT_GUARD)
+        buffers.append((buf, n))
+        return buf[GUARD:GUARD + n].view(shape)
+    return alloc
+
+
+def _guards_intact(torch, buffers) -> bool:
+    for buf, n in buffers:
+        for g in (buf[:GUARD], buf[GUARD + n:]):
+            ok = (torch.isnan(g).all() if buf.dtype.is_floating_point
+                  else (g == INT_GUARD).all())
+            if not bool(ok):
+                return False
+    return True
+
+
+def _verifier_lattice(torch) -> dict:
+    """Every STEP007 lattice case, both routes, head_dim 128, on its
+    kernel between NaN guards, held to the plain version. Returns counts
+    and the largest error per route."""
+    from repro_torch.stepcheck import bounds, calls
+    dev = torch.device(DEVICE)
+    stats = {"cases": 0, "max_abs_err": {}}
+    for lg, cases in bounds.engine_lattice(head_dims=(128,)):
+        tol = (1e-4 if lg.kernel == "ssd_scan" and lg.route == "fp32"
+               else TOL[lg.route])
+        for case in cases:
+            buffers: list = []
+            x = calls.make_inputs(lg, case, dev,
+                                  torch.Generator().manual_seed(16),
+                                  _guarded(torch, dev, buffers))
+            got = calls.run_kernel(lg, case, x)
+            torch.cuda.synchronize()
+            want = calls.run_plain(lg, case, {
+                k: v.float() if v.is_floating_point() else v
+                for k, v in x.items()})
+            rows = calls.compared_rows(lg, x)
+            what = f"{lg.kernel} {lg.route} kv={bounds.kv_regime(lg)} " \
+                   f"{case.name}"
+            for name, ref in want.items():
+                out = got[name].float()
+                if rows is not None and rows[0] == name:
+                    out, ref = out[:, rows[1]], ref[:, rows[1]]
+                check(bool(torch.isfinite(out).all()),
+                      f"{what}: NaN or inf in {name} (a guard was read?)")
+                check(torch.allclose(out, ref, atol=tol, rtol=tol),
+                      f"{what}: {name} disagrees with the plain version "
+                      f"({(out - ref).abs().max().item():.3g})")
+                zero = (ref == 0).all(-1)      # rows of the last dim
+                check(bool((out[zero] == 0).all()),
+                      f"{what}: {name} rows the plain version zeroes are "
+                      "not exact zeros")
+                err = (out - ref).abs().max().item() if out.numel() else 0.0
+                stats["max_abs_err"][lg.route] = max(
+                    stats["max_abs_err"].get(lg.route, 0.0), err)
+            check(_guards_intact(torch, buffers),
+                  f"{what}: a guard region was written")
+            stats["cases"] += 1
+    return stats
+
+
+def _verifier_examples(torch) -> dict:
+    """The examples at smoke size on the card, in-process: the quickstart,
+    then train -> serve (and the four-policy comparison) over one
+    checkpoint in a temp dir. Returns each one's seconds."""
+    import importlib.util
+    import io
+    import tempfile
+    examples = Path(__file__).resolve().parent / "examples"
+
+    def run(name, *argv):
+        spec = importlib.util.spec_from_file_location(
+            name, examples / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(list(argv))
+        check(rc == 0, f"{name} exited {rc}")
+        return out.getvalue(), time.perf_counter() - t0
+
+    secs = {}
+    out, secs["quickstart"] = run("torch_quickstart", "--requests", "2",
+                                  "--max-tokens", "16")
+    check("all KV pages released" in out, "quickstart: pages leaked")
+    with tempfile.TemporaryDirectory() as ckpt:
+        out, secs["train"] = run("torch_train_tiny_reasoner", "--steps",
+                                 "4", "--prm-steps", "2", "--eval-problems",
+                                 "2", "--out", ckpt)
+        check("[eval] greedy accuracy" in out, "train: no eval line")
+        out, secs["serve"] = run("torch_serve_reasoning", "--requests", "2",
+                                 "--n", "2", "--max-tokens", "16", "--ckpt",
+                                 ckpt)
+        served = json.loads(out)
+        check(served["completed_requests"] == 2,
+              f"serve over the trained checkpoint: {served}")
+        out, secs["sart_vs_baselines"] = run(
+            "torch_sart_vs_baselines", "--requests", "1", "--n", "2",
+            "--max-tokens", "8", "--ckpt", ckpt)
+        check([l.split()[0] for l in out.splitlines()[1:]]
+              == ["vanilla", "sc", "rebase", "sart"],
+              f"sart_vs_baselines: {out}")
+    return secs
+
+
+def phase_verifiers(torch) -> dict:
+    """Phase 16: the launchers' grid check, STEP007's lattice between NaN
+    guards and the examples, on the card."""
+    t0 = time.perf_counter()
+    refused = _verifier_refusals(torch)
+    check(refused == 12, f"{refused} of 12 launchers refused a wrong grid")
+    t1 = time.perf_counter()
+    lattice = _verifier_lattice(torch)
+    t2 = time.perf_counter()
+    examples = _verifier_examples(torch)
+    t3 = time.perf_counter()
+    line = {"refused_off_by_one": refused, "lattice": lattice,
+            "examples_s": examples, "grid_lookup_us": grid_lookup_us(torch),
+            "seconds": {
+                "refusals": t1 - t0, "lattice": t2 - t1,
+                "examples": t3 - t2, "phase": t3 - t0}}
+    print(f"[verifiers] {json.dumps(line)}")
+    return line
+
+
 def _add_counts(into: dict, counts: dict) -> None:
     for k, n in counts.items():
         into[k] = into.get(k, 0) + n
@@ -4494,6 +4766,8 @@ def main() -> int:
     # phase 15: the sharded steps on a 1 x 1 DeviceMesh, K4, K5, their
     # backwards and AdamW on the DTensors' local shards
     sharded = phase_distributed(torch, train["r1"])
+    # phase 16: the launchers' grid check, STEP007 on the card, examples
+    phase_verifiers(torch)
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
             "K/V (a yardstick; the port never calls it)")
@@ -4603,6 +4877,8 @@ def main() -> int:
                          or math.isfinite(k["library_ms"])),
               f"non-finite timing for {k['name']}")
     print(json.dumps({"kernels": kernels}))
+    print(f"[total] {time.perf_counter() - T_START:.1f} s from the start "
+          "of the script")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -81,10 +81,25 @@ VARIANTS = {
 KNOCKOUTS = {"empty", "no_shared_merge"}
 LAYOUTS = [(128, 4), (256, 2), (512, 1)]         # 32-page tables
 LONG_LAYOUTS = [(512, 4), (1024, 2), (2048, 1)]  # 128-page tables
+# each launcher ends with its grids (a pointer to n x 3 ints and n) and the
+# stream
 ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + \
-    [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p]
 BRANCH_ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + \
-    [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
+                           ctypes.c_void_p]
+
+
+def core_grids(kernel: str, q, kp, bt, keys: int, n: int):
+    """The decode core's grid at a layout of n splits of ``keys`` keys, as
+    the launcher checks it (``introspect.grid_args``)."""
+    from repro_torch.kernels import introspect as ix
+    return ix.grid_args(ix.Launches((ix.decode_core_grid(
+        kernel, q.shape[0], q.shape[1], q.shape[2], kp.shape[0],
+        kp.shape[1], kp.shape[2], bt.shape[1], keys, n,
+        branch=kernel == "paged_tree_branch", num_groups=1, shared_keys=1,
+        shared_n=1),)))
 
 
 def build_variants(build) -> dict:
@@ -175,12 +190,13 @@ def main() -> int:
         for var, fn in libs.items():
             for keys, n in layouts:
                 def call(fn=fn, q=q, kp=kp, vp=vp, bt=bt, ln=ln, out=out,
-                         keys=keys, n=n):
+                         keys=keys, n=n, grids=core_grids(
+                             "paged_attention", q, kp, bt, keys, n)):
                     return fn(1, 128, q.data_ptr(), kp.data_ptr(),
                               vp.data_ptr(), bt.data_ptr(), ln.data_ptr(),
                               out.data_ptr(), q.shape[0], 40, 8,
                               kp.shape[1], 16, bt.shape[1], keys, n,
-                              1.0 / 128 ** 0.5, build.stream(q))
+                              1.0 / 128 ** 0.5, *grids, build.stream(q))
                 rc = call()
                 torch.cuda.synchronize()
                 name = f"{var} {keys}x{n}"
@@ -225,14 +241,15 @@ def main() -> int:
             for keys, n in ((128, 4), (512, 1)):
                 def call(fn=fn, q=q, kp=kp, vp=vp, rg=rg, sl=sl, bbt=bbt,
                          ln=ln, part=part, out=out, keys=keys, n=n,
-                         skeys=skeys):
+                         skeys=skeys, grids=core_grids(
+                             "paged_tree_branch", q, kp, bbt, keys, n)):
                     return fn(1, 128, q.data_ptr(), kp.data_ptr(),
                               vp.data_ptr(), rg.data_ptr(), sl.data_ptr(),
                               bbt.data_ptr(), ln.data_ptr(), part.data_ptr(),
                               out.data_ptr(), q.shape[0], 40, 8,
                               kp.shape[1], 16, 32, sl.shape[0], skeys,
                               part.shape[0], keys, n, 1.0 / 128 ** 0.5,
-                              build.stream(q))
+                              *grids, build.stream(q))
                 rc = call()
                 torch.cuda.synchronize()
                 name = f"{var} {keys}x{n}"

@@ -40,6 +40,8 @@
 // holds 4 rows x 16 columns of O.
 #include <cuda_runtime.h>
 
+#include "launch_check.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;       // 16 x 16: ty picks rows, tx keys/columns
@@ -301,17 +303,23 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // [batch, seqlen, q_heads, head_dim], k and v [batch, seqlen, kv_heads,
 // head_dim], contiguous and 16-byte aligned; block_q * (q_heads /
 // kv_heads) <= 64; 0 < true_len <= seqlen; lse null or fp32 [batch,
-// q_heads, seqlen]. The caller has checked shapes, dtypes and alignment.
+// q_heads, seqlen]. grids (n_grids x 3 ints) is the wrapper's
+// flash_prefill_grid; a grid that is not this launch's is refused before
+// anything launches. The caller has checked shapes, dtypes and alignment.
 extern "C" int flash_prefill_launch(int head_dim, const void* q,
                                     const void* k, const void* v, void* out,
                                     float* lse, int batch, int seqlen,
                                     int q_heads, int kv_heads, int true_len,
                                     int block_q, int causal, float scale,
+                                    const int* grids, int n_grids,
                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_heads < 1 || q_heads % kv_heads || block_q < 1 ||
       block_q * (q_heads / kv_heads) > kRows || true_len < 1 ||
       true_len > seqlen)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((seqlen + block_q - 1) / block_q, kv_heads, batch);
+  if (!grids_match(grids, n_grids, &grid, 1))
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 256:

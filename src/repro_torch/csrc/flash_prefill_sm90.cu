@@ -59,6 +59,7 @@
 #include <cuda.h>
 
 #include "hopper_ptx.cuh"
+#include "launch_check.cuh"
 
 namespace {
 
@@ -467,19 +468,25 @@ int launch_rows(int rows, const void* q, const void* k, const void* v,
 // seqlen, kv_heads, head_dim], contiguous and 16-byte aligned; rows is 64
 // or 128 (one or two consumer warpgroups per CTA; 64 at head_dim 256) and
 // block_q * (q_heads / kv_heads) <= rows; 0 < true_len <= seqlen; lse
-// null or fp32 [batch, q_heads, seqlen]. The caller has checked shapes,
-// dtypes and alignment.
+// null or fp32 [batch, q_heads, seqlen]. grids (n_grids x 3 ints) is the
+// wrapper's flash_prefill_grid; a grid that is not this launch's, ((seqlen
+// + block_q - 1) / block_q, kv_heads, batch), is refused before anything
+// launches. The caller has checked shapes, dtypes and alignment.
 extern "C" int flash_prefill_sm90_launch(int head_dim, const void* q,
                                          const void* k, const void* v,
                                          void* out, float* lse, int batch,
                                          int seqlen, int q_heads,
                                          int kv_heads, int true_len,
                                          int rows, int block_q, int causal,
-                                         float scale, void* stream) {
+                                         float scale, const int* grids,
+                                         int n_grids, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (kv_heads < 1 || q_heads % kv_heads || (rows != 64 && rows != 128) ||
       block_q < 1 || block_q * (q_heads / kv_heads) > rows ||
       block_q > 256 || true_len < 1 || true_len > seqlen)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((seqlen + block_q - 1) / block_q, kv_heads, batch);
+  if (!grids_match(grids, n_grids, &grid, 1))
     return (int)cudaErrorInvalidValue;
   switch (head_dim) {
     case 256:

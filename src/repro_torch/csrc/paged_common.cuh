@@ -30,6 +30,8 @@
 
 #include <type_traits>
 
+#include "launch_check.cuh"
+
 namespace paged {
 
 constexpr int kThreads = 128;       // one CTA is four warps

@@ -73,7 +73,9 @@ bool f32_smem_raised = false;
 
 // Returns the cudaError_t of the launch (0 on success). dtype: 0 = fp32,
 // 1 = bf16. split_keys and n_split are the key splits of the bf16 kernel
-// (ref.py: decode_splits; fp32 takes the whole table as one split). The
+// (ref.py: decode_splits; fp32 takes the whole table as one split).
+// grids (n_grids x 3 ints) is the wrapper's paged_attention_grid; a grid
+// that is not this launch's is refused before anything launches. The
 // caller has checked shapes, dtypes, contiguity and 16-byte alignment.
 extern "C" int paged_decode_launch(int dtype, int head_dim, const void* q,
                                    const void* k_pages, const void* v_pages,
@@ -82,9 +84,11 @@ extern "C" int paged_decode_launch(int dtype, int head_dim, const void* q,
                                    int q_heads, int kv_heads, int num_pages,
                                    int page_size, int pages_per_seq,
                                    int split_keys, int n_split, float scale,
+                                   const int* grids, int n_grids,
                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (q_heads / kv_heads > kMaxRows) return (int)cudaErrorInvalidValue;
+  if (kv_heads < 1 || q_heads / kv_heads > kMaxRows)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     decode::Args a = {};
     a.q = (const __nv_bfloat16*)q;
@@ -102,6 +106,9 @@ extern "C" int paged_decode_launch(int dtype, int head_dim, const void* q,
     a.split_keys = split_keys;
     a.n_split = n_split;
     a.scale = scale;
+    const dim3 grid = decode::grid_of(a);
+    if (!grids_match(grids, n_grids, &grid, 1))
+      return (int)cudaErrorInvalidValue;
     int rc = (int)cudaErrorInvalidValue;
     decode::dispatch_hd(head_dim, [&](auto hd) {
       rc = decode::launch<decltype(hd)::value, false>(a, s);
@@ -110,6 +117,8 @@ extern "C" int paged_decode_launch(int dtype, int head_dim, const void* q,
   }
   if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(batch, kv_heads);
+  if (!grids_match(grids, n_grids, &grid, 1))
+    return (int)cudaErrorInvalidValue;
   int rc = (int)cudaErrorInvalidValue;
   decode::dispatch_hd(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;

@@ -664,9 +664,16 @@ template <int HD, bool kBranch>
 bool smem_raised = false;
 }  // namespace
 
-// Launches decode_mma_kernel<HD, kBranch> over a grid of (n_split,
-// kv_heads x 16-head slices, batch), as clusters of n_split CTAs when
-// n_split > 1; returns the cudaError_t of the launch.
+// The grid of decode_mma_kernel: (n_split, kv_heads x 16-head slices,
+// batch) (kernels/introspect.py: decode_core_grid).
+inline dim3 grid_of(const Args& a) {
+  const int group = a.q_heads / a.kv_heads;
+  return dim3(a.n_split, a.kv_heads * ((group + kRows - 1) / kRows),
+              a.batch);
+}
+
+// Launches decode_mma_kernel<HD, kBranch> over grid_of(a), as clusters of
+// n_split CTAs when n_split > 1; returns the cudaError_t of the launch.
 template <int HD, bool kBranch>
 int launch(const Args& a, cudaStream_t s) {
   const int group = a.q_heads / a.kv_heads;
@@ -688,8 +695,7 @@ int launch(const Args& a, cudaStream_t s) {
     smem_raised<HD, kBranch> = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.n_split, a.kv_heads * ((group + kRows - 1) / kRows),
-                     a.batch);
+  cfg.gridDim = grid_of(a);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes =
       Layout<HD>::bytes(stages_for<HD>(a.split_keys));

@@ -269,6 +269,17 @@ __global__ void __launch_bounds__(MmaCta<HD>::kThreads) prefill_mma_kernel(
 template <int HD>
 bool mma_smem_raised = false;
 
+// The bf16 kernel's grid: (query blocks of kWarps x floor(16 / group)
+// chunk rows, KV heads x 16-head slices, lanes) (kernels/introspect.py:
+// paged_prefill_grid).
+dim3 mma_grid(int bucket, int n_lanes, int q_heads, int kv_heads) {
+  const int group = q_heads / kv_heads;
+  const int slices = (group + kTileRows - 1) / kTileRows;
+  const int block_q = kWarps * (kTileRows / (group < kTileRows ? group
+                                                               : kTileRows));
+  return dim3((bucket + block_q - 1) / block_q, kv_heads * slices, n_lanes);
+}
+
 template <int HD>
 int launch_mma(const void* q, const void* k_pages, const void* v_pages,
                const Lanes& ln, void* out, int n_lanes, int q_heads,
@@ -282,12 +293,7 @@ int launch_mma(const void* q, const void* k_pages, const void* v_pages,
     if (err != cudaSuccess) return (int)err;
     mma_smem_raised<HD> = true;
   }
-  const int group = q_heads / kv_heads;
-  const int slices = (group + kTileRows - 1) / kTileRows;
-  const int block_q = kWarps * (kTileRows / (group < kTileRows ? group
-                                                               : kTileRows));
-  const dim3 grid((ln.bucket + block_q - 1) / block_q, kv_heads * slices,
-                  n_lanes);
+  const dim3 grid = mma_grid(ln.bucket, n_lanes, q_heads, kv_heads);
   kernel<<<grid, MmaCta<HD>::kThreads, MmaLayout<HD>::kBytes, s>>>(
       (const bf16*)q, (const bf16*)k_pages, (const bf16*)v_pages, ln,
       (bf16*)out, q_heads, kv_heads, num_pages, page_size, pages_per_seq,
@@ -370,17 +376,27 @@ bool f32_smem_raised = false;
 // 1 = bf16. q and out are [n_lanes * bucket, q_heads, head_dim]; lane i's
 // table starts at tables + i * table_stride. positions ([n_lanes * bucket])
 // and chunk_lens ([n_lanes]) are device arrays, or both null, and then
-// pos0 and valid_len (host ints) describe the one lane.
+// pos0 and valid_len (host ints) describe the one lane. grids (n_grids x 3
+// ints) is the wrapper's paged_prefill_grid; a grid that is not this
+// launch's is refused before anything launches.
 extern "C" int paged_prefill_launch(
     int dtype, int head_dim, const void* q, const void* k_pages,
     const void* v_pages, const void* tables, const void* positions,
     const void* chunk_lens, void* out, int n_lanes, int bucket, int q_heads,
     int kv_heads, int num_pages, int page_size, int pages_per_seq,
-    int table_stride, int pos0, int valid_len, float scale, void* stream) {
+    int table_stride, int pos0, int valid_len, float scale,
+    const int* grids, int n_grids, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int group = kv_heads > 0 ? q_heads / kv_heads : 0;
   if (group < 1 || group > kMaxRows || n_lanes < 1 || n_lanes > 65535 ||
       bucket < 1 || (positions == nullptr) != (chunk_lens == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // fp32: one CTA per (floor(32 / group) chunk rows, KV head, lane)
+  const int block_q = kMaxRows / group;   // group <= kMaxRows
+  const dim3 grid = dtype == 1 ? mma_grid(bucket, n_lanes, q_heads, kv_heads)
+                               : dim3((bucket + block_q - 1) / block_q,
+                                      kv_heads, n_lanes);
+  if (!grids_match(grids, n_grids, &grid, 1))
     return (int)cudaErrorInvalidValue;
   const Lanes ln{(const int*)tables, (const int*)positions,
                  (const int*)chunk_lens, table_stride, bucket, pos0,
@@ -393,8 +409,6 @@ extern "C" int paged_prefill_launch(
           num_pages, page_size, pages_per_seq, scale, s);
     });
   } else if (dtype == 0) {
-    const int block_q = kMaxRows / group;   // group <= kMaxRows
-    const dim3 grid((bucket + block_q - 1) / block_q, kv_heads, n_lanes);
     decode::dispatch_hd(head_dim, [&](auto hd) {
       constexpr int HD = decltype(hd)::value;
       const auto kernel = prefill_f32_kernel<HD>;

@@ -447,14 +447,22 @@ extern "C" int tree_shared_launch(
     const void* shared_lens, const void* lengths, void* part, int batch,
     int q_heads, int kv_heads, int num_pages,
     int page_size, int pages_per_seq, int num_groups, int split_keys,
-    int n_split, float scale, void* stream) {
-  const int group = q_heads / kv_heads;
+    int n_split, float scale, const int* grids, int n_grids, void* stream) {
+  const int group = kv_heads > 0 ? q_heads / kv_heads : 0;
   if (group < 1 || group > kMaxRows) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // bf16: (key split, KV head, group), groups slowest, so the real
+  // (low-numbered) groups start first; fp32: (KV head, group, slice of
+  // per_cta = kMaxRows / group member rows)
+  const int per_cta = kMaxRows / group;
+  const dim3 grid = dtype == 1
+                        ? dim3(n_split, kv_heads, num_groups)
+                        : dim3(kv_heads, num_groups,
+                               (batch + per_cta - 1) / per_cta);
+  if (!grids_match(grids, n_grids, &grid, 1))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     if (split_keys < 1 || n_split < 1) return (int)cudaErrorInvalidValue;
-    // groups slowest, so the real (low-numbered) groups start first
-    const dim3 grid(n_split, kv_heads, num_groups);
     using bf16 = __nv_bfloat16;
     int rc = (int)cudaErrorInvalidValue;
     decode::dispatch_hd(head_dim, [&](auto hd) {
@@ -474,8 +482,6 @@ extern "C" int tree_shared_launch(
     return rc;
   }
   if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
-  const int per_cta = kMaxRows / group;
-  const dim3 grid(kv_heads, num_groups, (batch + per_cta - 1) / per_cta);
   int rc = (int)cudaErrorInvalidValue;
   decode::dispatch_hd(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;
@@ -498,6 +504,9 @@ extern "C" int tree_shared_launch(
 // last every key from its start) before the row's own suffix. split_keys
 // and n_split are the bf16 kernel's own key splits over the suffix tables
 // (ref.py: decode_splits; fp32 takes the whole table as one split).
+// Both launchers take their wrapper's grids (n_grids x 3 ints:
+// paged_tree_shared_grid, paged_tree_branch_grid) and refuse a grid that
+// is not their launch's before anything launches.
 extern "C" int tree_branch_launch(
     int dtype, int head_dim, const void* q, const void* k_pages,
     const void* v_pages, const void* row_group, const void* shared_lens,
@@ -505,8 +514,9 @@ extern "C" int tree_branch_launch(
     void* out, int batch,
     int q_heads, int kv_heads, int num_pages, int page_size,
     int pages_per_seq, int num_groups, int shared_keys, int shared_n,
-    int split_keys, int n_split, float scale, void* stream) {
-  const int group = q_heads / kv_heads;
+    int split_keys, int n_split, float scale, const int* grids, int n_grids,
+    void* stream) {
+  const int group = kv_heads > 0 ? q_heads / kv_heads : 0;
   if (group < 1 || group > kMaxRows || shared_n < 1 || shared_keys < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -533,6 +543,9 @@ extern "C" int tree_branch_launch(
     a.split_keys = split_keys;
     a.n_split = n_split;
     a.scale = scale;
+    const dim3 grid = decode::grid_of(a);
+    if (!grids_match(grids, n_grids, &grid, 1))
+      return (int)cudaErrorInvalidValue;
     int rc = (int)cudaErrorInvalidValue;
     decode::dispatch_hd(head_dim, [&](auto hd) {
       rc = decode::launch<decltype(hd)::value, true>(a, s);
@@ -541,6 +554,8 @@ extern "C" int tree_branch_launch(
   }
   if (dtype != 0 || n_split != 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(batch, kv_heads);
+  if (!grids_match(grids, n_grids, &grid, 1))
+    return (int)cudaErrorInvalidValue;
   int rc = (int)cudaErrorInvalidValue;
   decode::dispatch_hd(head_dim, [&](auto hd) {
     constexpr int HD = decltype(hd)::value;

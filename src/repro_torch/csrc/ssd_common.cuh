@@ -3,6 +3,7 @@
 // the bf16 tensor-core tiles and the in-chunk cumulative sum of dt·a.
 #pragma once
 #include "hopper_ptx.cuh"
+#include "launch_check.cuh"
 
 namespace ssd {
 

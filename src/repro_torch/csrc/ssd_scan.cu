@@ -608,14 +608,17 @@ bool aligned16(const void* p) {
 // state before each chunk) is written where it is not null.
 // x [batch, seqlen, heads, p_dim]; dt [batch, seqlen, heads]; a [heads];
 // b, c [batch, seqlen, heads, n_dim]; states [batch, heads, p_dim, n_dim].
-// The grid is (ceil(p_dim / 16), heads, batch). The caller has checked
-// shapes, dtypes and contiguity.
+// The grid is (ceil(p_dim / 16), heads, batch); grids (n_grids x 3 ints)
+// is the wrapper's ssd_scan_grid, and a grid that is not this launch's is
+// refused before anything launches. The caller has checked shapes, dtypes
+// and contiguity.
 extern "C" int ssd_scan_launch(int dtype, const void* x, const void* dt,
                                const void* a, const void* b, const void* c,
                                const void* init_state, void* y,
                                void* final_state, void* chunk_states,
                                int batch, int seqlen,
                                int heads, int p_dim, int n_dim, int chunk,
+                               const int* grids, int n_grids,
                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (chunk < 1 || chunk > kMaxDim || p_dim < 1 || p_dim > kMaxDim ||
@@ -626,6 +629,8 @@ extern "C" int ssd_scan_launch(int dtype, const void* x, const void* dt,
          final_state, (float*)chunk_states, seqlen, heads, p_dim, n_dim,
          chunk, 0};
   const dim3 grid((p_dim + kSlice - 1) / kSlice, heads, batch);
+  if (!grids_match(grids, n_grids, &grid, 1))
+    return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
     g.vec = n_dim % 8 == 0 && p_dim % 8 == 0 && aligned16(x) &&
             aligned16(b) && aligned16(c);

@@ -12,8 +12,9 @@ that requires grad raises there. Training reaches the same kernels through
 the forward that also writes each row's log-sum-exp (fp32 [B, H, S],
 natural log of the scaled scores, 0 for rows at or past ``true_len``) for
 the backward kernel; without it the kernels write no LSE and their output
-is the same bits. ``launches`` counts the launches of either kernel made
-by either entry.
+is the same bits. ``flash_prefill_grid`` describes the launch as data
+(``introspect``); both launchers check its grid. ``launches`` counts the
+launches of either kernel made by either entry.
 """
 from __future__ import annotations
 
@@ -24,13 +25,19 @@ from typing import Optional, Tuple
 import torch
 
 from .. import build
+from .. import introspect as ix
 
 launches = 0
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
-    [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_int] * 7 + [ctypes.c_float] + ix.GRID_ARGTYPES + \
+    [ctypes.c_void_p]
 _SM90_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 5 + \
-    [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_int] * 8 + [ctypes.c_float] + ix.GRID_ARGTYPES + \
+    [ctypes.c_void_p]
+#: SMs of an H100 SXM, the count ``flash_prefill_grid`` assumes without a
+#: card
+H100_SMS = 132
 MAX_GROUP = 64          # query heads per KV head (one position's rows)
 MAX_ROWS = 128          # query rows (positions x GQA group) one CTA holds
 WG_ROWS = 64            # rows of one consumer warpgroup (and of fp32 CTAs)
@@ -57,6 +64,58 @@ def cta_rows(seqlen: int, group: int, kv_heads: int, batch: int,
         return WG_ROWS
     tiles = -(-seqlen // block_rows(group, MAX_ROWS))
     return MAX_ROWS if tiles * kv_heads * batch >= num_sms else WG_ROWS
+
+
+@functools.lru_cache(maxsize=256)
+def flash_prefill_grid(b: int, s: int, h: int, hd: int, hkv: int,
+                       dtype: torch.dtype = torch.float32,
+                       num_sms: int = H100_SMS,
+                       with_lse: bool = False) -> ix.Launches:
+    """The launch of ``flash_prefill`` as data (the reference's
+    ``flash_prefill_grid``, plus the dtype that picks the kernel, the
+    card's SM count that picks bf16's rows per CTA, ``cta_rows``, and
+    whether the LSE is an output). Grid (ceil(S / block_q), Hkv, B): CTA
+    (i, kh, b) holds positions i * block_q .. of KV head kh's query heads.
+    Scalars: ``true_len`` and ``causal`` (host ints). Its keys end at the
+    block's causal horizon (its last row below true_len, + 1) or at
+    true_len; bf16's TMA loads whole 64-key tiles, zero-filled past
+    true_len, fp32 stops at the horizon."""
+    group = h // hkv
+    bf16 = dtype == torch.bfloat16
+    bq = block_rows(group, cta_rows(s, group, hkv, b, dtype, num_sms, hd))
+
+    def block(cta):
+        i, kh, bi = cta
+        q0 = i * bq
+        return bi, kh, q0, min(bq, s - q0)
+
+    def rows(cta, *_):
+        bi, kh, q0, nq = block(cta)
+        return [((bi, bi + 1), (q0, q0 + nq), (kh * group, (kh + 1) * group),
+                 (0, hd))]
+
+    def keys(cta, true_len, causal):
+        bi, kh, q0, nq = block(cta)
+        last = min(q0 + nq, int(true_len))
+        end = 0 if last <= q0 else (last if causal else int(true_len))
+        if bf16:
+            end = min(ix.cdiv(end, ix.K5_KEYS) * ix.K5_KEYS, int(true_len))
+        return ([((bi, bi + 1), (0, end), (kh, kh + 1), (0, hd))]
+                if end > 0 else [])
+
+    ops = [ix.OperandAccess("q", (b, s, h, hd), rows),
+           ix.OperandAccess("k", (b, s, hkv, hd), keys),
+           ix.OperandAccess("v", (b, s, hkv, hd), keys),
+           ix.OperandAccess("out", (b, s, h, hd), rows)]
+    if with_lse:
+        def lse(cta, *_):
+            bi, kh, q0, nq = block(cta)
+            return [((bi, bi + 1), (kh * group, (kh + 1) * group),
+                     (q0, q0 + nq))]
+        ops.append(ix.OperandAccess("lse", (b, h, s), lse))
+    return ix.Launches((ix.LaunchGrid(
+        "flash_prefill", "bf16" if bf16 else "fp32",
+        (ix.cdiv(s, bq), hkv, b), tuple(ops), 2),))
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,22 +187,26 @@ def _forward(q, k, v, causal, true_len, with_lse):
     group = q_heads // kv_heads
     stream = build.stream(q)
     lse_ptr = lse.data_ptr() if lse is not None else None
+    num_sms = _num_sms(q.device)
+    grids = ix.grid_args(flash_prefill_grid(batch, seqlen, q_heads,
+                                            head_dim, kv_heads, q.dtype,
+                                            num_sms, with_lse))
     if q.dtype == torch.bfloat16:
-        rows = cta_rows(seqlen, group, kv_heads, batch, q.dtype,
-                        _num_sms(q.device), head_dim)
+        rows = cta_rows(seqlen, group, kv_heads, batch, q.dtype, num_sms,
+                        head_dim)
         fn = build.function("flash_prefill_sm90",
                             "flash_prefill_sm90_launch", _SM90_ARGTYPES)
         rc = fn(head_dim, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), lse_ptr, batch, seqlen, q_heads, kv_heads,
                 n, rows, block_rows(group, rows), int(causal),
-                1.0 / head_dim ** 0.5, stream)
+                1.0 / head_dim ** 0.5, *grids, stream)
     else:
         fn = build.function("flash_prefill", "flash_prefill_launch",
                             _ARGTYPES)
         rc = fn(head_dim, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), lse_ptr, batch, seqlen, q_heads, kv_heads,
                 n, block_rows(group), int(causal), 1.0 / head_dim ** 0.5,
-                stream)
+                *grids, stream)
     build.raise_on_error("flash_prefill", rc)
     launches += 1
     return out, lse

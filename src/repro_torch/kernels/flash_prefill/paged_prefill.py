@@ -5,23 +5,120 @@ The kernel is ``csrc/paged_prefill.cu``; it replaces the TPU kernel
 One launch takes every chunk lane of a mixed step
 (``paged_flash_prefill_lanes_fwd``), reading each lane's first position and
 valid length from device arrays; ``paged_flash_prefill_fwd`` is the one-lane
-case with host ints (the JAX signature). ``launches`` counts the launches
-both made.
+case with host ints (the JAX signature). ``paged_prefill_grid`` describes
+the launch as data (``introspect``); the launcher checks its grid.
+``launches`` counts the launches both made.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
 
 from .. import build
+from .. import introspect as ix
 
 launches = 0
 
 _ARGTYPES = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7 + \
-    [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_int] * 10 + [ctypes.c_float] + ix.GRID_ARGTYPES + \
+    [ctypes.c_void_p]
 MAX_GROUP = 32          # query heads per KV head the launcher takes
+
+
+def block_q(q_heads: int, kv_heads: int, dtype: torch.dtype) -> int:
+    """Chunk rows of one CTA: bf16, four m-tiles of floor(16 / group) rows
+    (at most 16 heads a slice; ``paged_prefill.cu:mma_grid``); fp32,
+    floor(32 / group) (``kMaxRows / group``)."""
+    group = q_heads // kv_heads
+    if dtype == torch.bfloat16:
+        return ix.WARPS * (ix.TILE_ROWS // min(group, ix.TILE_ROWS))
+    return ix.MAX_ROWS // group
+
+
+@functools.lru_cache(maxsize=256)
+def paged_prefill_grid(t: int, q_heads: int, head_dim: int, kv_heads: int,
+                       num_pages: int, page_size: int, pages_per_seq: int,
+                       dtype: torch.dtype = torch.float32,
+                       n_lanes: int = 1) -> ix.Launches:
+    """The launch of ``paged_flash_prefill_lanes_fwd`` (and of the
+    one-lane ``paged_flash_prefill_fwd``) as data: the reference's
+    ``paged_prefill_grid`` at a bucket of ``t`` rows, plus the dtype that
+    picks the kernel and the lanes of one launch. Grid (ceil(t /
+    block_q), kv x 16-head slices (fp32: kv), lanes). Scalars: the step's
+    tables [n_lanes * t, W] (lane i's is row i * t), positions [n_lanes *
+    t] (lane i's pos0 is entry i * t) and chunk_lens [n_lanes]. A q-block
+    reads pages up to its causal horizon (its last valid row's position
+    + 1, capped at the table's keys); a block past the lane's valid rows
+    writes zeros and (bf16) reads nothing more."""
+    group = q_heads // kv_heads
+    bf16 = dtype == torch.bfloat16
+    bq = block_q(q_heads, kv_heads, dtype)
+    slices = ix.cdiv(group, ix.TILE_ROWS) if bf16 else 1
+    cap = pages_per_seq * page_size
+    rows_all = n_lanes * t
+    hd = head_dim
+
+    def geometry(cta, tables, positions, chunk_lens):
+        x, y, li = cta
+        if bf16:
+            h, head0 = y // slices, (y % slices) * ix.TILE_ROWS
+            heads = min(min(group, ix.TILE_ROWS), group - head0)
+        else:
+            h, head0, heads = y, 0, group
+        q_start = x * bq
+        nq = min(bq, t - q_start)
+        row0 = li * t
+        pos0 = max(int(positions[row0]), 0)
+        valid = min(max(int(chunk_lens[li]), 0), t)
+        if bf16:
+            live = q_start < valid
+            horizon = (min(pos0 + min(q_start + bq, valid), cap)
+                       if live else 0)
+        else:
+            last = min(q_start + nq, valid)
+            live = True
+            horizon = min(pos0 + last, cap) if last > q_start else 0
+        return (h, h * group + head0, heads, q_start, nq, row0, valid,
+                live, horizon, tables[row0])
+
+    def q_ranges(cta, *s):
+        h, qh0, heads, q_start, nq, row0, valid, live, _, _ = \
+            geometry(cta, *s)
+        n = min(q_start + bq, valid) - q_start if bf16 else nq
+        return ix.rows_box(row0 + q_start, n, qh0, heads, hd) if live \
+            else []
+
+    def kv_ranges(cta, *s):
+        h, *_, horizon, table = geometry(cta, *s)
+        return ix.key_pages(h, table, 0, horizon, page_size, num_pages, hd)
+
+    def table_ranges(cta, *s):
+        *_, row0, _, _, horizon, _ = geometry(cta, *s)
+        return ix.entries(row0, 0, ix.cdiv(horizon, page_size))
+
+    def out_ranges(cta, *s):
+        _, qh0, heads, q_start, nq, row0, *_ = geometry(cta, *s)
+        return ix.rows_box(row0 + q_start, nq, qh0, heads, hd)
+
+    pool = (kv_heads, num_pages, page_size, hd)
+    lg = ix.LaunchGrid(
+        "paged_flash_prefill", "bf16" if bf16 else "fp32",
+        (ix.cdiv(t, bq), kv_heads * slices, n_lanes), (
+            ix.OperandAccess("q", (rows_all, q_heads, hd), q_ranges),
+            ix.OperandAccess("k_pages", pool, kv_ranges),
+            ix.OperandAccess("v_pages", pool, kv_ranges),
+            ix.OperandAccess("tables", (rows_all, pages_per_seq),
+                             table_ranges),
+            ix.OperandAccess("positions", (rows_all,),
+                             lambda c, *s: [((c[2] * t, c[2] * t + 1),)]),
+            ix.OperandAccess("chunk_lens", (n_lanes,),
+                             lambda c, *s: [((c[2], c[2] + 1),)]),
+            ix.OperandAccess("out", (rows_all, q_heads, hd), out_ranges)),
+        3, (("bucket", t), ("n_lanes", n_lanes)))
+    return ix.Launches((lg,))
 
 
 def _launch(q, k_pages, v_pages, tables, positions, chunk_lens, *,
@@ -33,14 +130,17 @@ def _launch(q, k_pages, v_pages, tables, positions, chunk_lens, *,
     out = torch.empty_like(q)
     if rows == 0:
         return out
+    width = tables.shape[-1]
+    grids = paged_prefill_grid(bucket, q_heads, head_dim, kv_heads,
+                               num_pages, page_size, width, q.dtype, n_lanes)
     fn = build.function("paged_prefill", "paged_prefill_launch", _ARGTYPES)
     rc = fn(build.dtype_code(q), head_dim, q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), tables.data_ptr(),
             positions.data_ptr() if positions is not None else None,
             chunk_lens.data_ptr() if chunk_lens is not None else None,
             out.data_ptr(), n_lanes, bucket, q_heads, kv_heads, num_pages,
-            page_size, tables.shape[-1], table_stride, pos0, valid_len,
-            1.0 / head_dim ** 0.5, build.stream(q))
+            page_size, width, table_stride, pos0, valid_len,
+            1.0 / head_dim ** 0.5, *ix.grid_args(grids), build.stream(q))
     build.raise_on_error("paged_prefill", rc)
     launches += 1
     return out

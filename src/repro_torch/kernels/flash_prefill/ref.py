@@ -42,6 +42,10 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf, vf = k.float(), v.float()
     block = s if s <= CHUNKED_THRESHOLD else Q_BLOCK
     pos = torch.arange(s, device=q.device)
+    if n < s:
+        # values at or past true_len never reach the sum, whatever bytes
+        # they hold (a zero weight times NaN is NaN), as in the kernels
+        vf = vf.masked_fill((pos >= n)[None, :, None, None], 0.0)
     out = torch.empty((b, s, hkv, h // hkv, hd), dtype=torch.float32,
                       device=q.device)
     for r0 in range(0, s, block):

@@ -9,21 +9,25 @@ each chunk, what the backward kernel reads (``ssd_scan_bwd.py``, whose
 ``SsdScanFn`` binds the two for autograd). ``ssd_scan`` is forward-only,
 as the TPU kernel is: an input that requires grad raises (the output would
 carry no gradient back); ``ops.ssd_with_state`` takes ``SsdScanFn`` there
-instead. ``launches`` counts the launches this wrapper made.
+instead. ``ssd_scan_grid`` describes the launch as data (``introspect``);
+the launcher checks its grid. ``launches`` counts the launches this
+wrapper made.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from .. import build
+from .. import introspect as ix
 
 launches = 0
 
 _ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
-    [ctypes.c_void_p]
+    ix.GRID_ARGTYPES + [ctypes.c_void_p]
 MAX_DIM = 128              # chunk, head_dim and state_dim the kernel takes
 MAX_SMEM = 232448          # shared memory a block may take on the H100
 SLICE = 16                 # columns of head_dim one CTA owns
@@ -33,6 +37,60 @@ def ctas_per_head(head_dim: int) -> int:
     """CTAs of one (row, head): its 16-column slices of P (the grid is
     (slice, head, row))."""
     return -(-head_dim // SLICE)
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_scan_grid(bs: int, s: int, h: int, p: int, n: int, chunk: int,
+                  dtype: torch.dtype = torch.float32,
+                  initial_state: bool = False,
+                  chunk_states: bool = False) -> ix.Launches:
+    """The launch of ``ssd_scan`` as data (the reference's
+    ``ssd_scan_grid``, plus the dtype that picks the kernel and whether an
+    initial state and the chunk states are operands). Grid (ceil(P / 16),
+    H, B) on both routes: CTA (j, hh, b) owns columns 16 j .. of P of
+    head hh of row b and walks every position (S need not be a multiple
+    of ``chunk``); it reads that head's dt, a, B and C rows whole. No
+    scalar operands."""
+    nc = n_chunks(s, chunk)
+
+    def cols(cta):
+        return cta[0] * SLICE, min((cta[0] + 1) * SLICE, p)
+
+    def seq(cta, *_):        # [B, S, H, P]: x and y
+        lo, hi = cols(cta)
+        return [((cta[2], cta[2] + 1), (0, s), (cta[1], cta[1] + 1),
+                 (lo, hi))]
+
+    def seq_n(cta, *_):      # [B, S, H, N]: B and C
+        return [((cta[2], cta[2] + 1), (0, s), (cta[1], cta[1] + 1),
+                 (0, n))]
+
+    def state(cta, *_):      # [B, H, P, N]
+        lo, hi = cols(cta)
+        return [((cta[2], cta[2] + 1), (cta[1], cta[1] + 1), (lo, hi),
+                 (0, n))]
+
+    ops = [ix.OperandAccess("x", (bs, s, h, p), seq),
+           ix.OperandAccess("dt", (bs, s, h),
+                            lambda c, *_: [((c[2], c[2] + 1), (0, s),
+                                            (c[1], c[1] + 1))]),
+           ix.OperandAccess("a", (h,), lambda c, *_: [((c[1], c[1] + 1),)]),
+           ix.OperandAccess("b", (bs, s, h, n), seq_n),
+           ix.OperandAccess("c", (bs, s, h, n), seq_n)]
+    if initial_state:
+        ops.append(ix.OperandAccess("initial_state", (bs, h, p, n), state))
+    ops += [ix.OperandAccess("y", (bs, s, h, p), seq),
+            ix.OperandAccess("final_state", (bs, h, p, n), state)]
+    if chunk_states:
+        def states(cta, *_):
+            lo, hi = cols(cta)
+            return [((cta[2], cta[2] + 1), (0, nc), (cta[1], cta[1] + 1),
+                     (lo, hi), (0, n))]
+        ops.append(ix.OperandAccess("chunk_states", (bs, nc, h, p, n),
+                                    states))
+    return ix.Launches((ix.LaunchGrid(
+        "ssd_scan", "bf16" if dtype == torch.bfloat16 else "fp32",
+        (ctas_per_head(p), h, bs), tuple(ops), 0, (("chunk", chunk),)),))
 
 
 def _round16(n: int) -> int:
@@ -146,13 +204,15 @@ def _forward(x, dt, a, b, c, chunk, initial_state, with_states):
         if with_states else None
     if bs == 0 or h == 0:
         return y, fin, states
+    grids = ssd_scan_grid(bs, s, h, p, n, chunk, x.dtype,
+                          initial_state is not None, with_states)
     fn = build.function("ssd_scan", "ssd_scan_launch", _ARGTYPES)
     rc = fn(build.dtype_code(x), x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             b.data_ptr(), c.data_ptr(),
             initial_state.data_ptr() if initial_state is not None else None,
             y.data_ptr(), fin.data_ptr(),
             states.data_ptr() if states is not None else None, bs, s, h, p,
-            n, chunk, build.stream(x))
+            n, chunk, *ix.grid_args(grids), build.stream(x))
     build.raise_on_error("ssd_scan", rc)
     launches += 1
     return y, fin, states

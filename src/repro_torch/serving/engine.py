@@ -387,6 +387,7 @@ class Engine:
         self._tree_on = (cfg.decode_kernel == "tree"
                          and mc.uses_attention)
         self.step_graphs: Dict[str, StepGraph] = {}
+        self._host_layouts: Dict[tuple, Tuple[Tuple[str, int, int], ...]] = {}
         self._graph_pool = None
         self._eager = False
         self._pending_prefills: List[ChunkedPrefillState] = []
@@ -947,20 +948,14 @@ class Engine:
                 if lane_buckets else "decode")
         if name not in self.step_graphs:
             cfg, mc = self.cfg, self.model.cfg
-            nS, n = cfg.max_slots, len(lane_buckets)
-            rows = nS + sum(lane_buckets)
+            n = len(lane_buckets)
             lane_state = None
             if mc.uses_ssm and n:
                 lane_state = tuple(
                     self.state[k].new_zeros(
                         (mc.num_layers, n) + self.state[k].shape[2:])
                     for k in ("conv", "ssd"))
-            inert = self._host_array(
-                np.zeros((rows,), np.int32), np.zeros((rows,), np.int32),
-                np.full((rows, cfg.max_pages_per_branch), cfg.num_pages,
-                        np.int32), np.zeros((rows,), np.int32),
-                lane_buckets, [0] * n, (), self._tree_map([None] * nS),
-                np.zeros((nS,), bool))
+            inert = self.inert_host_array(lane_buckets)
             if self.device.type == "cuda" and self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             self.step_graphs[name] = StepGraph(
@@ -968,6 +963,48 @@ class Engine:
                 inert, self.device, lane_state, self._graph_pool,
                 self._gen if cfg.sampling.temperature else None)
         return self.step_graphs[name]
+
+    def host_layout(self, lane_buckets: tuple = ()
+                    ) -> Tuple[Tuple[str, int, int], ...]:
+        """The fields of a variant's host array as (name, start, stop), in
+        order; the last one stops at the array's length. The one
+        description of the layout: ``_host_array`` packs by it,
+        ``_step_body`` slices by it, and stepcheck names the body's reads
+        by it."""
+        layout = self._host_layouts.get(lane_buckets)
+        if layout is None:
+            cfg = self.cfg
+            nS, w = cfg.max_slots, cfg.max_pages_per_branch
+            B = nS + sum(lane_buckets)
+            sizes = [("tokens", B), ("positions", B), ("write_page", B),
+                     ("write_slot", B), ("lengths", B),
+                     ("block_tables", B * w)]
+            if self._tree_on:
+                sizes += [("row_group", nS), ("shared_lens", nS),
+                          ("shared_bt", nS * w), ("branch_bt", nS * w)]
+            if self.model.cfg.uses_ssm:
+                sizes.append(("slot_valid", nS))
+            sizes += [("chunk_lens", len(lane_buckets)), ("cow_src", nS),
+                      ("cow_dst", nS)]
+            out, pos = [], 0
+            for name, size in sizes:
+                out.append((name, pos, pos + size))
+                pos += size
+            layout = self._host_layouts[lane_buckets] = tuple(out)
+        return layout
+
+    def inert_host_array(self, lane_buckets: tuple = ()) -> np.ndarray:
+        """The variant's host array as its graph's warm-up takes it: every
+        write to the spare page, empty tables, no lane."""
+        cfg = self.cfg
+        nS, n = cfg.max_slots, len(lane_buckets)
+        rows = nS + sum(lane_buckets)
+        return self._host_array(
+            np.zeros((rows,), np.int32), np.zeros((rows,), np.int32),
+            np.full((rows, cfg.max_pages_per_branch), cfg.num_pages,
+                    np.int32), np.zeros((rows,), np.int32),
+            lane_buckets, [0] * n, (), self._tree_map([None] * nS),
+            np.zeros((nS,), bool))
 
     def _host_array(self, tokens: np.ndarray, positions: np.ndarray,
                     block_tables: np.ndarray, lengths: np.ndarray,
@@ -978,7 +1015,8 @@ class Engine:
         every row's token, position, page and slot written, length + 1 and
         block table; the tree map's four (tree decode); the slot-validity
         mask (ssm/hybrid); the lanes' chunk lengths; the CoW pairs, padded
-        to ``max_slots``. ``_step_body`` slices it apart on the device."""
+        to ``max_slots``; packed in ``host_layout``'s order, which
+        ``_step_body`` slices it apart by on the device."""
         cfg, mc = self.cfg, self.model.cfg
         B, nS = tokens.shape[0], cfg.max_slots
         ps, w = cfg.page_size, cfg.max_pages_per_branch
@@ -996,17 +1034,29 @@ class Engine:
         # num_pages - 1, as the reference's gather clamps it, never the
         # spare page that the dropped writes (and a graph's warm-up) fill
         last = cfg.num_pages - 1
-        parts = [tokens, positions, page_of, positions % ps, lengths + 1,
-                 np.minimum(block_tables, last).reshape(-1)]
+        fields = {"tokens": tokens, "positions": positions,
+                  "write_page": page_of, "write_slot": positions % ps,
+                  "lengths": lengths + 1,
+                  "block_tables": np.minimum(block_tables, last).reshape(-1)}
         if self._tree_on:
             rg, sbt, sl, bbt = tree
-            parts += [rg, sl, np.minimum(sbt, last).reshape(-1),
-                      np.minimum(bbt, last).reshape(-1)]
+            fields.update(row_group=rg, shared_lens=sl,
+                          shared_bt=np.minimum(sbt, last).reshape(-1),
+                          branch_bt=np.minimum(bbt, last).reshape(-1))
         if mc.uses_ssm:
-            parts.append(slot_valid)
-        parts.append(np.asarray(chunk_lens, np.int32).reshape(-1))
-        return np.concatenate(parts + list(self._cow_arrays(cows))).astype(
+            fields["slot_valid"] = slot_valid
+        fields["chunk_lens"] = np.asarray(chunk_lens, np.int32).reshape(-1)
+        fields["cow_src"], fields["cow_dst"] = self._cow_arrays(cows)
+        layout = self.host_layout(tuple(lane_buckets))
+        if len(fields) != len(layout):
+            raise ValueError(f"host fields {sorted(fields)} do not match the "
+                             f"layout {[f for f, _, _ in layout]}")
+        out = np.concatenate([fields[f] for f, _, _ in layout]).astype(
             np.int32)
+        if out.shape[0] != layout[-1][2]:
+            raise ValueError(f"host array of {out.shape[0]} ints, layout "
+                             f"{layout[-1][2]}")
+        return out
 
     def _step(self, tokens: np.ndarray, positions: np.ndarray,
               block_tables: np.ndarray, lengths: np.ndarray,
@@ -1069,25 +1119,24 @@ class Engine:
         nS = cfg.max_slots
         B = nS + sum(lane_buckets)
         ps, w = cfg.page_size, cfg.max_pages_per_branch
-        tok_d, pos_d, page_d, slot_d, len_d = dev[:5 * B].view(5, B)
-        off = 5 * B + B * w
-        bt_d = dev[5 * B:off].view(B, w)
+        f = {name: dev[a:b] for name, a, b in self.host_layout(lane_buckets)}
+        tok_d, pos_d, page_d, slot_d, len_d = (
+            f["tokens"], f["positions"], f["write_page"], f["write_slot"],
+            f["lengths"])
+        bt_d = f["block_tables"].view(B, w)
         if self._tree_on:
-            rg_d, sl_d = dev[off:off + 2 * nS].view(2, nS)
-            sbt_d, bbt_d = dev[off + 2 * nS:off + 2 * nS + 2 * nS * w].view(
-                2, nS, w)
-            off += 2 * nS + 2 * nS * w
+            rg_d, sl_d = f["row_group"], f["shared_lens"]
+            sbt_d = f["shared_bt"].view(nS, w)
+            bbt_d = f["branch_bt"].view(nS, w)
         if mc.uses_ssm:
-            valid_d = dev[off:off + nS].bool()
-            off += nS
+            valid_d = f["slot_valid"].bool()
         n_lanes = len(lane_buckets)
-        lens_d = dev[off:off + n_lanes]
-        off += n_lanes
+        lens_d = f["chunk_lens"]
         if mc.uses_attention:
             kp_all, vp_all = self.state["k_pages"], self.state["v_pages"]
             # CoW before any write (in place on the pools)
-            src = dev[off:off + nS].long()
-            dst = dev[off + nS:off + 2 * nS].long()
+            src = f["cow_src"].long()
+            dst = f["cow_dst"].long()
             kp_all[:, :, dst] = kp_all[:, :, src]
             vp_all[:, :, dst] = vp_all[:, :, src]
             page_i, slot_i = page_d.long(), slot_d.long()

@@ -69,7 +69,52 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.distributed.sharding",
             "repro_torch.distributed.local", "repro_torch.launch.mesh",
             "repro_torch.launch.shapes", "repro_torch.launch.steps",
-            "repro_torch.launch.dryrun"} <= names
+            "repro_torch.launch.dryrun", "repro_torch.kernels.introspect",
+            "repro_torch.stepcheck", "repro_torch.stepcheck.__main__",
+            "repro_torch.stepcheck.bounds", "repro_torch.stepcheck.calls",
+            "repro_torch.stepcheck.dispatch_rules",
+            "repro_torch.stepcheck.findings",
+            "repro_torch.stepcheck.harness",
+            "repro_torch.stepcheck.manifest", "repro_torch.stepcheck.rules",
+            "repro_torch.stepcheck.runner",
+            "repro_torch.stepcheck.tracing"} <= names
+
+
+_EXAMPLES_PROBE = """
+import importlib.util, sys
+from pathlib import Path
+for banned in ("jax", "repro", "tools"):
+    sys.modules[banned] = None     # any import of them now fails
+for path in sorted(Path(sys.argv[1]).glob("torch_*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)   # imports only: main() is not called
+    assert callable(mod.main), path
+    print(path.stem)
+bad = [m for m in sys.modules if sys.modules[m] is not None and
+       m.split(".")[0] in ("jax", "repro", "tools")]
+assert not bad, bad
+"""
+
+
+def test_examples_import_without_jax_repro_or_tools():
+    """The five ``examples/torch_*.py`` import in a fresh process where
+    jax, the JAX package and ``tools`` cannot be imported, and none of
+    their import lines names them."""
+    examples = SRC.parent / "examples"
+    res = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE,
+                          str(examples)], cwd=SRC, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == sorted(
+        p.stem for p in examples.glob("torch_*.py"))
+    assert len(res.stdout.split()) == 5
+    for path in examples.glob("torch_*.py"):
+        for line in path.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1].split(".")[0]
+                assert mod not in ("jax", "repro", "tools"), f"{path}: {s}"
 
 
 

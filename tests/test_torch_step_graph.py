@@ -41,6 +41,7 @@ from repro_torch.models import Model, ModelConfig, params_from_numpy
 from repro_torch.serving import Engine, EngineConfig, SamplingParams
 from repro_torch.serving.sampling import sample
 from repro_torch.serving.step_graph import launch_counts
+from repro_torch.stepcheck.tracing import fake_inputs, is_host_read
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 TOL_PALLAS = dict(atol=2e-4, rtol=0)
@@ -131,8 +132,13 @@ def test_host_array_has_one_length_per_variant(kind, lane_buckets, n_cows):
     host = _host(eng, lane_buckets, cows)
     assert host.dtype == np.int32
     assert host.shape == (_layout_len(eng, lane_buckets),)
+    fields = {name: slice(a, b)
+              for name, a, b in eng.host_layout(lane_buckets)}
+    assert eng.host_layout(lane_buckets)[-1][2] == host.shape[0]
     nS, sentinel = eng.cfg.max_slots, eng.cfg.num_pages
     src, dst = host[-2 * nS:-nS], host[-nS:]
+    assert (src == host[fields["cow_src"]]).all()
+    assert (dst == host[fields["cow_dst"]]).all()
     assert src[:n_cows].tolist() == [c[0] for c in cows]
     assert dst[:n_cows].tolist() == [c[1] for c in cows]
     assert (src[n_cows:] == sentinel).all()
@@ -279,14 +285,11 @@ def test_shared_splits_follow_the_table_not_the_span(width):
 
 class _NoHostReads(TorchDispatchMode):
     """Raises on the ops that read a tensor's value on the host or give a
-    shape that depends on values."""
-
-    BANNED = ("_local_scalar_dense", "nonzero", "item", "masked_select",
-              "unique", "_assert_async")
+    shape that depends on values: stepcheck's STEP004 list
+    (``repro_torch.stepcheck.tracing.is_host_read``)."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.__name__.split(".")[0]
-        if name in self.BANNED:
+        if is_host_read(str(func)):
             raise AssertionError(f"host read in the step body: {func}")
         return func(*args, **(kwargs or {}))
 
@@ -305,17 +308,16 @@ def test_step_body_runs_on_fake_tensors(kind):
     state = {k: v.clone() for k, v in eng.state.items()}
     nS, V = eng.cfg.max_slots, eng.model.cfg.vocab_size
     for lane_buckets in _variants(eng):
-        graph = eng._step_graph(lane_buckets)
-        with FakeTensorMode(allow_non_fake_inputs=True) as mode:
-            dev = mode.from_tensor(graph.dev)
-            lane = (None if graph.lane_state is None else
-                    tuple(mode.from_tensor(t) for t in graph.lane_state))
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        dev, lane = fake_inputs(eng, lane_buckets, mode)   # stepcheck's
+        with mode:
             out = eng._step_body(dev, lane, lane_buckets)
         rows = nS + sum(lane_buckets)
+        assert tuple(dev.shape) == (eng.host_layout(lane_buckets)[-1][2],)
         assert tuple(out[0].shape) == (rows,)
         assert tuple(out[1].shape) == (nS, eng.model.cfg.d_model)
         assert tuple(out[2].shape) == (rows, V)
-        assert len(out) == (5 if graph.lane_state is not None else 3)
+        assert len(out) == (5 if lane is not None else 3)
     for k, v in eng.state.items():
         assert torch.equal(v, state[k])
 
