@@ -15,10 +15,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                and the tensor-core instructions in the SASS per kernel;
                the bf16 kernels of K2 and K4 must hold HMMA and spill
                nothing; one line sums up the registers and spill bytes
-               of the fourteen head_dim-256 instantiations of K1, K2, K3,
-               K5 and K5's backward, others those of every
+               of the sixteen head_dim-256 instantiations of K1, K2, K3,
+               K5 and K5's backward (its D pass two), others those of every
                instantiation of K5's and of K4's backward, whose bf16
-               kernels must hold HMMA);
+               kernels must hold HGMMA (K5's, wgmma) or HMMA (K4's) and
+               none of which may spill);
   3. kernels — K1 (paged flash-decode; bf16 on the split-key mma.sync
                decode core), K2 (paged flash-prefill), both
                passes of K3 (tree decode; the shared pass's split partials
@@ -67,7 +68,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                at the serve's 32-page tables), both passes also timed at
                the 8 splits a host span of 256 tokens gave before;
                K5's backward (``flash_prefill_bwd.cu``; bf16 on
-               mma.sync, fp32 on the CUDA cores) against its plain
+               wgmma, fp32 on the CUDA cores) against its plain
                version from the kernel's own output and LSE, at
                r1-distill-14b (B=2, S=2048), qwen2-0.5b (group 7,
                S=1000), gemma-7b (head_dim 256) and the tiny reasoner
@@ -77,7 +78,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                bit-equal over two runs, the forward with its LSE output
                bit-equal to the forward without and its LSE against
                the plain one; timed at phase 14's shapes beside the
-               backward of one SDPA call; K4's backward
+               backward of one SDPA call, with each launch's device
+               time (D pass, dK/dV, dQ; ``launch_split_ms``); K4's
+               backward
                (``ssd_scan_bwd.cu``; bf16 on mma.sync, fp32 on the CUDA
                cores) against its plain version from the forward's own
                chunk states, at mamba2-130m's training shape (B=2,
@@ -87,7 +90,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                magnitude within ``BWD_TOL``, bit-repeatable, the forward
                with its chunk states bit-equal to the forward without;
                timed at mamba2-130m's training shape beside the plain
-               version and the bound from its bytes; the fused AdamW
+               version and the bound from its bytes, with each launch's
+               device time; the fused AdamW
                update (``adamw.cu``, one launch a leaf; not a TPU
                kernel) against the plain loop body, three updates
                (clipped, unclipped, clipped) on mamba2-130m's full tree
@@ -285,9 +289,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                backwards and AdamW run on the DTensors' local shards.
  16. verifiers — the launch-grid check and STEP007 on the card, after
                phase 15 (``[verifiers]`` lines). Each serve-path
-               launcher (K1, K2, both K3 passes, K4 and K5, bf16 and
-               fp32: 12) is called once through its wrapper with its
-               grid function's grid off by one in x, and must raise
+               launcher (K1, K2, both K3 passes, K4 and K5) and the
+               launchers of K5's and K4's backward, bf16 and fp32 (16
+               calls), is called once through its wrapper with its
+               grid function's first grid off by one in x, and must raise
                (the launcher refuses it before launching; the wrapper
                counts no launch). Then every STEP007 lattice case
                (``repro_torch.stepcheck.bounds.engine_lattice``, both
@@ -356,10 +361,12 @@ TOL = {"bf16": 2e-2, "fp32": 1e-5}      # atol = rtol, per working dtype
 # the bf16 tensor-core kernels of K2 and K4 (phase 2: HMMA, no spills)
 TENSOR_K2_K4 = {"paged_prefill": "prefill_mma_kernel",
                 "ssd_scan": "ssd_mma_kernel"}
-# the bf16 kernels of K5's and K4's backward (phase 2: HMMA; registers and
-# spills printed per instantiation)
-TENSOR_BWD = {"flash_prefill_bwd": ("dkdv_mma_kernel", "dq_mma_kernel"),
-              "ssd_scan_bwd": ("dstate_mma_kernel", "chunk_grad_mma_kernel")}
+# the bf16 kernels of K5's backward (phase 2: HGMMA, wgmma) and K4's
+# (HMMA, mma.sync); registers and spills printed per instantiation, none
+# may spill
+TENSOR_BWD = {"flash_prefill_bwd": ("dkdv_wgmma_kernel", "dq_wgmma_kernel"),
+              "ssd_scan_bwd": ("dstate_chain_kernel",
+                               "chunk_grad_mma_kernel")}
 # name fragments of the port's CUDA kernels (K1-K5), for the profile
 PORT_KERNELS = ("decode_mma_kernel", "paged_decode_kernel",
                 "prefill_mma_kernel", "prefill_f32_kernel",
@@ -582,6 +589,33 @@ def kernel_ms(torch, fn) -> dict:
             "host_us": host_us(torch, fn)}
 
 
+def launch_split_ms(torch, fn, kernels: dict, n: int = 20) -> dict:
+    """Device ms of each launch of one wrapper call: ``fn`` run ``n``
+    times, each behind a 64 MiB L2 flush and a ~0.3 ms spin (the launches
+    queued, as ``queued_ms``), under torch.profiler (device activity
+    only); each kernel's device time summed by name fragment
+    (``kernels``: label -> fragment) and divided by ``n``."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(16 * 2 ** 20, dtype=torch.float32, device=DEVICE)
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            torch.cuda._sleep(500_000)
+            fn()
+        torch.cuda.synchronize()
+    out = {label: 0.0 for label in kernels}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for label, frag in kernels.items():
+            if frag in e.key:
+                out[label] += e.self_device_time_total / 1e3 / n
+    return out
+
+
 def bound(bytes_moved: float, ops: float, dtype_name: str):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
@@ -663,15 +697,18 @@ def phase_build():
           "(registers, spill stores + loads in bytes): " + json.dumps(fused))
     check(all(row.get("spill_bytes", 0) == 0 for row in fused.values()),
           f"the AdamW kernel spills: {fused}")
+    for name, rows in bwd.items():
+        check(all(row.get("spill_bytes", 0) == 0 for row in rows.values()),
+              f"a kernel of {name} spills: {rows}")
     if len(build.build_log) == len(build.SOURCES):   # all built here
-        check(len(wide) == 14, f"expected 14 head_dim-{WIDE} kernels, "
+        check(len(wide) == 16, f"expected 16 head_dim-{WIDE} kernels, "
                                f"found {sorted(wide)}")
     check(all(n == 0 for n in spills.values()),
           f"a bf16 kernel of K2 or K4 spills: {spills}")
     # the tensor-core instructions in the built code: warpgroup MMAs
-    # (HGMMA, wgmma) in K5's bf16 kernel, warp MMAs (HMMA, mma.sync) in
-    # the bf16 decode core (K1; K3's branch pass), K3's shared pass and the
-    # bf16 kernels of K2 and K4 and of K5's and K4's backward
+    # (HGMMA, wgmma) in K5's bf16 kernel and its backward's, warp MMAs
+    # (HMMA, mma.sync) in the bf16 decode core (K1; K3's branch pass), K3's
+    # shared pass and the bf16 kernels of K2 and K4 and of K4's backward
     dump = Path(build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         print("[build] no cuobjdump beside nvcc: SASS not counted")
@@ -681,7 +718,7 @@ def phase_build():
                      ("paged_tree_decode", "HMMA"),
                      ("paged_prefill", "HMMA"),
                      ("ssd_scan", "HMMA"),
-                     ("flash_prefill_bwd", "HMMA"),
+                     ("flash_prefill_bwd", "HGMMA"),
                      ("ssd_scan_bwd", "HMMA")):
         sass = subprocess.run(
             [str(dump), "-sass", str(build.build_dir() / f"lib{name}.so")],
@@ -1637,6 +1674,15 @@ TRAIN_SEQLEN = 2048
 BWD_TIMED = ((2, TRAIN_SEQLEN, 40, 8, 128), (1, TRAIN_SEQLEN, 16, 16, 256))
 
 
+# the launches of one bf16 call of each backward, by kernel-name fragment
+# (phase 3's per-launch split)
+K5_BWD_LAUNCHES = {"D pass": "bwd_dot_kernel", "dK/dV": "dkdv_",
+                   "dQ": "dq_"}
+K4_BWD_LAUNCHES = {"chain": "dstate_chain_kernel",
+                   "chunk_grad": "chunk_grad_mma_kernel",
+                   "da_reduce": "da_reduce_kernel"}
+
+
 def flash_bwd_bytes(b: int, s: int, h: int, kv: int, hd: int,
                     itemsize: int) -> int:
     """Bytes K5's backward must move: q, k, v, out and dout read once,
@@ -1738,6 +1784,8 @@ def phase_flash_bwd_kernels(torch):
                 q, k, v, out, lse, do), n=3, warmup=1),
             "library_ms": time_ms(torch, lambda: torch.autograd.grad(
                 o_lib, (qt, kt, vt), do_t, retain_graph=True)),
+            "split_ms": launch_split_ms(torch, lambda: flash_prefill_bwd(
+                q, k, v, out, lse, do), K5_BWD_LAUNCHES),
             "bytes": flash_bwd_bytes(b, s, h, kv, hd, 2),
             # five products against the forward's two
             "ops": 2.5 * b * flash_flops(s, h, hd, True),
@@ -1753,15 +1801,17 @@ def phase_flash_bwd_kernels(torch):
 # K4 backward's check shapes (name, B, S, H, P, N, chunk, initial state,
 # masked dt): mamba2-130m at phase 14's training shape, hymba-1.5b's
 # widths (50 heads, N 16), S a multiple of no chunk, masked dt (each row
-# valid up to its own length), an initial state, and the smoke widths
-# phase 4 trains (P 32, N 16, chunk 16)
+# valid up to its own length), an initial state, the smoke widths phase 4
+# trains (P 32, N 16, chunk 16), and widths no 16-byte copy takes (P 24,
+# N 12: staged element by element)
 SSD_BWD_SHAPES = (
     ("mamba2 train", 2, TRAIN_SEQLEN, 24, 64, 128, 128, False, False),
     ("hymba widths", 1, TRAIN_SEQLEN, 50, 64, 16, 128, False, False),
     ("non-divisible S", 2, 1000, 24, 64, 128, 128, False, False),
     ("masked dt", 2, 300, 24, 64, 128, 128, False, True),
     ("initial state", 1, 517, 8, 64, 128, 128, True, False),
-    ("smoke widths", 4, 64, 16, 32, 16, 16, True, True))
+    ("smoke widths", 4, 64, 16, 32, 16, 16, True, True),
+    ("odd widths", 2, 100, 4, 24, 12, 16, True, True))
 
 
 def ssd_bwd_flops(seqlen: int, heads: int, head_dim: int, state_dim: int,
@@ -1899,6 +1949,8 @@ def phase_ssd_bwd_kernels(torch):
         "forward_with_states_ms": time_ms(torch, lambda: ssd_scan_states(
             x, dt, a, bb, cc, chunk=q), head_start=True),
         "library_ms": None,
+        "split_ms": launch_split_ms(torch, lambda: ssd_scan_bwd(
+            x, dt, a, bb, cc, states, dy, chunk=q), K4_BWD_LAUNCHES),
         "bytes": ssd_bwd_bytes(b, s, h, p, n, q, 2),
         "ops": b * ssd_bwd_flops(s, h, p, n, q),
         "ctas": -(-s // q) * h * b,
@@ -3809,7 +3861,7 @@ def _train_eager_vs_graph(torch, tag: str, arch: str, num_layers: int, *,
 
 
 # device kernels of a train step by kind, from name fragments
-TRAIN_KINDS = (("K5 backward", ("dkdv_", "dq_mma_kernel", "dq_f32_kernel",
+TRAIN_KINDS = (("K5 backward", ("dkdv_", "dq_wgmma_kernel", "dq_f32_kernel",
                                 "bwd_dot_kernel")),
                ("K5 forward", ("flash_prefill",)),
                ("K4 backward", ("dstate_", "state_pass_kernel",
@@ -3861,6 +3913,8 @@ def _train_breakdown(torch, tag: str, model, step, batch: int,
     adamw_launches = sum(e.count for e in device if "adamw_kernel" in e.key)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
     out = {"replay_ms": replay_s * 1e3, "adamw_ms": kinds["AdamW"],
+           "k5_bwd_ms": kinds["K5 backward"],
+           "k4_bwd_ms": kinds["K4 backward"],
            "adamw_launches": adamw_launches, "leaves": leaves,
            "traced_step_ms": wall * 1e3,
            "device_ms": sum(kinds.values()),
@@ -4366,18 +4420,21 @@ def grid_lookup_us(torch, n: int = 100_000) -> dict:
 
 
 def _verifier_refusals(torch) -> int:
-    """Each serve-path launcher, both routes, called once through its
-    wrapper with its grid function's first grid off by one in x: the
-    launcher must refuse it (RuntimeError from ``build.raise_on_error``)
-    and the wrapper must count no launch. Returns the refusals."""
+    """Each serve-path launcher and the two backwards' launchers, both
+    routes, called once through its wrapper with its grid function's first
+    grid off by one in x: the launcher must refuse it (RuntimeError from
+    ``build.raise_on_error``) and the wrapper must count no launch. Returns
+    the refusals."""
     import dataclasses
     from repro_torch.kernels import introspect as ix
     from repro_torch.kernels.flash_prefill import flash_prefill as k5
+    from repro_torch.kernels.flash_prefill import flash_prefill_bwd as k5b
     from repro_torch.kernels.flash_prefill import paged_prefill as k2
     from repro_torch.kernels.launches import launch_counts
     from repro_torch.kernels.paged_attention import paged_attention as k1
     from repro_torch.kernels.paged_attention import tree_decode as k3
     from repro_torch.kernels.ssd_scan import ssd_scan as k4
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd as k4b
     dev = torch.device(DEVICE)
     gen = torch.Generator(dev).manual_seed(16)
 
@@ -4421,6 +4478,19 @@ def _verifier_refusals(torch) -> int:
             (k5, "flash_prefill_grid",
              lambda: k5.flash_prefill(f(1, 100, 8, 128), f(1, 100, 2, 128),
                                       f(1, 100, 2, 128))),
+        ]
+        q5, k5_, v5 = f(1, 100, 8, 128), f(1, 100, 2, 128), f(1, 100, 2, 128)
+        o5, lse5 = k5.flash_prefill_lse(q5, k5_, v5)
+        x4, dt4, a4 = f(2, 16, 2, 64), torch.rand(2, 16, 2, device=dev), \
+            -torch.rand(2, device=dev)
+        b4, c4 = f(2, 16, 2, 16), f(2, 16, 2, 16)
+        st4 = k4.ssd_scan_states(x4, dt4, a4, b4, c4, chunk=8)[2]
+        calls += [
+            (k5b, "flash_prefill_bwd_grid",
+             lambda: k5b.flash_prefill_bwd(q5, k5_, v5, o5, lse5, o5)),
+            (k4b, "ssd_scan_bwd_grid",
+             lambda: k4b.ssd_scan_bwd(x4, dt4, a4, b4, c4, st4, x4,
+                                      chunk=8)),
         ]
         for mod, name, call in calls:
             call()                      # the true grid launches
@@ -4563,7 +4633,8 @@ def phase_verifiers(torch) -> dict:
     guards and the examples, on the card."""
     t0 = time.perf_counter()
     refused = _verifier_refusals(torch)
-    check(refused == 12, f"{refused} of 12 launchers refused a wrong grid")
+    check(refused == 16, f"{refused} of 16 launcher calls refused a wrong "
+                         f"grid")
     t1 = time.perf_counter()
     lattice = _verifier_lattice(torch)
     t2 = time.perf_counter()
@@ -4806,7 +4877,7 @@ def main() -> int:
         "autodiff of _attend, the gradient of "
         "src/repro/kernels/flash_prefill/flash_prefill.py:144)",
         f"max error / max |plain gradient| <= {BWD_TOL['bf16']} bf16 "
-        f"(mma.sync; P and dS rounded to bf16), {BWD_TOL['fp32']} fp32 "
+        f"(wgmma; P and dS rounded to bf16), {BWD_TOL['fp32']} fp32 "
         f"(CUDA cores); bit-repeatable; the forward with its LSE "
         f"bit-equal to the forward without",
         "torch.autograd.grad of scaled_dot_product_attention(is_causal="

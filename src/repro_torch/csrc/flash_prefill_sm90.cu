@@ -58,6 +58,7 @@
 //     call) leaves the output's bits as they were.
 #include <cuda.h>
 
+#include "flash_sm90.cuh"
 #include "hopper_ptx.cuh"
 #include "launch_check.cuh"
 
@@ -70,19 +71,6 @@ constexpr int kWgRows = 64;         // query rows per consumer warpgroup
 constexpr float kNegInf = -1e30f;   // the TPU kernel's NEG_INF
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxSmem = 232448;    // what a block may take on the H100
-
-// Shared-memory tiling of one head_dim: rows of kBlk bf16 values (one
-// swizzle span), head_dim / kBlk column parts stored one after the other.
-template <int HD>
-struct Geo {
-  static constexpr int kBlk = HD < 64 ? HD : 64;
-  static constexpr int kRowBytes = kBlk * 2;              // 64 or 128
-  static constexpr int kParts = HD / kBlk;                // 1 or 2
-  static constexpr int kSwizzle = kRowBytes == 128 ? 1 : 2;
-  static constexpr int kSbo = 8 * kRowBytes;              // 8-row group
-  static constexpr int kKvPart = kKeys * kRowBytes;       // one tile part
-  static constexpr int kKvBytes = kKeys * HD * 2;         // one K or V tile
-};
 
 template <int HD, int NWG, int STAGES>
 struct Smem {
@@ -107,8 +95,7 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_prefill_wgmma(
   using L = Smem<HD, NWG, STAGES>;
   extern __shared__ uint8_t smem_raw[];
   // swizzled tiles want 1024-byte alignment
-  uint8_t* smem = smem_raw + ((1024 - (ptx::smem_addr(smem_raw) & 1023)) &
-                              1023);
+  uint8_t* smem = align_1024(smem_raw);
   uint8_t* sq = smem + L::q_off;
   uint8_t* sk = smem + L::k_off;
   uint8_t* sv = smem + L::v_off;
@@ -360,58 +347,6 @@ __global__ void __launch_bounds__(NWG * 128 + 32, 1) flash_prefill_wgmma(
 }
 
 // ------------------------------------------------------------------ host
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime so
-// that the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A bf16 [batch, len (of seqlen rows), heads, head_dim] view as a 4-D
-// tensor map with boxes of box_heads x box_rows rows of kBlk values.
-template <int HD>
-bool make_map(CUtensorMap* map, const void* base, int batch, int seqlen,
-              int len, int heads, int box_heads, int box_rows) {
-  using G = Geo<HD>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
-                              (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
-                                 (cuuint64_t)heads * HD * 2,
-                                 (cuuint64_t)seqlen * heads * HD * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)G::kBlk, (cuuint32_t)box_heads,
-                             (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                G::kSwizzle == 1 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HD, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out,

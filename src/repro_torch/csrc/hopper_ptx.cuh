@@ -1,5 +1,6 @@
 // Inline PTX for the Hopper (sm_90a) tensor-core kernels of the port:
-// mbarriers, TMA tile loads and wgmma (flash_prefill_sm90.cu), the
+// mbarriers, TMA tile and bulk loads and wgmma (flash_prefill_sm90.cu,
+// flash_prefill_bwd.cu), the
 // warp-level mma.sync / ldmatrix / cp.async tiles and the cluster barrier
 // and distributed shared memory reads (paged_decode_mma.cuh,
 // paged_tree_decode.cu).
@@ -79,6 +80,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+// One contiguous copy of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from device memory into shared memory, counted in bytes
+// on `bar` as a TMA tile load is.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -137,6 +150,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B K-major in shared
+// memory (descriptors); accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t da,
+                                                   uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -219,6 +250,32 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float* d,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x N] (+)= A B with A and B K-major in shared memory, N = 64 or 32.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 32, "wgmma_ss takes N = 64 or 32");
+  if constexpr (N == 64)
+    wgmma_m64n64k16_ss(d, da, db, accumulate);
+  else
+    wgmma_m64n32k16_ss(d, da, db, accumulate);
+}
+
+// D[64 x N] += A B with A in registers and B MN-major in shared memory,
+// N = 128, 64 or 32.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a,
+                                            uint64_t db) {
+  static_assert(N == 128 || N == 64 || N == 32,
+                "wgmma_rs_tb takes N = 128, 64 or 32");
+  if constexpr (N == 128)
+    wgmma_m64n128k16_rs_tb(d, a, db);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16_rs_tb(d, a, db);
+  else
+    wgmma_m64n32k16_rs_tb(d, a, db);
 }
 
 // ----------------------------------------------------- warp-level tiles

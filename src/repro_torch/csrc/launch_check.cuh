@@ -1,5 +1,6 @@
 // The grid check of every serve-path launcher (K1, K2, K3's two passes, K4,
-// K5). A wrapper computes the grids of its launches from the shapes alone
+// K5) and of K5's and K4's backward. A wrapper computes the grids of its
+// launches from the shapes alone
 // (repro_torch/kernels/introspect.py: the LaunchGrid that STEP007 of
 // `python -m repro_torch.stepcheck` proves in bounds on the CPU) and passes
 // them as n_grids x 3 ints (x, y, z per launch, in launch order). The

@@ -28,16 +28,23 @@
 // Masked positions arrive with dt = 0; the partial last chunk's missing
 // rows count as zeros, as in the forward.
 //
-// Four kernels, launched in order on one stream by one call:
-//   (a) dstate: per (chunk, head, row), U = Σ_i exp(cs_i) dy_i C_iᵀ
-//       [P, N] into a workspace, and the chunk's cs_last;
-//   (b) state_pass: the reverse recurrence over chunks, elementwise over
-//       [P, N] and parallel over (row, head): each chunk's U is replaced
-//       by its dS_end, and d(initial state) is what reaches chunk 0;
+// The kernels, launched in order on one stream by one call. bf16 (three
+// launches):
+//   (a+b) dstate_chain: per (32 columns of P, head, row), the chunks from
+//       the last to the first: each chunk's state gradient U = Σ_i
+//       exp(cs_i) dy_i C_iᵀ [32, N] on mma.sync, the reverse recurrence
+//       carried in registers (dS_end of a chunk is the carry as it
+//       arrives; carry = exp(cs_last) carry + U), each chunk's dS_end
+//       written once to the workspace; d(initial state) is what reaches
+//       chunk 0. The next chunk's dY slice and C land (16-byte cp.async)
+//       while this one computes;
 //   (c) chunk_grad: per (chunk, head, row), every other gradient of the
 //       chunk from its inputs, S_prev and dS_end. One CTA owns all of P
 //       and N, so the sums over P (dB, dC, d dt) stay inside it;
 //   (d) da_reduce: da per head over (row, chunk) partials in a fixed order.
+// fp32 (four launches, the CUDA-core route): (a) dstate per (chunk, head,
+// row) into the workspace, (b) state_pass, the reverse recurrence
+// elementwise over [P, N] and parallel over (row, head), then (c) and (d).
 // No atomics: every sum is taken in a fixed order, and the gradients are
 // the same bits from run to run.
 //
@@ -53,20 +60,30 @@
 // (B=2, S=2048, 24 heads of P=64, N=128, chunk 128) it reads x, b, c, dY
 // and the fp32 chunk states and writes dx, db and dc: ~165 MB, 0.05 ms at
 // 3.35 TB/s, against ~13 GFLOP of products (0.013 ms at the bf16 peak).
-// A simple first design: (c) stages the whole chunk in shared memory
-// (~218 KB at those widths: one CTA per SM) and runs its [Q, Q] and
-// [Q, P or N] products one 16 x 16 tile per warp at a time; (a) and (c)
-// have 768 CTAs at that shape, where the forward is a chain of 16 chunks.
-//
-// Measured (chip_smoke.py phase 3, bf16, at that shape, device time with
-// the launches queued; NVIDIA H100 80GB HBM3, 700.00 W): 0.575 ms, 11.7x
-// the bound (PERF.md section 6).
+// The kernels also write and read back the fp32 dS_end workspace (25 MB
+// each way). The design against latency, at that shape:
+//   * (c) stages the whole chunk in shared memory (~218 KB: one CTA of
+//     sixteen warps per SM, 768 CTAs) with every copy in flight at once:
+//     16-byte cp.async for C and B (group 0) and X and dY (group 1), then
+//     the fp32 states with 16-byte loads, rounded to bf16 while the copies
+//     land. The C Bᵀ tiles run as soon as group 0 is in, while X and dY
+//     still land; dC and dB run in 16 x 64 output tiles whose A fragment
+//     serves four B fragments and leave as 16-byte stores (a transpose
+//     across each quad of lanes), dX as 4-byte pairs. Sixteen warps a CTA.
+//   * (a+b) replaces a per-chunk pass and a serial pass over the fp32
+//     workspace (PR 23: 0.075 and 0.139 ms, a chain of 16 dependent
+//     loads per thread) by one walk per 32 columns of P, 96 CTAs.
+// Chunk widths of 16-byte copies need P and N multiples of 8 and aligned
+// operands; other shapes stage element by element in the same kernels.
 #include "ssd_common.cuh"
 
 namespace {
 
 using namespace ssd;
 constexpr int kThreads = 256;       // eight warps
+// the bf16 chunk-gradient kernel's threads: sixteen warps hide more of
+// its mma.sync and ldmatrix latency than eight (one CTA per SM either way)
+constexpr int kGradThreads = 512;
 
 struct BwdArgs {
   const void* x;            // [batch, seqlen, heads, p_dim]
@@ -84,6 +101,9 @@ struct BwdArgs {
   void* dc;
   float* ddt;               // [batch, seqlen, heads]
   int seqlen, heads, p_dim, n_dim, chunk, n_chunks;
+  // bf16 rows may be copied 16 bytes at a time and dB, dC stored so: P
+  // and N multiples of 8, every operand 16-byte aligned
+  int vec;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -148,32 +168,98 @@ __device__ void chunk_scalars(const float* dts, const float* cum,
   if (lane == 0) *da_part = dap;
 }
 
-// A 16 x 16 tile product D += A B on mma.sync, A and B bf16 in shared
-// memory (row strides in elements). ATrans: A is stored [k][m], else
-// [m][k]. BKN: B is stored [k][n], else [n][k]. The accumulator's element
-// e of n-block nb is row lane / 4 + 8 (e / 2), column 8 nb + 2 (lane % 4)
-// + e % 2.
-template <bool ATrans, bool BKN>
-__device__ __forceinline__ void mma_tile(float (&acc)[2][4], const bf16* a,
-                                         int sa, int m0, int k0,
-                                         const bf16* b, int sb, int n0,
-                                         int lane) {
-  uint32_t af[4], bf[4];
+// NT 16 x 16 tile products D += A B on mma.sync sharing one A fragment
+// (a 16 x 16 NT output tile), A and B bf16 in shared memory (row strides
+// in elements). ATrans: A is stored [k][m], else [m][k]. BKN: B is stored
+// [k][n], else [n][k]. The accumulator's element e of n-block nb is row
+// lane / 4 + 8 (e / 2), column 8 nb + 2 (lane % 4) + e % 2.
+template <bool ATrans, bool BKN, int NT = 1>
+__device__ __forceinline__ void mma_tile(float (&acc)[2 * NT][4],
+                                         const bf16* a, int sa, int m0,
+                                         int k0, const bf16* b, int sb,
+                                         int n0, int lane) {
+  uint32_t af[4];
   if (ATrans)
     ptx::ldmatrix_x4_trans(af, a + (k0 + 8 * (lane / 16) + lane % 8) * sa +
                                    m0 + 8 * ((lane / 8) % 2));
   else
     ptx::ldmatrix_x4(af, a + (m0 + lane % 8 + 8 * ((lane / 8) % 2)) * sa +
                              k0 + 8 * (lane / 16));
-  if (BKN)
-    ptx::ldmatrix_x4_trans(bf, b + (k0 + lane % 8 + 8 * ((lane / 8) % 2)) *
-                                       sb +
-                                   n0 + 8 * (lane / 16));
-  else
-    ptx::ldmatrix_x4(bf, b + (n0 + 8 * (lane / 16) + lane % 8) * sb + k0 +
-                             8 * ((lane / 8) % 2));
-  ptx::mma_m16n8k16(acc[0], af, bf[0], bf[1]);
-  ptx::mma_m16n8k16(acc[1], af, bf[2], bf[3]);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    uint32_t bf[4];
+    const int n = n0 + 16 * t;
+    if (BKN)
+      ptx::ldmatrix_x4_trans(bf, b + (k0 + lane % 8 + 8 * ((lane / 8) % 2)) *
+                                         sb +
+                                     n + 8 * (lane / 16));
+    else
+      ptx::ldmatrix_x4(bf, b + (n + 8 * (lane / 16) + lane % 8) * sb + k0 +
+                               8 * ((lane / 8) % 2));
+    ptx::mma_m16n8k16(acc[2 * t], af, bf[0], bf[1]);
+    ptx::mma_m16n8k16(acc[2 * t + 1], af, bf[2], bf[3]);
+  }
+}
+
+// Stores x at p[0] and y at p[1] (bf16): one 4-byte store where both are
+// in range (second) and p is 4-byte aligned (even offset, `pair`), else
+// what is in range.
+__device__ __forceinline__ void store_pair(bf16* p, float x, float y,
+                                           bool second, bool pair) {
+  if (second && pair)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+  else {
+    *p = __float2bfloat16_rn(x);
+    if (second) p[1] = __float2bfloat16_rn(y);
+  }
+}
+
+// Copies rows [0, qcap) x columns [0, cols_pad) of a bf16 matrix into
+// shared memory (rows ld elements apart), source row i at src + i *
+// stride, zeros at rows >= rows and columns >= cols: 16-byte cp.async
+// where `vec` (the caller waits for them), else element by element; by
+// the CTA's Threads threads.
+template <int Threads = kThreads>
+__device__ __forceinline__ void stage_bf16(bf16* dst, int ld,
+                                           const bf16* src, size_t stride,
+                                           int rows, int cols, int qcap,
+                                           int cols_pad, int vec, int tid) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  const int cv = cols_pad / 8;   // 16-byte chunks a row
+  for (int e = tid; e < qcap * cv; e += Threads) {
+    const int i = e / cv, c = (e % cv) * 8;
+    bf16* d = dst + i * ld + c;
+    if (vec && i < rows && c < cols) {
+      ptx::cp_async_16(d, src + i * stride + c);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        d[k] = i < rows && c + k < cols ? src[i * stride + c + k] : zero;
+    }
+  }
+}
+
+// The 4 x 4 transpose of 32-bit words across a quad (the four lanes with
+// one lane / 4): lane q gives w_k, its word of chunk k, and gets v = the
+// words of chunk q from lanes 0-3 in order. Two exchanges, at lane
+// distance 1 and 2, each moving the words whose chunk and lane differ in
+// that bit.
+__device__ __forceinline__ void quad_transpose(uint4& v, uint32_t w0,
+                                               uint32_t w1, uint32_t w2,
+                                               uint32_t w3, int q) {
+  uint32_t m[4] = {w0, w1, w2, w3};
+#pragma unroll
+  for (int d = 1; d <= 2; d <<= 1) {
+    uint32_t a[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t other = __shfl_xor_sync(kFull, m[k ^ d], d);
+      a[k] = ((k ^ q) & d) ? other : m[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = a[k];
+  }
+  v = make_uint4(m[0], m[1], m[2], m[3]);
 }
 
 // A row's sum over the four lanes that hold it (lane % 4).
@@ -184,70 +270,174 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ------------------------------------------------- (a) dstate
 
-// Shared memory of the bf16 kernel (a): exp(cs) ∘ dY [qcap][pp+8] and C
-// [qcap][np+8] bf16, dt and cs [qcap] fp32.
-__host__ __device__ inline size_t dstate_smem(int qcap, int pp, int np) {
-  return (size_t)qcap * (pp + 8) * 2 + (size_t)qcap * (np + 8) * 2 +
-         2 * (size_t)qcap * 4;
+constexpr int kSlice = 32;          // columns of P a chain CTA owns
+constexpr int kSliceTiles = kSlice / 16;
+
+// Shared memory of the bf16 chain (a+b): two stages of the chunk's dY
+// slice [qcap][kSlice + 8] and C [qcap][np + 8] (bf16), two stages of dt
+// [qcap], then cs and exp(cs) [qcap] (fp32).
+__host__ __device__ inline size_t chain_smem(int qcap, int np) {
+  return 2 * (size_t)qcap * ((kSlice + 8) + (np + 8)) * 2 +
+         4 * (size_t)qcap * 4;
 }
 
+// A = (exp(cs) ∘ dY)ᵀ [16 p x 16 rows] of columns m0 .. m0 + 15 and rows
+// k0 .. k0 + 15 as an mma.sync A fragment: dY stored [row][p] (rows ys
+// apart), each element scaled by its row's exp(cs) and rounded to bf16
+// once.
+__device__ __forceinline__ void scaled_dy_frag(uint32_t (&af)[4],
+                                               const bf16* y, int ys,
+                                               const float* ecs, int m0,
+                                               int k0, int lane) {
+  ptx::ldmatrix_x4_trans(af, y + (k0 + 8 * (lane / 16) + lane % 8) * ys +
+                                 m0 + 8 * ((lane / 8) % 2));
+  // register x holds rows k0 + 2 (lane % 4) + {0, 1} (+ 8 for x >= 2)
+  const float2 lo = *reinterpret_cast<const float2*>(ecs + k0 +
+                                                     2 * (lane % 4));
+  const float2 hi = *reinterpret_cast<const float2*>(ecs + k0 + 8 +
+                                                     2 * (lane % 4));
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&af[x]));
+    const float2 e = x < 2 ? lo : hi;
+    af[x] = ptx::pack_bf16(v.x * e.x, v.y * e.y);
+  }
+}
+
+// (a+b) for bf16: per (kSlice columns of P, head, row), the chunks from
+// the last to the first. The carry dS [kSlice, N] stays in the warps'
+// fp32 accumulators (warp w owns N columns 16 w .. 16 w + 15): each
+// chunk's dS_end is the carry as it arrives (written to the workspace),
+// then carry = exp(cs_last) carry + U with U = Σ_i exp(cs_i) dy_i C_iᵀ on
+// mma.sync. The next chunk's dY slice, C and dt land (cp.async) while
+// this one computes. d(initial state) is the carry past chunk 0. C is
+// read once per slice: wider slices read it fewer times, narrower ones
+// give more CTAs.
 template <int NP>
-__global__ void __launch_bounds__(kThreads) dstate_mma_kernel(
-    const BwdArgs g) {
+__global__ void __launch_bounds__(kThreads) dstate_chain_kernel(
+    const BwdArgs g, const float* __restrict__ dfinal,
+    float* __restrict__ dinit) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int z = blockIdx.x, h = blockIdx.y, row = blockIdx.z;
+  const int p0 = blockIdx.x * kSlice, h = blockIdx.y, row = blockIdx.z;
   const int S = g.seqlen, H = g.heads, P = g.p_dim, N = g.n_dim;
-  const int c0 = z * g.chunk, qn = imin(g.chunk, S - c0);
-  const int qcap = round16(imin(g.chunk, S)), pp = round16(P);
-  const int XS = pp + 8, KS = NP + 8;
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  bf16* cs = ys + qcap * XS;
-  float* dts = reinterpret_cast<float*>(cs + qcap * KS);
-  float* cum = dts + qcap;
+  const int qcap = round16(imin(g.chunk, S));
+  constexpr int KS = NP + 8, YS = kSlice + 8;
+  bf16* ybuf = reinterpret_cast<bf16*>(smem);     // [2][qcap][YS]
+  bf16* cbuf = ybuf + 2 * qcap * YS;              // [2][qcap][KS]
+  float* dts = reinterpret_cast<float*>(cbuf + 2 * qcap * KS);  // [2][qcap]
+  float* cum = dts + 2 * qcap;
+  float* ecs = cum + qcap;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const size_t tok0 = (size_t)row * S + c0;
   const bf16* dy = static_cast<const bf16*>(g.dy);
   const bf16* c = static_cast<const bf16*>(g.c);
-  const bf16 zero = __float2bfloat16_rn(0.f);
-  for (int i = tid; i < qcap; i += kThreads)
-    dts[i] = i < qn ? g.dt[(tok0 + i) * H + h] : 0.f;
-  for (int e = tid; e < qcap * NP; e += kThreads) {
-    const int i = e / NP, n = e % NP;
-    cs[i * KS + n] = i < qn && n < N ? c[((tok0 + i) * H + h) * N + n] : zero;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    chunk_cumsum(dts, g.a[h], cum, qcap, lane);
-    if (lane == 0)
-      g.cs_last[((size_t)row * H + h) * g.n_chunks + z] = cum[qn - 1];
-  }
-  __syncthreads();
-  for (int e = tid; e < qcap * pp; e += kThreads) {
-    const int i = e / pp, p = e % pp;
-    ys[i * XS + p] = __float2bfloat16_rn(
-        i < qn && p < P
-            ? __bfloat162float(dy[((tok0 + i) * H + h) * P + p]) *
-                  expf(cum[i])
-            : 0.f);
-  }
-  __syncthreads();
-  // U [pp, NP] = (exp(cs) ∘ dY)ᵀ C, one 16 x 16 tile per warp at a time
-  float* out = g.ds + (((size_t)row * g.n_chunks + z) * H + h) * P * N;
-  const int n_nt = NP / 16;
-  for (int t = warp; t < (pp / 16) * n_nt; t += kThreads / 32) {
-    const int pt = t / n_nt, nt = t % n_nt;
-    float acc[2][4] = {};
-    for (int kb = 0; kb < qcap / 16; ++kb)
-      mma_tile<true, true>(acc, ys, XS, 16 * pt, 16 * kb, cs, KS, 16 * nt,
-                           lane);
+  const int pcols = imin(kSlice, P - p0);
+  const size_t hr = (size_t)row * H + h;
+  const bool owner = warp < NP / 16;
+  const int n0 = 16 * warp;
+  // carry[mt][nb][e]: P row p0 + 16 mt + lane / 4 + 8 (e / 2), N column
+  // n0 + 8 nb + 2 (lane % 4) + e % 2
+  float carry[kSliceTiles][2][4];
+#pragma unroll
+  for (int mt = 0; mt < kSliceTiles; ++mt)
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int p = 16 * pt + lane / 4 + 8 * (e / 2);
-        const int n = 16 * nt + 8 * nb + 2 * (lane % 4) + e % 2;
-        if (p < P && n < N) out[(size_t)p * N + n] = acc[nb][e];
+        const int p = p0 + 16 * mt + lane / 4 + 8 * (e / 2);
+        const int n = n0 + 8 * nb + 2 * (lane % 4) + e % 2;
+        carry[mt][nb][e] = owner && dfinal && p < P && n < N
+                               ? dfinal[(hr * P + p) * N + n]
+                               : 0.f;
       }
+  auto stage = [&](int z, int st) {
+    const int c0 = z * g.chunk, qn = imin(g.chunk, S - c0);
+    const size_t tok0 = (size_t)row * S + c0;
+    stage_bf16(ybuf + st * qcap * YS, YS, dy + (tok0 * H + h) * P + p0,
+               (size_t)H * P, qn, pcols, qcap, kSlice, g.vec, tid);
+    stage_bf16(cbuf + st * qcap * KS, KS, c + (tok0 * H + h) * N,
+               (size_t)H * N, qn, N, qcap, NP, g.vec, tid);
+    for (int i = tid; i < qcap; i += kThreads) {
+      if (i < qn)
+        ptx::cp_async_4(dts + st * qcap + i, g.dt + (tok0 + i) * H + h);
+      else
+        dts[st * qcap + i] = 0.f;
+    }
+  };
+  stage(g.n_chunks - 1, (g.n_chunks - 1) & 1);
+  ptx::cp_async_commit();
+  for (int z = g.n_chunks - 1; z >= 0; --z) {
+    const int st = z & 1;
+    if (z > 0) {
+      stage(z - 1, st ^ 1);
+      ptx::cp_async_commit();
+      ptx::cp_async_wait<1>();
+    } else {
+      ptx::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int qn = imin(g.chunk, S - z * g.chunk);
+    if (warp == 0) {
+      chunk_cumsum(dts + st * qcap, g.a[h], cum, qcap, lane);
+      __syncwarp();
+      for (int i = lane; i < qcap; i += 32) ecs[i] = expf(cum[i]);
+    }
+    __syncthreads();
+    const float decay = expf(cum[qn - 1]);
+    if (owner) {
+      // U = (exp(cs) ∘ dY)ᵀ C over the chunk's rows in steps of 16, one B
+      // fragment of C serving every m-tile of the slice
+      const bf16* yt = ybuf + st * qcap * YS;
+      const bf16* ct = cbuf + st * qcap * KS;
+      float u[kSliceTiles][2][4] = {};
+      for (int kb = 0; kb < qcap / 16; ++kb) {
+        uint32_t bf[4];
+        ptx::ldmatrix_x4_trans(bf, ct + (16 * kb + lane % 8 +
+                                         8 * ((lane / 8) % 2)) * KS +
+                                       n0 + 8 * (lane / 16));
+#pragma unroll
+        for (int mt = 0; mt < kSliceTiles; ++mt) {
+          uint32_t af[4];
+          scaled_dy_frag(af, yt, YS, ecs, 16 * mt, 16 * kb, lane);
+          ptx::mma_m16n8k16(u[mt][0], af, bf[0], bf[1]);
+          ptx::mma_m16n8k16(u[mt][1], af, bf[2], bf[3]);
+        }
+      }
+      float* out = g.ds + ((row * (size_t)g.n_chunks + z) * H + h) * P * N;
+#pragma unroll
+      for (int mt = 0; mt < kSliceTiles; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int p = p0 + 16 * mt + lane / 4 + 8 * r;
+            const int n = n0 + 8 * nb + 2 * (lane % 4);
+            float* o = out + (size_t)p * N + n;
+            if (p < P && n + 1 < N)
+              *reinterpret_cast<float2*>(o) = make_float2(
+                  carry[mt][nb][2 * r], carry[mt][nb][2 * r + 1]);
+            else if (p < P && n < N)
+              *o = carry[mt][nb][2 * r];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              carry[mt][nb][2 * r + e] =
+                  decay * carry[mt][nb][2 * r + e] + u[mt][nb][2 * r + e];
+          }
+    }
+    __syncthreads();   // this stage is consumed before it is refilled
+  }
+  if (dinit && owner) {
+#pragma unroll
+    for (int mt = 0; mt < kSliceTiles; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = p0 + 16 * mt + lane / 4 + 8 * (e / 2);
+          const int n = n0 + 8 * nb + 2 * (lane % 4) + e % 2;
+          if (p < P && n < N)
+            dinit[(hr * P + p) * N + n] = carry[mt][nb][e];
+        }
   }
 }
 
@@ -311,7 +501,7 @@ __global__ void __launch_bounds__(kThreads) state_pass_kernel(
 // bank groups); then eight fp32 vectors [qcap] (dt, cs, w, exp(cs), the
 // row sums of E, the column sums of F, exp(cs) dy·(S_prev C), r), the
 // row partials of two reductions [2][qcap][max(qcap, np) / 16] and the
-// eight warps' shares of <dS_end, S_prev>.
+// sixteen warps' shares of <dS_end, S_prev>.
 struct BwdLayout {
   int qcap, pp, np;
   __host__ __device__ int xs() const { return pp + 8; }
@@ -346,7 +536,9 @@ struct BwdLayout {
   __host__ __device__ size_t red_off() const {
     return part_off() + 2 * (size_t)qcap * part_cols() * 4;
   }
-  __host__ __device__ size_t bytes() const { return red_off() + 8 * 4; }
+  __host__ __device__ size_t bytes() const {
+    return red_off() + (kGradThreads / 32) * 4;
+  }
 };
 
 __host__ __device__ inline BwdLayout bwd_layout(const BwdArgs& g) {
@@ -354,10 +546,15 @@ __host__ __device__ inline BwdLayout bwd_layout(const BwdArgs& g) {
           padded_n(g.n_dim)};
 }
 
-// (at least one block per SM, which its shared memory allows anyway:
-// without it ptxas caps it at 64 registers, and it spills)
+// The most causal [Q, Q] tiles a warp computes (nT (nT + 1) / 2 tiles of
+// 16 x 16 over sixteen warps, nT = qcap / 16 <= 8).
+constexpr int kMaxQQ =
+    (8 * 9 / 2 + kGradThreads / 32 - 1) / (kGradThreads / 32);
+
+// (one block per SM, which its shared memory allows anyway, so ptxas may
+// give a thread 128 registers)
 template <int NP>
-__global__ void __launch_bounds__(kThreads, 1) chunk_grad_mma_kernel(
+__global__ void __launch_bounds__(kGradThreads, 1) chunk_grad_mma_kernel(
     const BwdArgs g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int z = blockIdx.x, h = blockIdx.y, row = blockIdx.z;
@@ -381,46 +578,88 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_grad_mma_kernel(
   float* part = reinterpret_cast<float*>(smem + lay.part_off());
   float* red = reinterpret_cast<float*>(smem + lay.red_off());
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  constexpr int kWarps = kThreads / 32;
+  constexpr int kWarps = kGradThreads / 32;
   const size_t tok0 = (size_t)row * S + c0;
   const size_t sbase = (((size_t)row * g.n_chunks + z) * H + h) * P * N;
   const bf16* x = static_cast<const bf16*>(g.x);
   const bf16* dy = static_cast<const bf16*>(g.dy);
   const bf16* b = static_cast<const bf16*>(g.b);
   const bf16* c = static_cast<const bf16*>(g.c);
-  const bf16 zero = __float2bfloat16_rn(0.f);
 
-  // ---- the chunk into shared memory; zeros past qn, P and N
-  for (int e = tid; e < qcap * pp; e += kThreads) {
-    const int i = e / pp, p = e % pp;
-    const bool ok = i < qn && p < P;
-    const size_t src = ((tok0 + i) * H + h) * P + p;
-    xs[i * XS + p] = ok ? x[src] : zero;
-    dys[i * XS + p] = ok ? dy[src] : zero;
+  // ---- the chunk into shared memory (zeros past qn, P and N), all in
+  // flight at once: C and B (group 0, all the C Bᵀ tiles read), X and dY
+  // (group 1) as 16-byte cp.async; then S_prev and dS_end in fp32 with
+  // 16-byte loads, rounded to bf16 here while the copies land
+  stage_bf16<kGradThreads>(cs, KS, c + (tok0 * H + h) * N, (size_t)H * N,
+                           qn, N, qcap, NP, g.vec, tid);
+  stage_bf16<kGradThreads>(bs, KS, b + (tok0 * H + h) * N, (size_t)H * N,
+                           qn, N, qcap, NP, g.vec, tid);
+  for (int i = tid; i < qcap; i += kGradThreads) {
+    if (i < qn)
+      ptx::cp_async_4(dts + i, g.dt + (tok0 + i) * H + h);
+    else
+      dts[i] = 0.f;
   }
-  for (int e = tid; e < qcap * NP; e += kThreads) {
-    const int i = e / NP, n = e % NP;
-    const bool ok = i < qn && n < N;
-    const size_t src = ((tok0 + i) * H + h) * N + n;
-    bs[i * KS + n] = ok ? b[src] : zero;
-    cs[i * KS + n] = ok ? c[src] : zero;
-  }
+  ptx::cp_async_commit();
+  stage_bf16<kGradThreads>(xs, XS, x + (tok0 * H + h) * P, (size_t)H * P,
+                           qn, P, qcap, pp, g.vec, tid);
+  stage_bf16<kGradThreads>(dys, XS, dy + (tok0 * H + h) * P, (size_t)H * P,
+                           qn, P, qcap, pp, g.vec, tid);
+  ptx::cp_async_commit();
+  // kBatch vectors of each in flight a thread, then their conversions
+  constexpr int kBatch = 4;
   float dot = 0.f;   // <dS_end, S_prev> in fp32
-  for (int e = tid; e < pp * NP; e += kThreads) {
-    const int p = e / NP, n = e % NP;
-    const bool ok = p < P && n < N;
-    const float sv = ok ? g.states[sbase + (size_t)p * N + n] : 0.f;
-    const float dv = ok ? g.ds[sbase + (size_t)p * N + n] : 0.f;
-    sps[p * KS + n] = __float2bfloat16_rn(sv);
-    dss[p * KS + n] = __float2bfloat16_rn(dv);
-    dot = fmaf(sv, dv, dot);
+  for (int e0 = 4 * tid; e0 < pp * NP; e0 += 4 * kGradThreads * kBatch) {
+    float4 s4[kBatch], d4[kBatch];
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r) {
+      const int e = e0 + 4 * kGradThreads * r;
+      const int p = e / NP, n = e % NP;
+      if (g.vec && e < pp * NP && p < P && n < N) {
+        s4[r] = *reinterpret_cast<const float4*>(g.states + sbase +
+                                                 (size_t)p * N + n);
+        d4[r] = *reinterpret_cast<const float4*>(g.ds + sbase +
+                                                 (size_t)p * N + n);
+      } else {
+        float sv[4], dv[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool ok = e < pp * NP && p < P && n + k < N;
+          sv[k] = ok ? g.states[sbase + (size_t)p * N + n + k] : 0.f;
+          dv[k] = ok ? g.ds[sbase + (size_t)p * N + n + k] : 0.f;
+        }
+        s4[r] = make_float4(sv[0], sv[1], sv[2], sv[3]);
+        d4[r] = make_float4(dv[0], dv[1], dv[2], dv[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBatch; ++r) {
+      const int e = e0 + 4 * kGradThreads * r;
+      if (e >= pp * NP) break;
+      const int p = e / NP, n = e % NP;
+      const float4 sv = s4[r], dv = d4[r];
+      dot = fmaf(sv.x, dv.x, dot);
+      dot = fmaf(sv.y, dv.y, dot);
+      dot = fmaf(sv.z, dv.z, dot);
+      dot = fmaf(sv.w, dv.w, dot);
+      __nv_bfloat162* sp2 =
+          reinterpret_cast<__nv_bfloat162*>(sps + p * KS + n);
+      __nv_bfloat162* ds2 =
+          reinterpret_cast<__nv_bfloat162*>(dss + p * KS + n);
+      sp2[0] = __floats2bfloat162_rn(sv.x, sv.y);
+      sp2[1] = __floats2bfloat162_rn(sv.z, sv.w);
+      ds2[0] = __floats2bfloat162_rn(dv.x, dv.y);
+      ds2[1] = __floats2bfloat162_rn(dv.z, dv.w);
+    }
   }
-  for (int i = tid; i < qcap; i += kThreads)
-    dts[i] = i < qn ? g.dt[(tok0 + i) * H + h] : 0.f;
   dot = warp_sum(dot);
   if (lane == 0) red[warp] = dot;
+  ptx::cp_async_wait<1>();   // C and B
   __syncthreads();
-  if (warp == 0) {   // cs, w = dt ∘ exp(cs_last - cs), exp(cs)
+
+  // ---- C Bᵀ of this warp's causal [Q, Q] tiles, while X and dY land;
+  // warp 0 first takes cs, w = dt ∘ exp(cs_last - cs) and exp(cs)
+  if (warp == 0) {
     chunk_cumsum(dts, g.a[h], cum, qcap, lane);
     __syncwarp();
     const float last = cum[qn - 1];
@@ -429,21 +668,39 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_grad_mma_kernel(
       ecs[j] = expf(cum[j]);
     }
   }
-  __syncthreads();
-
-  // ---- the causal [Q, Q] tiles: C Bᵀ and dY Xᵀ, then G and W (bf16, for
-  // the products below) and E's row sums and F's column sums per tile
   const int nT = qcap / 16;
-  float* part_row = part;                 // [qcap][nT]: Σ_j E_ij per tile
-  float* part_col = part + qcap * nT;     // [qcap][nT]: Σ_i F_ij per tile
-  for (int t = warp; t < nT * (nT + 1) / 2; t += kWarps) {
+  const int n_qq = nT * (nT + 1) / 2;
+  float cbr[kMaxQQ][2][4];
+#pragma unroll
+  for (int u = 0; u < kMaxQQ; ++u) {
+    const int t = warp + u * kWarps;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cbr[u][nb][e] = 0.f;
+    if (t >= n_qq) continue;
     int mi = 0, kj = t;                   // the t-th tile with kj <= mi
     while (kj > mi) kj -= ++mi;
-    float cb[2][4] = {}, mm[2][4] = {};
 #pragma unroll
     for (int kk = 0; kk < NP / 16; ++kk)
-      mma_tile<false, false>(cb, cs, KS, 16 * mi, 16 * kk, bs, KS, 16 * kj,
-                             lane);
+      mma_tile<false, false>(cbr[u], cs, KS, 16 * mi, 16 * kk, bs, KS,
+                             16 * kj, lane);
+  }
+  ptx::cp_async_wait<0>();   // X and dY
+  __syncthreads();
+
+  // ---- dY Xᵀ of the same tiles, then G and W (bf16, for the products
+  // below) and E's row sums and F's column sums per tile
+  float* part_row = part;                 // [qcap][nT]: Σ_j E_ij per tile
+  float* part_col = part + qcap * nT;     // [qcap][nT]: Σ_i F_ij per tile
+#pragma unroll
+  for (int u = 0; u < kMaxQQ; ++u) {
+    const int t = warp + u * kWarps;
+    if (t >= n_qq) continue;
+    int mi = 0, kj = t;
+    while (kj > mi) kj -= ++mi;
+    const float(&cb)[2][4] = cbr[u];
+    float mm[2][4] = {};
     for (int kk = 0; kk < pp / 16; ++kk)
       mma_tile<false, false>(mm, dys, XS, 16 * mi, 16 * kk, xs, XS, 16 * kj,
                              lane);
@@ -492,7 +749,7 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_grad_mma_kernel(
       }
   }
   __syncthreads();
-  for (int i = tid; i < qcap; i += kThreads) {   // the tiles in order
+  for (int i = tid; i < qcap; i += kGradThreads) {   // the tiles in order
     float r = 0.f, f = 0.f;
     for (int k = 0; k <= i / 16; ++k) r += part_row[i * nT + k];
     for (int k = i / 16; k < nT; ++k) f += part_col[i * nT + k];
@@ -501,15 +758,18 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_grad_mma_kernel(
   }
   __syncthreads();
 
-  // ---- dX [Q, P], dC and dB [Q, N], one 16 x 16 tile per warp at a time
-  const int nPT = pp / 16, nNT = NP / 16;
+  // ---- dX [Q, P] in 16 x 16 tiles; dC and dB [Q, N] in 16 x (16 kNT)
+  // tiles (16 x 64 at N = 128), each A fragment serving kNT B fragments
+  constexpr int kNT = NP >= 64 ? 4 : (NP >= 32 ? 2 : 1);
+  const int nPT = pp / 16, nNT = NP / 16, nWT = nNT / kNT;
   float* part_off = part;                 // [qcap][nNT]: exp(cs) dy·(S C)
   float* part_r = part + qcap * nNT;      // [qcap][nNT]: r
-  const int t_dx = nT * nPT, t_dc = nT * nNT;
+  const int t_dx = nT * nPT, t_dc = nT * nWT;
+  const bool pair_p = P % 2 == 0, pair_n = N % 2 == 0;
   for (int t = warp; t < t_dx + 2 * t_dc; t += kWarps) {
-    float acc[2][4] = {};
     if (t < t_dx) {
       // dX = Gᵀ dY + w ∘ (B dS_endᵀ)
+      float acc[2][4] = {};
       const int mj = t / nPT, pt = t % nPT;
       for (int kb = mj; kb < nT; ++kb)
         mma_tile<true, true>(acc, gm, GS, 16 * mj, 16 * kb, dys, XS, 16 * pt,
@@ -523,32 +783,35 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_grad_mma_kernel(
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = 16 * mj + lane / 4 + 8 * (e / 2);
-          const int p = 16 * pt + 8 * nb + 2 * (lane % 4) + e % 2;
+        for (int r = 0; r < 2; ++r) {
+          const int j = 16 * mj + lane / 4 + 8 * r;
+          const int p = 16 * pt + 8 * nb + 2 * (lane % 4);
           if (j < qn && p < P)
-            store(dx + ((tok0 + j) * H + h) * P + p,
-                  acc[nb][e] + wts[j] * st[nb][e]);
+            store_pair(dx + ((tok0 + j) * H + h) * P + p,
+                       acc[nb][2 * r] + wts[j] * st[nb][2 * r],
+                       acc[nb][2 * r + 1] + wts[j] * st[nb][2 * r + 1],
+                       p + 1 < P, pair_p);
         }
       continue;
     }
     // dC = exp(cs) ∘ (dY S_prev) + W B;  dB = w ∘ (X dS_end) + Wᵀ C. The
     // state term first: its row dot with C (dC) or B (dB) gives the
     // row's share of exp(cs) dy·(S_prev C) or of r.
+    float acc[2 * kNT][4] = {};
     const bool is_dc = t < t_dx + t_dc;
     const int u = t - t_dx - (is_dc ? 0 : t_dc);
-    const int mi = u / nNT, nt = u % nNT;
+    const int mi = u / nWT, n0 = 16 * kNT * (u % nWT);
     for (int kk = 0; kk < nPT; ++kk)
-      mma_tile<false, true>(acc, is_dc ? dys : xs, XS, 16 * mi, 16 * kk,
-                            is_dc ? sps : dss, KS, 16 * nt, lane);
+      mma_tile<false, true, kNT>(acc, is_dc ? dys : xs, XS, 16 * mi, 16 * kk,
+                                 is_dc ? sps : dss, KS, n0, lane);
     const bf16* dotm = is_dc ? cs : bs;
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
+    for (int nb = 0; nb < 2 * kNT; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 16 * mi + lane / 4 + 8 * (e / 2);
-        const int n = 16 * nt + 8 * nb + 2 * (lane % 4) + e % 2;
+        const int n = n0 + 8 * nb + 2 * (lane % 4) + e % 2;
         const float v = is_dc ? acc[nb][e] * ecs[i] : acc[nb][e];
         rs[e / 2] += v * __bfloat162float(dotm[i * KS + n]);
         acc[nb][e] = is_dc ? v : v * wts[i];
@@ -557,35 +820,65 @@ __global__ void __launch_bounds__(kThreads, 1) chunk_grad_mma_kernel(
     for (int r = 0; r < 2; ++r) {
       const float v = quad_sum(rs[r]);
       if (lane % 4 == 0)
-        (is_dc ? part_off : part_r)[(16 * mi + lane / 4 + 8 * r) * nNT + nt] =
-            v;
+        (is_dc ? part_off : part_r)[(16 * mi + lane / 4 + 8 * r) * nWT +
+                                    u % nWT] = v;
     }
     if (is_dc) {
       for (int kb = 0; kb <= mi; ++kb)
-        mma_tile<false, true>(acc, wm, GS, 16 * mi, 16 * kb, bs, KS, 16 * nt,
-                              lane);
+        mma_tile<false, true, kNT>(acc, wm, GS, 16 * mi, 16 * kb, bs, KS, n0,
+                                   lane);
     } else {
       for (int kb = mi; kb < nT; ++kb)
-        mma_tile<true, true>(acc, wm, GS, 16 * mi, 16 * kb, cs, KS, 16 * nt,
-                             lane);
+        mma_tile<true, true, kNT>(acc, wm, GS, 16 * mi, 16 * kb, cs, KS, n0,
+                                  lane);
     }
     bf16* out = static_cast<bf16*>(is_dc ? g.dc : g.db);
+    if constexpr (kNT >= 2) {
+      if (g.vec) {
+        // 16-byte stores: a quad holds a row's 8 columns of each n-block,
+        // 4 bytes a lane; four n-blocks transposed across the quad give
+        // each lane one n-block's 16 bytes
+        const int q = lane % 4;
 #pragma unroll
-    for (int nb = 0; nb < 2; ++nb)
+        for (int nb0 = 0; nb0 < 2 * kNT; nb0 += 4)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 16 * mi + lane / 4 + 8 * (e / 2);
-        const int n = 16 * nt + 8 * nb + 2 * (lane % 4) + e % 2;
+          for (int r = 0; r < 2; ++r) {
+            const int i = 16 * mi + lane / 4 + 8 * r;
+            uint4 v;
+            quad_transpose(v, ptx::pack_bf16(acc[nb0][2 * r],
+                                             acc[nb0][2 * r + 1]),
+                           ptx::pack_bf16(acc[nb0 + 1][2 * r],
+                                          acc[nb0 + 1][2 * r + 1]),
+                           ptx::pack_bf16(acc[nb0 + 2][2 * r],
+                                          acc[nb0 + 2][2 * r + 1]),
+                           ptx::pack_bf16(acc[nb0 + 3][2 * r],
+                                          acc[nb0 + 3][2 * r + 1]),
+                           q);
+            const int n = n0 + 8 * (nb0 + q);
+            if (i < qn && n < N)
+              *reinterpret_cast<uint4*>(out + ((tok0 + i) * H + h) * N + n) =
+                  v;
+          }
+        continue;
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < 2 * kNT; ++nb)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 16 * mi + lane / 4 + 8 * r;
+        const int n = n0 + 8 * nb + 2 * (lane % 4);
         if (i < qn && n < N)
-          store(out + ((tok0 + i) * H + h) * N + n, acc[nb][e]);
+          store_pair(out + ((tok0 + i) * H + h) * N + n, acc[nb][2 * r],
+                     acc[nb][2 * r + 1], n + 1 < N, pair_n);
       }
   }
   __syncthreads();
-  for (int i = tid; i < qcap; i += kThreads) {
+  for (int i = tid; i < qcap; i += kGradThreads) {
     float o = 0.f, r = 0.f;
-    for (int k = 0; k < nNT; ++k) {
-      o += part_off[i * nNT + k];
-      r += part_r[i * nNT + k];
+    for (int k = 0; k < nWT; ++k) {
+      o += part_off[i * nWT + k];
+      r += part_r[i * nWT + k];
     }
     offv[i] = o;
     rv[i] = r;
@@ -736,12 +1029,33 @@ template <int NP>
 bool mma_raised = false;
 bool f32_raised = false;
 
+// The grids of one call's launches, in launch order, as the wrapper's
+// ssd_scan_bwd_grid describes them; returns their count. bf16: the chain,
+// chunk_grad, da_reduce; fp32: dstate, state_pass, chunk_grad, da_reduce.
+int grids_of(int dtype, int batch, int heads, int p_dim, int n_dim,
+             int n_chunks, dim3* g) {
+  const dim3 chunks(n_chunks, heads, batch);
+  const dim3 da((heads + kThreads - 1) / kThreads);
+  if (dtype == 1) {
+    g[0] = dim3((p_dim + kSlice - 1) / kSlice, heads, batch);
+    g[1] = chunks;
+    g[2] = da;
+    return 3;
+  }
+  g[0] = chunks;
+  g[1] = dim3((p_dim * n_dim + kThreads - 1) / kThreads, heads, batch);
+  g[2] = chunks;
+  g[3] = da;
+  return 4;
+}
+
 template <int NP>
-int launch_mma(const BwdArgs& g, dim3 grid, cudaStream_t s) {
+int launch_mma(const BwdArgs& g, const dim3* grids, const float* dfinal,
+               float* dinit, cudaStream_t s) {
   const BwdLayout lay = bwd_layout(g);
   if (!mma_raised<NP>) {
     cudaError_t err = cudaFuncSetAttribute(
-        dstate_mma_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dstate_chain_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(chunk_grad_mma_kernel<NP>,
@@ -750,21 +1064,44 @@ int launch_mma(const BwdArgs& g, dim3 grid, cudaStream_t s) {
     if (err != cudaSuccess) return (int)err;
     mma_raised<NP> = true;
   }
-  dstate_mma_kernel<NP><<<grid, kThreads,
-                          dstate_smem(lay.qcap, lay.pp, NP), s>>>(g);
+  dstate_chain_kernel<NP><<<grids[0], kThreads, chain_smem(lay.qcap, NP),
+                            s>>>(g, dfinal, dinit);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  chunk_grad_mma_kernel<NP><<<grids[1], kGradThreads, lay.bytes(), s>>>(g);
   return (int)cudaGetLastError();
 }
 
-template <int NP>
-int launch_grad_mma(const BwdArgs& g, dim3 grid, cudaStream_t s) {
-  chunk_grad_mma_kernel<NP><<<grid, kThreads, bwd_layout(g).bytes(), s>>>(g);
+int launch_f32(const BwdArgs& g, const dim3* grids, const float* dfinal,
+               float* dinit, cudaStream_t s) {
+  if (!f32_raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        chunk_grad_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    f32_raised = true;
+  }
+  dstate_f32_kernel<<<grids[0], kThreads, 0, s>>>(g);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  state_pass_kernel<<<grids[1], kThreads, 0, s>>>(
+      g.ds, g.cs_last, dfinal, dinit, g.n_chunks, g.heads,
+      g.p_dim * g.n_dim);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  chunk_grad_f32_kernel<<<grids[2], kThreads,
+                          f32_grad_smem(imin(g.chunk, g.seqlen)), s>>>(g);
   return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 // The shared memory the bf16 chunk-gradient kernel takes (the wrapper
-// refuses shapes over the card's limit before it launches).
+// refuses shapes over the card's limit before it launches; the chain
+// kernel takes less).
 extern "C" size_t ssd_scan_bwd_smem(int seqlen, int p_dim, int n_dim,
                                     int chunk, int dtype) {
   if (dtype == 0) return f32_grad_smem(imin(chunk, seqlen));
@@ -772,79 +1109,67 @@ extern "C" size_t ssd_scan_bwd_smem(int seqlen, int p_dim, int n_dim,
                    padded_n(n_dim)}.bytes();
 }
 
-// Returns the first cudaError_t of the four launches (0 on success).
-// dtype: 0 = fp32, 1 = bf16 for x, b, c, dy, dx, db and dc; dt, a, the
-// chunk states, dfinal, ddt, da, dinit and the workspaces are fp32.
-// x, dy, dx [batch, seqlen, heads, p_dim]; dt, ddt [batch, seqlen, heads];
-// a, da [heads]; b, c, db, dc [batch, seqlen, heads, n_dim]; states and
-// ws_ds [batch, n_chunks, heads, p_dim, n_dim] with n_chunks =
-// ceil(seqlen / chunk); dfinal and dinit [batch, heads, p_dim, n_dim], each
-// may be null (a zero gradient in; not written); ws_cs and ws_da [batch,
-// heads, n_chunks]. The caller has checked shapes, dtypes and contiguity.
+// Returns the first cudaError_t of the launches (0 on success). dtype: 0
+// = fp32, 1 = bf16 for x, b, c, dy, dx, db and dc; dt, a, the chunk
+// states, dfinal, ddt, da, dinit and the workspace are fp32. x, dy, dx
+// [batch, seqlen, heads, p_dim]; dt, ddt [batch, seqlen, heads]; a, da
+// [heads]; b, c, db, dc [batch, seqlen, heads, n_dim]; states [batch,
+// n_chunks, heads, p_dim, n_dim] with n_chunks = ceil(seqlen / chunk);
+// dfinal and dinit [batch, heads, p_dim, n_dim], each may be null (a zero
+// gradient in; not written); ws one workspace of batch n_chunks heads
+// (p_dim n_dim + 2) floats, 16-byte aligned: dS_end like the states, then
+// cs_last and the da partials [batch, heads, n_chunks] each. grids
+// (n_grids x 3 ints) is the wrapper's ssd_scan_bwd_grid; any other grids
+// are refused before anything launches. The caller has checked shapes,
+// dtypes and contiguity.
 extern "C" int ssd_scan_bwd_launch(
     int dtype, const void* x, const void* dt, const void* a, const void* b,
     const void* c, const void* states, const void* dy, const void* dfinal,
-    void* dx, void* ddt, void* da, void* db, void* dc, void* dinit,
-    void* ws_ds, void* ws_cs, void* ws_da, int batch, int seqlen, int heads,
-    int p_dim, int n_dim, int chunk, void* stream) {
+    void* dx, void* ddt, void* da, void* db, void* dc, void* dinit, void* ws,
+    int batch, int seqlen, int heads, int p_dim, int n_dim, int chunk,
+    const int* grids, int n_grids, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (chunk < 1 || chunk > kMaxDim || p_dim < 1 || p_dim > kMaxDim ||
       n_dim < 1 || n_dim > kMaxDim || seqlen < 1 || batch < 1 ||
       batch > 65535 || heads < 1 || heads > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int n_chunks = (seqlen + chunk - 1) / chunk;
+  dim3 want[4];
+  const int n_want = grids_of(dtype, batch, heads, p_dim, n_dim, n_chunks,
+                              want);
+  if (!grids_match(grids, n_grids, want, n_want))
+    return (int)cudaErrorInvalidValue;
+  const size_t pn = (size_t)batch * n_chunks * heads * p_dim * n_dim;
+  const size_t bhc = (size_t)batch * heads * n_chunks;
+  float* wsf = static_cast<float*>(ws);
+  const int vec = p_dim % 8 == 0 && n_dim % 8 == 0 && aligned16(x) &&
+                  aligned16(b) && aligned16(c) && aligned16(dy) &&
+                  aligned16(states) && aligned16(ws) && aligned16(db) &&
+                  aligned16(dc);
   BwdArgs g{x, (const float*)dt, (const float*)a, b, c,
-            (const float*)states, dy, (float*)ws_ds, (float*)ws_cs,
-            (float*)ws_da, dx, db, dc, (float*)ddt, seqlen, heads, p_dim,
-            n_dim, chunk, n_chunks};
+            (const float*)states, dy, wsf, wsf + pn, wsf + pn + bhc, dx, db,
+            dc, (float*)ddt, seqlen, heads, p_dim, n_dim, chunk, n_chunks,
+            vec};
   if (ssd_scan_bwd_smem(seqlen, p_dim, n_dim, chunk, dtype) >
       (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_chunks, heads, batch);
   int rc;
-  // (a)
   if (dtype == 1) {
     switch (padded_n(n_dim)) {
-      case 16: rc = launch_mma<16>(g, grid, s); break;
-      case 32: rc = launch_mma<32>(g, grid, s); break;
-      case 64: rc = launch_mma<64>(g, grid, s); break;
-      default: rc = launch_mma<128>(g, grid, s); break;
+      case 16: rc = launch_mma<16>(g, want, (const float*)dfinal,
+                                   (float*)dinit, s); break;
+      case 32: rc = launch_mma<32>(g, want, (const float*)dfinal,
+                                   (float*)dinit, s); break;
+      case 64: rc = launch_mma<64>(g, want, (const float*)dfinal,
+                                   (float*)dinit, s); break;
+      default: rc = launch_mma<128>(g, want, (const float*)dfinal,
+                                    (float*)dinit, s); break;
     }
   } else {
-    dstate_f32_kernel<<<grid, kThreads, 0, s>>>(g);
-    rc = (int)cudaGetLastError();
+    rc = launch_f32(g, want, (const float*)dfinal, (float*)dinit, s);
   }
   if (rc) return rc;
-  // (b)
-  const int pn = p_dim * n_dim;
-  state_pass_kernel<<<dim3((pn + kThreads - 1) / kThreads, heads, batch),
-                      kThreads, 0, s>>>((float*)ws_ds, (const float*)ws_cs,
-                                        (const float*)dfinal, (float*)dinit,
-                                        n_chunks, heads, pn);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  // (c)
-  if (dtype == 1) {
-    switch (padded_n(n_dim)) {
-      case 16: rc = launch_grad_mma<16>(g, grid, s); break;
-      case 32: rc = launch_grad_mma<32>(g, grid, s); break;
-      case 64: rc = launch_grad_mma<64>(g, grid, s); break;
-      default: rc = launch_grad_mma<128>(g, grid, s); break;
-    }
-  } else {
-    if (!f32_raised) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          chunk_grad_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          kMaxSmem);
-      if (err != cudaSuccess) return (int)err;
-      f32_raised = true;
-    }
-    chunk_grad_f32_kernel<<<grid, kThreads,
-                            f32_grad_smem(imin(chunk, seqlen)), s>>>(g);
-    rc = (int)cudaGetLastError();
-  }
-  if (rc) return rc;
-  // (d)
-  da_reduce_kernel<<<(heads + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      (const float*)ws_da, (float*)da, batch, heads, n_chunks);
+  da_reduce_kernel<<<want[n_want - 1], kThreads, 0, s>>>(
+      g.da_part, (float*)da, batch, heads, n_chunks);
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,9 @@ the geometry it launches. Here the launch is C++: each launcher in
 ``csrc/`` computes its own grid. So each wrapper has a grid function
 beside it (``paged_attention_grid``, ``paged_prefill_grid``,
 ``paged_tree_shared_grid``, ``paged_tree_branch_grid``, ``ssd_scan_grid``,
-``flash_prefill_grid``) that returns the ``LaunchGrid`` of every launch it
+``flash_prefill_grid``; for the training kernels ``flash_prefill_bwd_grid``
+and ``ssd_scan_bwd_grid``, whose launches carry no operand access yet)
+that returns the ``LaunchGrid`` of every launch it
 makes, from the shapes alone, and the wrapper passes those grids to its
 launcher (``Launches.dims``: n_launches x 3 ints). The launcher compares
 them with the grids it would launch, before it launches anything, and

@@ -5,13 +5,15 @@ families through K4.
 The JAX package has no Pallas backward: its training path takes XLA's
 autodiff of the chunked scan (``repro/models/mamba2.py:ssd_chunked``).
 The port's training forward is K4, so its gradient is a kernel of its own,
-``csrc/ssd_scan_bwd.cu``: per (chunk, head, row) the state gradient each
-chunk adds, a reverse pass over chunks for the gradient reaching each
-chunk's end state, then every other gradient of each chunk in parallel,
-and da summed over (row, chunk) in a fixed order (no atomics: the
-gradients are the same bits from run to run); bf16 on ``mma.sync``
-tensor-core tiles, fp32 on the CUDA cores. One call of ``ssd_scan_bwd``
-is one launch of the four, counted in ``launches``.
+``csrc/ssd_scan_bwd.cu``: the gradient reaching each chunk's end state
+(bf16: one reverse walk over the chunks per 32 columns of P; fp32: the
+state gradient each chunk adds, then a reverse pass), then every other
+gradient of each chunk in parallel, and da summed over (row, chunk) in a
+fixed order (no atomics: the gradients are the same bits from run to
+run); bf16 on ``mma.sync`` tensor-core tiles, fp32 on the CUDA cores. One
+call of ``ssd_scan_bwd`` is one launch of the three (bf16) or four
+(fp32), counted in ``launches``. ``ssd_scan_bwd_grid`` describes their
+grids as data (``introspect``); the launcher refuses any other.
 
 ``SsdScanFn`` runs K4's forward writing the state before each chunk
 (``ssd_scan.ssd_scan_states``), saves it with the inputs and runs the
@@ -21,17 +23,46 @@ enabled and an input requires grad.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from .. import build
+from .. import introspect as ix
 from . import ssd_scan as fwd
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 17 + \
-    [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 15 + \
+    [ctypes.c_int] * 6 + ix.GRID_ARGTYPES + [ctypes.c_void_p]
+#: columns of P one bf16 chain CTA owns (kSlice), threads of every CTA
+#: (kThreads), in ``csrc/ssd_scan_bwd.cu``
+SLICE = 32
+THREADS = 256
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_scan_bwd_grid(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                      dtype: torch.dtype = torch.float32) -> ix.Launches:
+    """The launches of ``ssd_scan_bwd`` as data, in launch order. bf16:
+    the chain (ceil(P / 32), H, B), chunk_grad (ceil(S / chunk), H, B),
+    da_reduce (ceil(H / 256), 1, 1); fp32: dstate (ceil(S / chunk), H, B),
+    state_pass (ceil(P N / 256), H, B), chunk_grad and da_reduce. No access
+    model yet: STEP007 does not cover the training kernels."""
+    bf16 = dtype == torch.bfloat16
+    chunks = (fwd.n_chunks(s, chunk), h, b)
+    da = (ix.cdiv(h, THREADS), 1, 1)
+    if bf16:
+        named = (("dstate_chain", (ix.cdiv(p, SLICE), h, b)),
+                 ("chunk_grad", chunks), ("da_reduce", da))
+    else:
+        named = (("dstate", chunks),
+                 ("state_pass", (ix.cdiv(p * n, THREADS), h, b)),
+                 ("chunk_grad", chunks), ("da_reduce", da))
+    return ix.Launches(ix.LaunchGrid(f"ssd_scan_bwd.{name}",
+                                     "bf16" if bf16 else "fp32", grid, ())
+                       for name, grid in named)
 
 
 def bwd_smem_bytes(chunk: int, head_dim: int, state_dim: int, seqlen: int,
@@ -42,7 +73,8 @@ def bwd_smem_bytes(chunk: int, head_dim: int, state_dim: int, seqlen: int,
     [q16][P16 + 8], B and C [q16][N' + 8], S_prev and dS_end [P16][N' + 8],
     G and W [q16][q16 + 8] in bf16 (q16 and P16 padded to 16, N' to 16,
     32, 64 or 128), eight fp32 vectors [q16], two partial arrays
-    [q16][max(q16, N') / 16] fp32 and eight floats. fp32: three [q][q + 1]
+    [q16][max(q16, N') / 16] fp32 and sixteen floats (one a warp). fp32:
+    three [q][q + 1]
     matrices, eight vectors [q] and eight floats. One CTA owns all of P
     and N, so P = N = 128 at a chunk of 128 does not fit in bf16."""
     q = min(chunk, seqlen)
@@ -53,7 +85,7 @@ def bwd_smem_bytes(chunk: int, head_dim: int, state_dim: int, seqlen: int,
     tiles = 2 * q16 * (p16 + 8) + 2 * q16 * (npad + 8) + \
         2 * p16 * (npad + 8) + 2 * q16 * (q16 + 8)
     return tiles * 2 + 8 * q16 * 4 + 2 * q16 * (max(q16, npad) // 16) * 4 \
-        + 8 * 4
+        + 16 * 4
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -95,15 +127,16 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, db, dc = (torch.empty_like(t) for t in (x, b, c))
     ddt = torch.empty((bs, s, h), **f32)
-    da = torch.zeros((h,), **f32)
     dinit = torch.empty((bs, h, p, n), **f32) if init_grad else None
     if bs == 0 or s == 0:
         if dinit is not None:
             dinit.copy_(dfinal) if dfinal is not None else dinit.zero_()
-        return dx, ddt, da, db, dc, dinit
-    ws_ds = torch.empty((bs, nc, h, p, n), **f32)
-    ws_cs = torch.empty((bs, h, nc), **f32)
-    ws_da = torch.empty((bs, h, nc), **f32)
+        return dx, ddt, torch.zeros((h,), **f32), db, dc, dinit
+    da = torch.empty((h,), **f32)
+    # one workspace: dS_end like the states, then cs_last and the da
+    # partials [B, H, chunks] (the launcher carves it)
+    ws = torch.empty(bs * nc * h * (p * n + 2), **f32)
+    grids = ix.grid_args(ssd_scan_bwd_grid(bs, s, h, p, n, chunk, x.dtype))
     fn = build.function("ssd_scan_bwd", "ssd_scan_bwd_launch", _ARGTYPES)
     rc = fn(build.dtype_code(x), x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             b.data_ptr(), c.data_ptr(), chunk_states.data_ptr(),
@@ -111,8 +144,7 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             dfinal.data_ptr() if dfinal is not None else None,
             dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
             dc.data_ptr(), dinit.data_ptr() if dinit is not None else None,
-            ws_ds.data_ptr(), ws_cs.data_ptr(), ws_da.data_ptr(), bs, s, h,
-            p, n, chunk, build.stream(x))
+            ws.data_ptr(), bs, s, h, p, n, chunk, *grids, build.stream(x))
     build.raise_on_error("ssd_scan_bwd", rc)
     launches += 1
     return dx, ddt, da, db, dc, dinit

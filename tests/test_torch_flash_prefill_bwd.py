@@ -170,6 +170,79 @@ def test_cuda_backward_refuses_what_the_kernel_does_not_take(rng):
         FlashPrefillFn.apply(q.clone().requires_grad_(), k, v, True, None)
 
 
+# ---------------------------------------- the launch grids, on the CPU
+
+
+def test_bwd_grid_at_the_training_shapes():
+    """``flash_prefill_bwd_grid`` at phase 14's shapes: the D pass over
+    every (head, position), bf16's positions padded to 64 (16 threads a
+    row of 128 bf16, 32 of 256; 2 passes of a 256-thread block), then
+    dK/dV (KV head, batch, key tile)
+    and dQ (query head, batch, query tile), 128-row tiles (64 at head_dim
+    256), the tile on z; fp32 (32-row tiles on x)."""
+    from repro_torch.kernels.flash_prefill.flash_prefill_bwd import \
+        flash_prefill_bwd_grid
+    grids = lambda *a: [lg.grid for lg in flash_prefill_bwd_grid(*a)]  # noqa
+    bf, f32 = torch.bfloat16, torch.float32
+    # r1-distill-14b, B=2, S=2048, 40/8 heads of 128
+    assert grids(2, 2048, 40, 128, 8, bf) == [
+        (2 * 2048 * 40 // 32, 1, 1), (8, 2, 16), (40, 2, 16)]
+    # gemma-7b, B=1, S=2048, 16/16 heads of 256
+    assert grids(1, 2048, 16, 256, 16, bf) == [
+        (2048 * 16 // 16, 1, 1), (16, 1, 32), (16, 1, 32)]
+    # the tiny reasoner's head_dim 32, and S = 1000 (positions padded)
+    assert grids(2, 160, 4, 32, 2, bf) == [
+        (2 * 192 * 4 // 128, 1, 1), (2, 2, 2), (4, 2, 2)]
+    assert grids(1, 1000, 14, 64, 2, bf) == [
+        (1024 * 14 // 64, 1, 1), (2, 1, 8), (14, 1, 8)]
+    assert grids(2, 2048, 40, 128, 8, f32) == [
+        (2 * 2048 * 40 // 16, 1, 1), (64, 8, 2), (64, 40, 2)]
+    lgs = flash_prefill_bwd_grid(1, 1000, 14, 64, 2, bf)
+    assert [lg.route for lg in lgs] == ["bf16"] * 3
+    assert [lg.kernel.split(".")[1] for lg in lgs] == ["bwd_dot", "dkdv",
+                                                      "dq"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_passes_its_grids(monkeypatch, dtype):
+    """The wrapper hands its launcher ``flash_prefill_bwd_grid``'s grids
+    as the two arguments before the stream (the signature of the
+    ``extern "C"`` launcher ends so) and ``true_len``; the grids do not
+    depend on ``true_len``."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import introspect as ix
+    calls = []
+
+    def function(source, fn_name, argtypes):
+        assert (source, fn_name) == ("flash_prefill_bwd",
+                                     "flash_prefill_bwd_launch")
+        calls.append(list(argtypes))
+        return lambda *args: calls.append(args) or 0
+    monkeypatch.setattr(build, "function", function)
+    monkeypatch.setattr(build, "check_operands", lambda *a: None)
+    monkeypatch.setattr(build, "stream", lambda t: 0)
+    q, k, v = (torch.zeros(2, 37, n, 32, dtype=dtype) for n in (4, 2, 2))
+    lse = torch.zeros(2, 4, 37)
+    flash_prefill_bwd(q, k, v, q, lse, q, True, 29)
+    argtypes, args = calls
+    arr, n = args[-3], args[-2]
+    got = [tuple((ctypes.c_int * 3).from_address(ctypes.addressof(arr)
+                                                 + 12 * i)) for i in range(n)]
+    assert got == [lg.grid for lg in bwd_module.flash_prefill_bwd_grid(
+        2, 37, 4, 32, 2, dtype)]
+    assert args[16] == 29 and len(args) == len(argtypes)
+    assert argtypes[-3:] == ix.GRID_ARGTYPES + [ctypes.c_void_p]
+    text = (build.CSRC / "flash_prefill_bwd.cu").read_text()
+    m = re.search(r'extern "C" int flash_prefill_bwd_launch\((.*?)\)\s*\{',
+                  text, re.S)
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert len(params) == len(argtypes)
+    assert params[-3:] == ["const int* grids", "int n_grids", "void* stream"]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

@@ -225,6 +225,73 @@ def test_training_widths_fit_one_cta():
     assert (build.CSRC / "ssd_scan_bwd.cu").exists()
 
 
+def test_bwd_grid_at_the_training_shapes():
+    """``ssd_scan_bwd_grid`` at phase 14's shapes and at a partial last
+    chunk: bf16 launches the chain (32 columns of P, head, row),
+    chunk_grad (chunk, head, row) and da_reduce; fp32 dstate, state_pass
+    (256 of P N, head, row), chunk_grad and da_reduce."""
+    grids = lambda *a: [lg.grid for lg in bwd_module.ssd_scan_bwd_grid(  # noqa
+        *a)]
+    bf, f32 = torch.bfloat16, torch.float32
+    # mamba2-130m, B=2, S=2048, 24 heads of P 64, N 128, chunk 128
+    assert grids(2, 2048, 24, 64, 128, 128, bf) == [
+        (2, 24, 2), (16, 24, 2), (1, 1, 1)]
+    assert grids(2, 2048, 24, 64, 128, 128, f32) == [
+        (16, 24, 2), (32, 24, 2), (16, 24, 2), (1, 1, 1)]
+    # hymba-1.5b, B=1, 50 heads, N 16; a partial last chunk (S = 1000)
+    assert grids(1, 2048, 50, 64, 16, 128, bf) == [
+        (2, 50, 1), (16, 50, 1), (1, 1, 1)]
+    assert grids(2, 1000, 24, 64, 128, 128, bf) == [
+        (2, 24, 2), (8, 24, 2), (1, 1, 1)]
+    # the smoke widths (P 32, N 16, chunk 16), 300 heads for da_reduce
+    assert grids(4, 64, 300, 32, 16, 16, bf) == [
+        (1, 300, 4), (4, 300, 4), (2, 1, 1)]
+    assert [lg.kernel for lg in bwd_module.ssd_scan_bwd_grid(
+        1, 20, 2, 16, 8, 8, bf)] == ["ssd_scan_bwd.dstate_chain",
+                                      "ssd_scan_bwd.chunk_grad",
+                                      "ssd_scan_bwd.da_reduce"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_passes_its_grids(monkeypatch, rng, dtype):
+    """The wrapper hands its launcher ``ssd_scan_bwd_grid``'s grids as the
+    two arguments before the stream (the signature of the ``extern "C"``
+    launcher ends so), at a partial last chunk (S = 20, chunk 8), with one
+    workspace for dS_end, cs_last and the da partials."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import introspect as ix
+    calls = []
+
+    def function(source, fn_name, argtypes):
+        assert (source, fn_name) == ("ssd_scan_bwd", "ssd_scan_bwd_launch")
+        calls.append(list(argtypes))
+        return lambda *args: calls.append(args) or 0
+    monkeypatch.setattr(build, "function", function)
+    monkeypatch.setattr(build, "check_operands", lambda *a: None)
+    monkeypatch.setattr(build, "stream", lambda t: 0)
+    x, dt, a, bb, cc, _, _, dy, _ = (_t(v) for v in _inputs(
+        rng, 1, 20, 2, 16, 8, False, False, 1.0))
+    x, bb, cc, dy = (t.to(dtype) for t in (x, bb, cc, dy))
+    ssd_scan_bwd(x, dt, a, bb, cc, torch.zeros(1, 3, 2, 16, 8), dy,
+                 chunk=8)
+    argtypes, args = calls
+    arr, n = args[-3], args[-2]
+    got = [tuple((ctypes.c_int * 3).from_address(ctypes.addressof(arr)
+                                                 + 12 * i)) for i in range(n)]
+    assert got == [lg.grid for lg in bwd_module.ssd_scan_bwd_grid(
+        1, 20, 2, 16, 8, 8, dtype)]
+    assert len(args) == len(argtypes)
+    assert argtypes[-3:] == ix.GRID_ARGTYPES + [ctypes.c_void_p]
+    text = (build.CSRC / "ssd_scan_bwd.cu").read_text()
+    m = re.search(r'extern "C" int ssd_scan_bwd_launch\((.*?)\)\s*\{',
+                  text, re.S)
+    params = [p.strip() for p in m.group(1).split(",")]
+    assert len(params) == len(argtypes)
+    assert params[-3:] == ["const int* grids", "int n_grids", "void* stream"]
+
+
 # ------------------------------------------------------- on the card only
 
 
