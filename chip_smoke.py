@@ -306,6 +306,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                ``torch_train_tiny_reasoner.py`` into a temp dir and
                ``torch_serve_reasoning.py`` and
                ``torch_sart_vs_baselines.py`` over its checkpoint.
+ 17. spans   — the tracer's device marks (``repro_torch.spans``), after
+               phase 16 (``[spans]`` lines): a toy graph of two marked
+               intervals (two matmuls), captured with the marks and
+               replayed, each interval's time within 25% of the same
+               events recorded eagerly; then the smoke dense and MoE
+               models served through the step graphs with the tracer on:
+               one device row per replayed step, each kind the body
+               marks timed (``moe_route`` and ``moe_experts`` for MoE),
+               the kinds' sum under the step's wall time; no row from an
+               eager step, and a graph captured with the tracer off holds
+               no marks.
+
+The serve phases time each decode step by the tracer's
+``engine.decode_step`` span (the tracer is on from the start, with
+``marks=False``: their graphs carry no device marks).
 
 Phase 3 also holds the head_dim-256 instantiations of K1, K2, both K3
 passes and K5 at gemma-7b's serve shapes (16/16 heads of 256, group 1):
@@ -2638,7 +2653,7 @@ def phase_serve(torch):
                 "paged_prefill": paged_prefill.launches}
     launches = _path_launches(engine, recorded)
 
-    steps = sorted(engine.step_seconds)
+    steps = _step_seconds(t0)
     p50 = steps[len(steps) // 2] if steps else float("nan")
     faults = out["faults"]
     line = {
@@ -2777,7 +2792,7 @@ def _serve_shared_header(torch, model, params, decode_kernel: str,
                 "paged_tree_branch": tree_decode.branch_launches}
     launches = _path_launches(engine, recorded)
 
-    steps = sorted(engine.step_seconds)
+    steps = _step_seconds(t0)
     faults = metrics["faults"]
     stats = engine.prefix_cache_stats()
     line = {
@@ -2921,7 +2936,7 @@ def phase_exact_serve(torch, model, params, paged_p50: float,
                 "paged_tree_branch": tree_decode.branch_launches}
     launches = dict(_path_launches(engine, recorded),
                     flash_prefill=flash_prefill.launches)
-    steps = sorted(engine.step_seconds)
+    steps = _step_seconds(t0)
     faults = metrics["faults"]
     line = {
         "completed_requests": metrics["completed_requests"],
@@ -3072,7 +3087,7 @@ def _chaos_run(torch, model, params, tag: str, *, plan: str,
                 "paged_tree_branch": tree_decode.branch_launches}
     launches = _path_launches(engine, recorded)
     faults = metrics["faults"]
-    steps = sorted(engine.step_seconds)
+    steps = _step_seconds(t0)
     line = {
         "run": tag, "decode_kernel": decode_kernel,
         "completed_requests": metrics["completed_requests"],
@@ -3253,7 +3268,7 @@ def phase_ssm_serve(torch):
                 "ssd_scan": ssd_scan.launches}
     launches = _path_launches(engine, recorded)
 
-    steps = sorted(engine.step_seconds)
+    steps = _step_seconds(t0)
     faults = out["faults"]
     line = {
         "completed_requests": out["completed_requests"],
@@ -3358,7 +3373,7 @@ def _serve_recorded(torch, model, params, *, eager: bool,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     faults = metrics["faults"]
-    line = dict(_step_stats(engine, wall),
+    line = dict(_step_stats(engine, wall, t0),
                 mode="eager" if eager else "graphs",
                 completed_requests=metrics["completed_requests"],
                 graphs=_graph_stats(engine),
@@ -3564,7 +3579,7 @@ def _family_serve(torch, tag: str, model, params, full, step_bytes: int,
         "unfinished_requests": out["unfinished_requests"],
         "generated_tokens": engine.tokens_generated,
         "tokens_per_s": engine.tokens_generated / wall,
-        **_step_stats(engine, wall),
+        **_step_stats(engine, wall, t0),
         "mixed_steps": engine.mixed_steps_executed,
         "bound_ms": bound_ms, "step_bytes": step_bytes,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -4654,8 +4669,24 @@ def _add_counts(into: dict, counts: dict) -> None:
         into[k] = into.get(k, 0) + n
 
 
-def _step_stats(engine, wall: float) -> dict:
-    steps = sorted(engine.step_seconds)
+def _step_seconds(since: float) -> list:
+    """The wall seconds of each decode step that started at or after
+    ``since`` (``time.perf_counter``), sorted: the durations of the
+    tracer's ``engine.decode_step`` spans."""
+    from repro_torch import spans
+    snap = spans.snapshot()
+    # records go in the order they open: a record dropped since ``since``
+    # leaves the oldest one kept opening after it
+    check(snap["dropped"] == 0 or snap["t0_ns"][0] < since * 1e9,
+          f"the tracer's ring dropped {snap['dropped']} records, some of "
+          "them steps to be timed")
+    keep = (snap["name"] == "engine.decode_step") & (
+        snap["t0_ns"] >= since * 1e9) & (snap["t1_ns"] >= 0)
+    return sorted(((snap["t1_ns"] - snap["t0_ns"])[keep] / 1e9).tolist())
+
+
+def _step_stats(engine, wall: float, since: float) -> dict:
+    steps = _step_seconds(since)
     return {"decode_steps": engine.decode_steps_executed, "wall_s": wall,
             "step_ms_p50": steps[len(steps) // 2] * 1e3,
             "step_ms_mean": sum(steps) * 1e3 / len(steps)}
@@ -4669,13 +4700,15 @@ def phase_profile(torch, out_dir: Path) -> None:
     (``Engine.eager()``) and through the step graphs: per mode one plain
     serve, for step times (the graph run captures its variants), then the
     same engine again, its graphs captured, under torch.profiler tracing
-    device activity only (no host ops, so the trace adds little to the
-    host side), for device time by kernel, the device's busy share of
-    that run's own wall time and the device kernels per decode step. The
+    device activity only, with the tracer off (no host ops and no spans,
+    so the trace adds little to the host side), for device time by
+    kernel, the device's busy share of that run's own wall time and the
+    device kernels per decode step. The
     tables go to
     ``out_dir/profile_serve[_ssm|_moe|_gemma]_{eager,graphs}.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import spans
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -4701,23 +4734,24 @@ def phase_profile(torch, out_dir: Path) -> None:
                 t0 = time.perf_counter()
                 sch.run(max_steps=2_000_000)
                 torch.cuda.synchronize()
-                plain = _step_stats(engine, time.perf_counter() - t0)
+                plain = _step_stats(engine, time.perf_counter() - t0, t0)
                 plain["graphs"] = _graph_stats(engine)
                 steps0 = engine.decode_steps_executed
                 replays0 = engine.graph_replays
-                engine.step_seconds.clear()
                 # (no name for the engine returned again: a name left
                 # bound would keep this model alive into the next one's)
                 sch = _serve_setup(torch, model, params,
                                    shared_header=False, engine=engine)[1]
+                spans.disable()
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     t0 = time.perf_counter()
                     sch.run(max_steps=2_000_000)
                     torch.cuda.synchronize()
                     wall = time.perf_counter() - t0
-            traced = _step_stats(engine, wall)
-            traced["decode_steps"] -= steps0
-            traced["graph_replays"] = engine.graph_replays - replays0
+                spans.enable(marks=False)
+            traced = {"decode_steps": engine.decode_steps_executed - steps0,
+                      "wall_s": wall,
+                      "graph_replays": engine.graph_replays - replays0}
             events = prof.key_averages()
             device = [e for e in events
                       if e.device_type == torch.autograd.DeviceType.CUDA
@@ -4752,6 +4786,117 @@ def phase_profile(torch, out_dir: Path) -> None:
         del model, params
 
 
+def _marks_toy(torch) -> dict:
+    """Two marked intervals (a matmul each, the second twice the first's
+    work) recorded eagerly, then captured into a graph with the same
+    marks and replayed: each interval's replayed time against its eager
+    time."""
+    from repro_torch import spans
+    gen = torch.Generator(DEVICE).manual_seed(0)
+    a = torch.randn(4096, 4096, device=DEVICE, dtype=torch.bfloat16,
+                    generator=gen)
+    out = torch.empty_like(a)
+    marks = spans.DeviceMarks()
+
+    def body():
+        spans.device_mark("dense")
+        torch.matmul(a, a, out=out)
+        spans.device_mark("attention")
+        torch.matmul(out, a, out=out)
+        torch.matmul(out, a, out=out)
+        spans.device_mark(spans.END)
+
+    eager = []
+    for _ in range(5):
+        with spans.armed(marks):
+            body()
+        torch.cuda.synchronize()
+        eager.append(marks.elapsed_ms())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), spans.armed(marks):
+        body()
+    replayed = []
+    for _ in range(5):
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed.append(marks.elapsed_ms())
+    e = np.median(np.stack(eager), 0)[:2]
+    r = np.median(np.stack(replayed), 0)[:2]
+    check(len(marks.events) == 3, f"{len(marks.events)} marks, 3 expected")
+    check(bool(np.all(np.abs(r - e) <= 0.25 * e)),
+          f"replayed marks {r.tolist()} ms, eager {e.tolist()} ms")
+    check(1.5 < r[1] / r[0] < 2.5, f"intervals {r.tolist()} ms: the second "
+          "is two matmuls of the first's size")
+    return {"eager_ms": e.tolist(), "replayed_ms": r.tolist()}
+
+
+def phase_spans(torch) -> dict:
+    """Phase 17: the tracer's device marks on the card (see the module's
+    docstring). Leaves the tracer on with ``marks=False``."""
+    from repro_torch import spans
+    from repro_torch.configs import smoke
+    from repro_torch.models import Model
+    t0 = time.perf_counter()
+    line = {"toy": _marks_toy(torch)}
+    for tag, arch, kinds in (
+            ("dense", "r1-distill-14b", {"dense", "attention", "head"}),
+            ("moe", "qwen3-moe-235b-a22b",
+             {"dense", "attention", "head", "moe_route", "moe_experts"})):
+        cfg = smoke(arch)
+        model = Model(cfg, dtype=torch.bfloat16, device=DEVICE)
+        params = model.init_params(torch.Generator(DEVICE).manual_seed(0))
+        # off at capture: no marks; on: every replayed step gets a row
+        spans.enable(marks=False)
+        engine, sch = _serve_setup(torch, model, params, shared_header=False,
+                                   num_requests=2, max_tokens=24)
+        sch.run(max_steps=2_000_000)
+        check(all(g.marks is None for g in engine.step_graphs.values()),
+              f"{tag}: a graph captured with the tracer off holds marks")
+        spans.enable()
+        engine, sch = _serve_setup(torch, model, params, shared_header=False,
+                                   num_requests=2, max_tokens=24)
+        sch.run(max_steps=2_000_000)
+        torch.cuda.synchronize()
+        steps_graphs = engine.decode_steps_executed
+        sch = _serve_setup(torch, model, params, shared_header=False,
+                           engine=engine, num_requests=1, max_tokens=8)[1]
+        with engine.eager():
+            sch.run(max_steps=2_000_000)
+        snap = spans.snapshot()
+        dev = snap["device"]
+        step = snap["name"] == "engine.decode_step"
+        wall_ms = dict(zip(snap["seq"][step].tolist(),
+                           ((snap["t1_ns"] - snap["t0_ns"])[step]
+                            / 1e6).tolist()))
+        got = {k for k, col in zip(dev["kinds"], dev["ms"].T)
+               if np.all(col > 0)}
+        total = dev["ms"].sum(1)
+        check(len(dev["seq"]) == steps_graphs == engine.graph_replays,
+              f"{tag}: {len(dev['seq'])} device rows, {steps_graphs} "
+              f"graph steps, {engine.graph_replays} replays")
+        check(got == kinds, f"{tag}: kinds timed every step {sorted(got)}, "
+                            f"expected {sorted(kinds)}")
+        check(all(0 < t < wall_ms[s] for s, t in zip(dev["seq"].tolist(),
+                                                     total.tolist())),
+              f"{tag}: a step's marked device time is not under its wall "
+              "time")
+        line[tag] = {
+            "steps": steps_graphs,
+            "marks": {n: len(g.marks.events)
+                      for n, g in engine.step_graphs.items()
+                      if g.marks is not None},
+            "device_ms_by_kind": dict(zip(dev["kinds"],
+                                          dev["ms"].mean(0).tolist())),
+            "step_wall_ms_mean": float(np.mean(list(wall_ms.values())))}
+        del engine, sch, model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    spans.enable(marks=False)
+    line["seconds"] = time.perf_counter() - t0
+    print(f"[spans] {json.dumps(line)}")
+    return line
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--skip-serve", action="store_true",
@@ -4775,6 +4920,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import spans
+    spans.enable(marks=False)       # the serve phases' step times
 
     smi = phase_device(torch)
     phase_build()
@@ -4839,6 +4986,8 @@ def main() -> int:
     sharded = phase_distributed(torch, train["r1"])
     # phase 16: the launchers' grid check, STEP007 on the card, examples
     phase_verifiers(torch)
+    # phase 17: the tracer's device marks in captured graphs
+    phase_spans(torch)
 
     sdpa = ("scaled_dot_product_attention over pre-gathered contiguous "
             "K/V (a yardstick; the port never calls it)")

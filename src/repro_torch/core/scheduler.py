@@ -40,15 +40,24 @@ docs/scheduling.md, which deep-link here):
   * **Eager release**: completions, prunes and early stops free engine
     slots and pages the moment they happen; ``metrics()`` is only valid
     because ``_finalize`` releases the request's prefix exactly once.
+  * **Wall time beside ticks**: each ``Request`` carries four
+    ``time.perf_counter()`` stamps (``arrival_s`` at ``submit``,
+    ``admitted_s``, ``first_branch_s``, ``finish_s``), always on; the
+    ticks and ``metrics()`` do not read them. With the tracer on
+    (``repro_torch.spans``) the scheduler's parts are the ``sched.*``
+    spans; none of them holds the call to ``engine.decode_step``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .. import spans
 from ..kv import OutOfPagesError
 from ..serving.engine import BranchHandle, Engine
 from .ensemble import best_of_n, majority_vote
@@ -150,6 +159,12 @@ class Request:
     quarantined: bool = False     # terminal: retry budget exhausted
     quarantine_reason: Optional[str] = None
     had_fault: bool = False       # saw any fault (drives `recovered`)
+    # wall clock (time.perf_counter) at submit, at the first successful
+    # begin_prefill, at the first seated branch and at finalisation
+    arrival_s: float = math.nan
+    admitted_s: float = math.nan
+    first_branch_s: float = math.nan
+    finish_s: float = math.nan
 
     @property
     def done(self) -> bool:
@@ -206,7 +221,8 @@ class Scheduler:
         wants ``finish`` by (drives ``edf`` ordering and the SLO-attainment
         metrics); ``priority`` is the tier for ``priority`` ordering."""
         req = Request(self._next_request_id, list(prompt), arrival, payload,
-                      deadline=deadline, priority=priority)
+                      deadline=deadline, priority=priority,
+                      arrival_s=time.perf_counter())
         self._next_request_id += 1
         self.requests[req.request_id] = req
         self.request_queue.append(req)
@@ -276,36 +292,38 @@ class Scheduler:
     def _fill_batch(self):
         """Algorithm 1 lines 3-11: branches first, then prefill requests.
         With ``preempt``, suspended branches resume with top priority."""
-        while self.engine.free_slots:
-            if self.suspended:
-                h = self.suspended[0]
-                if h.done or not self.engine.resume_branch(h):
+        with spans.span("sched.fill"):
+            while self.engine.free_slots:
+                if self.suspended:
+                    h = self.suspended[0]
+                    if h.done or not self.engine.resume_branch(h):
+                        self.suspended.popleft()
+                        continue
                     self.suspended.popleft()
-                    continue
-                self.suspended.popleft()
-            elif self.branch_queue:
-                req = self.branch_queue[0]
-                if req.done or req.pending <= 0:
-                    self.branch_queue.popleft()
-                    continue
-                self._spawn_one(req)
-                if req.pending <= 0:
-                    self.branch_queue.popleft()
-            else:
-                # keep as many prefills in flight as the engine can pack
-                # into one mixed step (admission_capacity = max chunk
-                # lanes; 1 without a token budget) — admitting beyond that
-                # would reserve prompts' pages long before any chunk runs,
-                # starving live decode branches into eviction
-                if not self._admit_one():
-                    break
-        # admission consumes no slot (chunks ride the decode step), so a
-        # saturated batch doesn't block it — keep the lanes fed
-        if not self.engine.free_slots:
-            while self._admit_one():
-                pass
-        if self.cfg.preempt and not self.engine.free_slots:
-            self._maybe_preempt()
+                elif self.branch_queue:
+                    req = self.branch_queue[0]
+                    if req.done or req.pending <= 0:
+                        self.branch_queue.popleft()
+                        continue
+                    self._spawn_one(req)
+                    if req.pending <= 0:
+                        self.branch_queue.popleft()
+                else:
+                    # keep as many prefills in flight as the engine can
+                    # pack into one mixed step (admission_capacity = max
+                    # chunk lanes; 1 without a token budget) — admitting
+                    # beyond that would reserve prompts' pages long before
+                    # any chunk runs, starving live decode branches into
+                    # eviction
+                    if not self._admit_one():
+                        break
+            # admission consumes no slot (chunks ride the decode step), so
+            # a saturated batch doesn't block it — keep the lanes fed
+            if not self.engine.free_slots:
+                while self._admit_one():
+                    pass
+            if self.cfg.preempt and not self.engine.free_slots:
+                self._maybe_preempt()
 
     def _maybe_preempt(self):
         """Make progress for waiting work when every slot is taken.
@@ -321,20 +339,24 @@ class Scheduler:
                    and len(self.requests[h.request_id].live) > 1]
         if not victims:
             return
-        # never-scored candidates default last_reward=0.0 and would tie
-        # below every scored branch — score them first so a strong branch
-        # that simply hasn't hit a scoring window isn't the victim
-        for h in victims:
-            if not h.scored:
-                h.last_reward = self.prm.score(
-                    self.requests[h.request_id], [h])[0]
-                h.scored = True
-        victim = min(victims, key=lambda h: h.last_reward)
-        self.engine.suspend_branch(victim)
-        self.suspended.append(victim)
-        req = self.branch_queue[0]
-        if not req.done and req.pending > 0:
-            self._spawn_one(req)
+        with spans.span("sched.preempt") as sp:
+            if sp:
+                sp.set(victims=1)
+            # never-scored candidates default last_reward=0.0 and would
+            # tie below every scored branch — score them first so a strong
+            # branch that simply hasn't hit a scoring window isn't the
+            # victim
+            for h in victims:
+                if not h.scored:
+                    h.last_reward = self._score(
+                        self.requests[h.request_id], [h])[0]
+                    h.scored = True
+            victim = min(victims, key=lambda h: h.last_reward)
+            self.engine.suspend_branch(victim)
+            self.suspended.append(victim)
+            req = self.branch_queue[0]
+            if not req.done and req.pending > 0:
+                self._spawn_one(req)
 
     def _admit_one(self) -> bool:
         """Admit one arrived request if the engine's chunk lanes have room
@@ -395,6 +417,8 @@ class Scheduler:
         return an already-done state and keep the seed's one-tick
         synchronous accounting."""
         req.prefill_state = self.engine.begin_prefill(req.prompt)
+        if math.isnan(req.admitted_s):
+            req.admitted_s = time.perf_counter()
         if req.prefill_state.done:
             req.first_service = self.clock    # seed-exact sync accounting
             self.clock += 1               # legacy synchronous prefill tick
@@ -439,15 +463,16 @@ class Scheduler:
         mixed step under the token budget (with its starvation bound).
         Legacy single-lane engines (capacity 1) keep the seed's admission
         points (window start + harvest refill) untouched."""
-        harvested = False
-        for req in [r for r in self.prefilling if r.prefill_state.done]:
-            self.prefilling.remove(req)
-            self._harvest_prefill(req)
-            harvested = True
-        if getattr(self.engine, "admission_capacity", 1) > 1:
-            while self._admit_one():
-                pass
-        return harvested
+        with spans.span("sched.poll"):
+            harvested = False
+            for req in [r for r in self.prefilling if r.prefill_state.done]:
+                self.prefilling.remove(req)
+                self._harvest_prefill(req)
+                harvested = True
+            if getattr(self.engine, "admission_capacity", 1) > 1:
+                while self._admit_one():
+                    pass
+            return harvested
 
     def _rebase_initial_width(self) -> int:
         return max(self.cfg.n // 2, 1)
@@ -460,6 +485,7 @@ class Scheduler:
             return
         if req.first_branch < 0:
             req.first_branch = self.clock   # time-to-first-branch anchor
+            req.first_branch_s = time.perf_counter()
         req.live[h.branch_id] = h
         req.pending -= 1
 
@@ -505,14 +531,17 @@ class Scheduler:
         and span the rest of the window retrying ``OutOfPagesError``."""
         live = sorted((h for h in self.engine.slots if h is not None),
                       key=lambda h: h.blocks.length, reverse=True)
-        for victim in live:
-            req = self.requests[victim.request_id]
-            before = self.engine.allocator.free_pages
-            self._complete_branch(req, victim, truncated=True)
-            self._maybe_finalize(req)
-            if self.engine.allocator.free_pages > before:
-                return True
-        return False
+        with spans.span("sched.evict") as sp:
+            for n, victim in enumerate(live, 1):
+                req = self.requests[victim.request_id]
+                before = self.engine.allocator.free_pages
+                self._complete_branch(req, victim, truncated=True)
+                self._maybe_finalize(req)
+                if sp:
+                    sp.set(victims=n)
+                if self.engine.allocator.free_pages > before:
+                    return True
+            return False
 
     def _on_engine_fault(self, exc: Exception) -> None:
         """Non-attributable engine failure during decode: burn the tick,
@@ -576,15 +605,16 @@ class Scheduler:
             restart()
 
     def _check_completions(self):
-        for h in list(self.engine.slots):
-            if h is None or h.done:
-                continue  # freed earlier this pass (sibling's early stop)
-            req = self.requests[h.request_id]
-            eos = h.tokens[-1] == self.engine.cfg.eos_id
-            full = len(h.tokens) >= self.cfg.max_tokens
-            if eos or full:
-                self._complete_branch(req, h, truncated=full and not eos)
-                self._maybe_finalize(req)
+        with spans.span("sched.completions"):
+            for h in list(self.engine.slots):
+                if h is None or h.done:
+                    continue  # freed earlier this pass (sibling's early stop)
+                req = self.requests[h.request_id]
+                eos = h.tokens[-1] == self.engine.cfg.eos_id
+                full = len(h.tokens) >= self.cfg.max_tokens
+                if eos or full:
+                    self._complete_branch(req, h, truncated=full and not eos)
+                    self._maybe_finalize(req)
 
     def _complete_branch(self, req: Request, h: BranchHandle,
                          truncated: bool = False):
@@ -592,35 +622,47 @@ class Scheduler:
         max-token cap) rides the completion tuple and is excluded from the
         pruner's phase-2 α′ threshold — a cut-off branch's reward is not
         evidence a finished answer exists at that quality."""
-        reward = self.prm.score(req, [h])[0]
+        reward = self._score(req, [h])[0]
         self.pruner.on_completion(req.meta, reward, truncated=truncated)
         req.completed.append((list(h.tokens), reward, truncated))
         del req.live[h.branch_id]
         self.engine.free_branch(h)
 
     # ----------------------------------------------------------- bookkeeping
+    def _score(self, req: Request, handles: List[BranchHandle]):
+        """The PRM's rewards for ``handles`` (the span ``sched.prm``)."""
+        with spans.span("sched.prm", req.request_id) as sp:
+            if sp:
+                sp.set(branches=len(handles))
+            return self.prm.score(req, handles)
+
     def _window_bookkeeping(self):
         """Pruning / early-stop checks at window granularity (lines 23-41)."""
-        for req in list(self.requests.values()):
-            if req.done or req.meta is None:
-                continue
-            if self.cfg.policy == "rebase":
-                self._rebase_step(req)
-            elif req.live and self.pruner.cfg.enabled:
-                # suspended branches (slot == -1) hold no engine row; they
-                # are scored/pruned once resumed
-                handles = [h for h in req.live.values() if h.slot >= 0]
-                if not handles:
+        with spans.span("sched.window"):
+            for req in list(self.requests.values()):
+                if req.done or req.meta is None:
                     continue
-                rewards = self.prm.score(req, handles)
-                by_id = {h.branch_id: r for h, r in zip(handles, rewards)}
-                for h, r in zip(handles, rewards):
-                    h.last_reward = r
-                    h.scored = True
-                for bid in self.pruner.select_prunes(req.meta, by_id):
-                    h = req.live.pop(bid)
-                    self.engine.free_branch(h)
-            self._maybe_finalize(req)
+                if self.cfg.policy == "rebase":
+                    self._rebase_step(req)
+                elif req.live and self.pruner.cfg.enabled:
+                    # suspended branches (slot == -1) hold no engine row;
+                    # they are scored/pruned once resumed
+                    handles = [h for h in req.live.values() if h.slot >= 0]
+                    if not handles:
+                        continue
+                    rewards = self._score(req, handles)
+                    by_id = {h.branch_id: r for h, r in zip(handles, rewards)}
+                    for h, r in zip(handles, rewards):
+                        h.last_reward = r
+                        h.scored = True
+                    with spans.span("sched.prune", req.request_id) as sp:
+                        pruned = self.pruner.select_prunes(req.meta, by_id)
+                        for bid in pruned:
+                            h = req.live.pop(bid)
+                            self.engine.free_branch(h)
+                        if sp:
+                            sp.set(pruned=len(pruned))
+                self._maybe_finalize(req)
 
     def _maybe_finalize(self, req: Request):
         if req.done or req.meta is None:
@@ -631,20 +673,24 @@ class Scheduler:
 
     def _finalize(self, req: Request):
         """Early stop: terminate remaining branches, pick the final answer."""
-        for h in list(req.live.values()):
-            self.engine.free_branch(h)
-        req.live.clear()
-        req.pending = 0
-        if req.prefix_blocks is not None:
-            self.engine.release_prefix(req.prefix_blocks)
-            req.prefix_blocks = None
-        if self.cfg.policy == "sc":
-            req.final_answer = majority_vote(req.completed, self.answer_fn)
-        else:
-            req.final_answer = best_of_n(req.completed, self.answer_fn)
-        req.finish = self.clock
-        if req.had_fault:
-            self.fault_counters["recovered"] += 1
+        with spans.span("sched.finalize", req.request_id) as sp:
+            for h in list(req.live.values()):
+                self.engine.free_branch(h)
+            req.live.clear()
+            req.pending = 0
+            if req.prefix_blocks is not None:
+                self.engine.release_prefix(req.prefix_blocks)
+                req.prefix_blocks = None
+            if self.cfg.policy == "sc":
+                req.final_answer = majority_vote(req.completed, self.answer_fn)
+            else:
+                req.final_answer = best_of_n(req.completed, self.answer_fn)
+            req.finish = self.clock
+            req.finish_s = time.perf_counter()
+            if req.had_fault:
+                self.fault_counters["recovered"] += 1
+            if sp:
+                sp.set(completed=len(req.completed))
 
     # ---------------------------------------------------------------- rebase
     def _rebase_step(self, req: Request):
@@ -652,7 +698,7 @@ class Scheduler:
         if not req.live:
             return
         handles = list(req.live.values())
-        rewards = np.asarray(self.prm.score(req, handles))
+        rewards = np.asarray(self._score(req, handles))
         for h, r in zip(handles, rewards):
             h.last_reward = float(r)
             h.scored = True

@@ -34,6 +34,11 @@ run on each rank's local rows under ``local_map`` (the global dispatch
 over all rows, replicated; the shard-local one over the rank's own
 groups), and the buffers are pinned to ``"ecd"``/``"gecd"`` (experts on
 ``"model"``) for the expert products.
+
+In the engine's step graphs captured with the tracer on, the global
+dispatch's device marks (``spans.device_mark``) time the routing, the
+dispatch and the combine as ``moe_route`` and the expert products as
+``moe_experts``.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from .. import spans
 from ..distributed.local import as_dtensor, batch_placements, partial_where
 from ..distributed.logical import constrain, moe_dp_chunks
 from .config import ModelConfig
@@ -181,6 +187,7 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
         return _apply_moe_sharded(cfg, p, x)
     b, s, d = x.shape
     t = b * s
+    spans.device_mark("moe_route")
     x_flat = x.reshape(t, d)
     gates, expert_ids, aux = router_probs(cfg, p, x_flat)
     g = moe_dp_chunks()
@@ -193,7 +200,10 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor
         return y.reshape(b, s, d), aux
     buf, indices = _dispatch(cfg, x_flat, gates, expert_ids,
                              _capacity(cfg, t))
-    y = _combine(_expert_ffn(cfg, p, buf), indices, t, x.dtype)
+    spans.device_mark("moe_experts")
+    out = _expert_ffn(cfg, p, buf)
+    spans.device_mark("moe_route")
+    y = _combine(out, indices, t, x.dtype)
     return y.reshape(b, s, d), aux
 
 

@@ -86,12 +86,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import spans
 from ..kernels.flash_prefill.ops import paged_flash_prefill_lanes
 from ..kernels.paged_attention.ops import (paged_attention,
                                            paged_tree_attention)
@@ -371,7 +371,6 @@ class Engine:
         self.mixed_steps_executed = 0     # decode steps carrying >= 1 lane
         self.exact_prefills = 0           # exact-length passes run
         self.tokens_generated = 0         # decode-row tokens sampled
-        self.step_seconds: List[float] = []  # host wall time per decode_step
 
         buckets = tuple(sorted(set(cfg.prefill_buckets))) or tuple(sorted(
             {max(cfg.prefill_chunk // 2, 1), cfg.prefill_chunk}))
@@ -389,6 +388,8 @@ class Engine:
         self.step_graphs: Dict[str, StepGraph] = {}
         self._host_layouts: Dict[tuple, Tuple[Tuple[str, int, int], ...]] = {}
         self._graph_pool = None
+        # the variant the last step ran (its device marks, with the tracer)
+        self._last_graph: Optional[StepGraph] = None
         self._eager = False
         self._pending_prefills: List[ChunkedPrefillState] = []
         self._lane_configs = derive_lane_configs(
@@ -513,22 +514,24 @@ class Engine:
         when the KV pool cannot hold the prompt. With
         ``chunked_prefill=False`` the prompt prefills synchronously (one
         exact-length pass) and the state returns already done."""
-        if not self.cfg.chunked_prefill:
-            blocks, logits, ssm = self.prefill(prompt, exact=True)
-            return ChunkedPrefillState(
-                prompt=list(prompt), blocks=blocks, next_pos=len(prompt),
-                last_logits=logits, ssm_state=ssm, done=True)
-        st = self._new_chunked_state(prompt)
-        self._pending_prefills.append(st)
-        return st
+        with spans.span("engine.begin_prefill"):
+            if not self.cfg.chunked_prefill:
+                blocks, logits, ssm = self.prefill(prompt, exact=True)
+                return ChunkedPrefillState(
+                    prompt=list(prompt), blocks=blocks, next_pos=len(prompt),
+                    last_logits=logits, ssm_state=ssm, done=True)
+            st = self._new_chunked_state(prompt)
+            self._pending_prefills.append(st)
+            return st
 
     def finish_prefill(self, st: ChunkedPrefillState):
         """Harvest a completed prefill: (prefix_blocks, last_logits,
         ssm_state — None on the dense path). Ownership of the pages passes
         to the caller."""
-        assert st.done, "prefill still has pending chunks"
-        st.harvested = True
-        return st.blocks, st.last_logits, st.ssm_state
+        with spans.span("engine.finish_prefill"):
+            assert st.done, "prefill still has pending chunks"
+            st.harvested = True
+            return st.blocks, st.last_logits, st.ssm_state
 
     def abort_prefill(self, st: ChunkedPrefillState) -> None:
         """Drop a queued prefill and release its pages. A state already
@@ -675,32 +678,33 @@ class Engine:
         into the radix with them."""
         cfg, mc = self.cfg, self.model.cfg
         B = cfg.max_slots
-        if not bucket:
-            bucket = max(self._chunk_bucket(st) for st in sts)
-        lanes = [self._chunk_inputs(st, bucket) for st in sts]
-        chunk_lens = [ln[4] for ln in lanes]
-        if piggyback:
-            d_tokens, d_positions = self._tokens, self._positions
-            d_bt, d_lengths = self._block_tables, self._lengths
-            slot_valid = self._active
-        else:
-            d_tokens = np.zeros((B,), np.int32)
-            d_positions = np.zeros((B,), np.int32)
-            d_bt = np.full((B, cfg.max_pages_per_branch), cfg.num_pages,
-                           np.int32)
-            d_lengths = np.zeros((B,), np.int32)
-            slot_valid = np.zeros((B,), bool)
-            tree = self._tree_map([None] * B)
+        with spans.span("engine.host_array"):
+            if not bucket:
+                bucket = max(self._chunk_bucket(st) for st in sts)
+            lanes = [self._chunk_inputs(st, bucket) for st in sts]
+            chunk_lens = [ln[4] for ln in lanes]
+            if piggyback:
+                d_tokens, d_positions = self._tokens, self._positions
+                d_bt, d_lengths = self._block_tables, self._lengths
+                slot_valid = self._active
+            else:
+                d_tokens = np.zeros((B,), np.int32)
+                d_positions = np.zeros((B,), np.int32)
+                d_bt = np.full((B, cfg.max_pages_per_branch), cfg.num_pages,
+                               np.int32)
+                d_lengths = np.zeros((B,), np.int32)
+                slot_valid = np.zeros((B,), bool)
+                tree = self._tree_map([None] * B)
+            rows = [np.concatenate([d] + [ln[f] for ln in lanes])
+                    for f, d in enumerate((d_tokens, d_positions, d_bt,
+                                           d_lengths))]
         lane_states = ([st.ssm_state for st in sts] if mc.uses_ssm
                        else ())
         lane_buckets = (bucket,) * len(sts)
         self._buckets_used.add((bucket, len(sts)))
         next_tokens, hidden, logits, chunk_out = self._step(
-            np.concatenate([d_tokens] + [ln[0] for ln in lanes]),
-            np.concatenate([d_positions] + [ln[1] for ln in lanes]),
-            np.concatenate([d_bt] + [ln[2] for ln in lanes]),
-            np.concatenate([d_lengths] + [ln[3] for ln in lanes]),
-            lane_buckets, chunk_lens, cows, tree, slot_valid, lane_states)
+            *rows, lane_buckets, chunk_lens, cows, tree, slot_valid,
+            lane_states)
         self.prefill_chunk_steps += len(sts)
         self.mixed_steps_executed += 1
         ps = cfg.page_size
@@ -741,26 +745,30 @@ class Engine:
         nothing. ``ssm_state`` (ssm/hybrid: the prefill's ``[L, 1, ...]``
         (conv, ssd)) is copied into the slot's rows; ``first_fork`` keeps
         the reference's signature and is unused."""
-        free = self.free_slots
-        if not free:
-            return None
-        slot = free[0]
-        blocks = self.allocator.fork(prefix_blocks)
-        first = int(sample(self._gen, last_logits, self.cfg.sampling))
-        handle = BranchHandle(
-            branch_id=self._next_branch_id, request_id=request_id, slot=slot,
-            blocks=blocks, tokens=[first], prompt_len=prompt_len,
-            prompt_tokens=(list(prompt_tokens)
-                           if prompt_tokens is not None else None),
-            ssm_snaps={} if self.prefix_cache is not None else None)
-        self._next_branch_id += 1
-        self.slots[slot] = handle
-        if self.model.cfg.uses_ssm and ssm_state is not None:
-            conv, ssd = ssm_state
-            self.state["conv"][:, slot] = conv[:, 0]
-            self.state["ssd"][:, slot] = ssd[:, 0]
-        self._seat(handle)
-        return handle
+        with spans.span("engine.spawn_branch", request_id) as sp:
+            free = self.free_slots
+            if not free:
+                return None
+            slot = free[0]
+            blocks = self.allocator.fork(prefix_blocks)
+            first = int(sample(self._gen, last_logits, self.cfg.sampling))
+            handle = BranchHandle(
+                branch_id=self._next_branch_id, request_id=request_id,
+                slot=slot, blocks=blocks, tokens=[first],
+                prompt_len=prompt_len,
+                prompt_tokens=(list(prompt_tokens)
+                               if prompt_tokens is not None else None),
+                ssm_snaps={} if self.prefix_cache is not None else None)
+            self._next_branch_id += 1
+            self.slots[slot] = handle
+            if self.model.cfg.uses_ssm and ssm_state is not None:
+                conv, ssd = ssm_state
+                self.state["conv"][:, slot] = conv[:, 0]
+                self.state["ssd"][:, slot] = ssd[:, 0]
+            self._seat(handle)
+            if sp:
+                sp.set(seated=1)
+            return handle
 
     def _seat(self, h: BranchHandle):
         """Load a branch's host-side decode state into its slot row."""
@@ -870,19 +878,21 @@ class Engine:
         """Release a branch's slot and eagerly free its pages (inserting
         its generated full pages into the prefix cache first, so they park
         warm on the LRU instead of freeing)."""
-        self._insert_generated(h)
-        self.allocator.release(h.blocks)
-        slot = h.slot
-        if slot >= 0:                 # suspended branches hold no slot
-            self.slots[slot] = None
-            self._active[slot] = False
-            self._block_tables[slot] = self.cfg.num_pages
-            self._lengths[slot] = 0
-        h.done = True
+        with spans.span("engine.free_branch", h.request_id):
+            self._insert_generated(h)
+            self.allocator.release(h.blocks)
+            slot = h.slot
+            if slot >= 0:                 # suspended branches hold no slot
+                self.slots[slot] = None
+                self._active[slot] = False
+                self._block_tables[slot] = self.cfg.num_pages
+                self._lengths[slot] = 0
+            h.done = True
 
     def release_prefix(self, prefix_blocks: BranchBlocks):
         """Drop the scheduler's own reference to a request's prefix."""
-        self.allocator.release(prefix_blocks)
+        with spans.span("engine.release_prefix"):
+            self.allocator.release(prefix_blocks)
 
     # ----------------------------------------------------------------- decode
     def _cow_arrays(self, cows: Sequence[tuple]):
@@ -1078,11 +1088,12 @@ class Engine:
         D], logits [rows, V], the lanes' advanced (conv, ssd) stacked
         along a lane axis or None): static outputs, valid until the next
         step (the variants' graphs share one memory pool)."""
-        host = self._host_array(tokens, positions, block_tables, lengths,
-                                lane_buckets, chunk_lens, cows, tree,
-                                slot_valid)
-        out = self._step_graph(lane_buckets).run(host, lane_states,
-                                                 eager=self._eager)
+        with spans.span("engine.host_array"):
+            host = self._host_array(tokens, positions, block_tables,
+                                    lengths, lane_buckets, chunk_lens, cows,
+                                    tree, slot_valid)
+        graph = self._last_graph = self._step_graph(lane_buckets)
+        out = graph.run(host, lane_states, eager=self._eager)
         next_tokens, hidden, logits = out[:3]
         return next_tokens, hidden, logits, (out[3:] if out[3:] else None)
 
@@ -1114,7 +1125,14 @@ class Engine:
         with only each lane's first ``chunk_lens[i]`` rows valid. Hybrids
         average the two mixers. Returns (next_tokens [rows] int32, hidden
         [max_slots, D], logits [rows, V]) and, with SSM lanes, their
-        advanced conv and ssd states."""
+        advanced conv and ssd states.
+
+        Device marks (``spans.device_mark``; recorded only into a graph
+        captured with the tracer on) split it into ``dense`` (CoW, norms,
+        QKV, RoPE, page writes, ``wo``, the MLP), ``attention`` (K1 or K3
+        and K2's lanes), ``ssm`` (the mixers), the MoE layer's own
+        (``models/moe.py``) and ``head`` (final norm, unembed, sampling).
+        """
         mc, cfg, p = self.model.cfg, self.cfg, self.params
         nS = cfg.max_slots
         B = nS + sum(lane_buckets)
@@ -1132,6 +1150,7 @@ class Engine:
             valid_d = f["slot_valid"].bool()
         n_lanes = len(lane_buckets)
         lens_d = f["chunk_lens"]
+        spans.device_mark("dense")
         if mc.uses_attention:
             kp_all, vp_all = self.state["k_pages"], self.state["v_pages"]
             # CoW before any write (in place on the pools)
@@ -1154,6 +1173,7 @@ class Engine:
                 x.dtype)
         rot_pos = positions_for(mc, pos_d[:, None])    # [B, 1] or [B, 1, 3]
         for layer, lp in enumerate(self._layers):
+            spans.device_mark("dense")
             h = apply_norm(mc, lp["norm1"], x)
             mix = None
             if mc.uses_attention:
@@ -1164,6 +1184,7 @@ class Engine:
                 kp[:, page_i, slot_i] = k[:, 0].transpose(0, 1)
                 vp[:, page_i, slot_i] = v[:, 0].transpose(0, 1)
                 q = q[:, 0]                                    # [B, H, hd]
+                spans.device_mark("attention")
                 if B > nS and not fused_chunk:
                     # the mixed_step_kernel="decode" fallback: every row
                     # through the per-token flash-decode (the tree map
@@ -1184,8 +1205,10 @@ class Engine:
                         att = torch.cat([att, paged_flash_prefill_lanes(
                             q[nS:], kp, vp, bt_d[nS:], pos_d[nS:], lens_d,
                             lane_buckets)], 0)
+                spans.device_mark("dense")
                 mix = att.reshape(B, 1, -1) @ lp["attn"]["wo"]
             if mc.uses_ssm:
+                spans.device_mark("ssm")
                 conv_l, ssd_l = self.state["conv"][layer], \
                     self.state["ssd"][layer]
                 y, conv, ssd = mamba2_decode(mc, lp["mamba"], h[:nS], conv_l,
@@ -1201,14 +1224,17 @@ class Engine:
                     new_conv.append(c_conv.to(conv_l.dtype))
                     new_ssd.append(c_ssd.to(ssd_l.dtype))
                     y = torch.cat([y, y_ch.reshape(B - nS, 1, -1)], 0)
+                spans.device_mark("dense")
                 mix = y if mix is None else mix + y
             # the MLP or MoE block over all B rows: empty slots and pad
             # rows count toward the experts' capacity, as the reference's
             x, _ = self.model._finish_layer(lp, x, mix)
+        spans.device_mark("head")
         x = apply_norm(mc, p["final_norm"], x)
         hidden = x[:, 0]
         logits = unembed(mc, p["embed"], hidden)
         next_tokens = sample(self._gen, logits, cfg.sampling)
+        spans.device_mark(spans.END)
         out = (next_tokens, hidden[:nS], logits)
         if ssm_lanes:
             out += (torch.stack(new_conv), torch.stack(new_ssd))
@@ -1220,11 +1246,100 @@ class Engine:
         concurrent lanes (mixed step) — one FIFO chunk when the budget is
         unset. Page accounting (boundary alloc + CoW) runs on the host
         *before* the step; the sampled token is then appended to each
-        active branch. Returns {slot: new_token}."""
-        cfg, mc = self.cfg, self.model.cfg
+        active branch. Returns {slot: new_token}.
+
+        With the tracer on this is the span ``engine.decode_step`` (its
+        parts ``engine.pages``, ``.pack``, ``.host_array``, ``.launch``,
+        ``.sync`` and ``.commit``), and after it, in the span
+        ``host.tracer``, its counters and, where the step replayed a graph
+        captured with device marks, its device ms by kind."""
         if not self._active.any() and not self._pending_prefills:
             return {}
-        t0 = time.perf_counter()
+        with spans.span("engine.decode_step") as sp:
+            out, chunk_tokens = self._decode_step()
+        if sp:
+            # the tracer's own work, after the step and outside it
+            with spans.span("host.tracer"):
+                sp.set(rows=len(out), ctx=self.live_tokens(),
+                       chunk_tokens=chunk_tokens,
+                       pages_used=self.allocator.used_pages)
+                marks = self._last_graph.marks
+                if marks is not None and not self._eager:
+                    sp.device(marks.elapsed_ms())
+        return out
+
+    def _decode_step(self) -> Tuple[Dict[int, int], int]:
+        """``decode_step``'s work; also returns the chunk tokens the step
+        advanced."""
+        cfg, mc = self.cfg, self.model.cfg
+        with spans.span("engine.pages") as sp:
+            cows = self._account_pages()
+            if sp:
+                sp.set(cows=len(cows))
+        with spans.span("engine.pack") as sp:
+            # pack only after the page accounting above: an
+            # OutOfPagesError abort must not charge skipped prefills'
+            # starvation counters
+            lanes, bucket = self._pack_lanes()
+            # the tree map reflects POST-accounting topology: CoW and
+            # boundary allocation above already diverged any page this
+            # step writes, so no fork group's shared span covers a
+            # written page
+            tree = self._tree_map([h.blocks if h is not None else None
+                                   for h in self.slots])
+            if sp:
+                sp.set(lanes=len(lanes))
+        chunk_tokens = sum(min(cfg.prefill_chunk, st.remaining)
+                           for st in lanes)
+        if lanes:
+            next_tokens, hidden = self._advance_chunks(
+                lanes, piggyback=True, bucket=bucket, cows=cows, tree=tree)
+        else:
+            next_tokens, hidden, _, _ = self._step(
+                self._tokens, self._positions, self._block_tables,
+                self._lengths, cows=cows, tree=tree, slot_valid=self._active)
+        # a copy: ``hidden`` is the variant's static output
+        self._last_hidden = hidden.clone()
+        self.decode_steps_executed += 1
+
+        out: Dict[int, int] = {}
+        # the one sync per step: sampled tokens drive host-side branch
+        # bookkeeping (EOS detection, page accounting) before the next
+        # step can be built
+        with spans.span("engine.sync"):
+            toks = next_tokens.tolist()  # reprolint: disable=REP005
+        with spans.span("engine.commit"):
+            for slot, h in enumerate(self.slots):
+                if h is None:
+                    continue
+                tok = toks[slot]
+                h.tokens.append(tok)
+                out[slot] = tok
+                self._tokens[slot] = tok
+                self._positions[slot] += 1
+                self._lengths[slot] += 1
+                if (self.prefix_cache is not None
+                        and h.prompt_tokens is not None
+                        and h.blocks.length % cfg.page_size == 0):
+                    # page-aligned decode boundary: long-running branches
+                    # publish their generated full pages before
+                    # completion. The slot's state now covers exactly
+                    # blocks.length tokens, so a copy of it can seed an
+                    # ssm/hybrid resume here
+                    if mc.uses_ssm and h.ssm_snaps is not None:
+                        h.ssm_snaps[h.blocks.length] = (
+                            self.state["conv"][:, slot:slot + 1].clone(),
+                            self.state["ssd"][:, slot:slot + 1].clone())
+                    self._insert_generated(h)
+        self.tokens_generated += len(out)
+        return out, chunk_tokens
+
+    def _account_pages(self) -> List[tuple]:
+        """The step's page accounting on the host: refuses a step the
+        block tables or the pool cannot take (``OutOfPagesError``, nothing
+        changed), then appends each seated branch's next token, returning
+        the CoW page pairs it makes."""
+        cfg, mc = self.cfg, self.model.cfg
         cows = []
         if mc.uses_attention:
             cap = cfg.max_pages_per_branch * cfg.page_size
@@ -1252,55 +1367,7 @@ class Engine:
             for h in self.slots:
                 if h is not None:
                     h.blocks.length += 1
-
-        # pack only after the page accounting above: an OutOfPagesError
-        # abort must not charge skipped prefills' starvation counters
-        lanes, bucket = self._pack_lanes()
-        # the tree map reflects POST-accounting topology: CoW and boundary
-        # allocation above already diverged any page this step writes, so
-        # no fork group's shared span covers a written page
-        tree = self._tree_map([h.blocks if h is not None else None
-                               for h in self.slots])
-        if lanes:
-            next_tokens, hidden = self._advance_chunks(
-                lanes, piggyback=True, bucket=bucket, cows=cows, tree=tree)
-        else:
-            next_tokens, hidden, _, _ = self._step(
-                self._tokens, self._positions, self._block_tables,
-                self._lengths, cows=cows, tree=tree, slot_valid=self._active)
-        # a copy: ``hidden`` is the variant's static output
-        self._last_hidden = hidden.clone()
-        self.decode_steps_executed += 1
-
-        out: Dict[int, int] = {}
-        # the one sync per step: sampled tokens drive host-side branch
-        # bookkeeping (EOS detection, page accounting) before the next
-        # step can be built
-        toks = next_tokens.tolist()  # reprolint: disable=REP005
-        for slot, h in enumerate(self.slots):
-            if h is None:
-                continue
-            tok = toks[slot]
-            h.tokens.append(tok)
-            out[slot] = tok
-            self._tokens[slot] = tok
-            self._positions[slot] += 1
-            self._lengths[slot] += 1
-            if (self.prefix_cache is not None
-                    and h.prompt_tokens is not None
-                    and h.blocks.length % cfg.page_size == 0):
-                # page-aligned decode boundary: long-running branches
-                # publish their generated full pages before completion.
-                # The slot's state now covers exactly blocks.length tokens,
-                # so a copy of it can seed an ssm/hybrid resume here
-                if mc.uses_ssm and h.ssm_snaps is not None:
-                    h.ssm_snaps[h.blocks.length] = (
-                        self.state["conv"][:, slot:slot + 1].clone(),
-                        self.state["ssd"][:, slot:slot + 1].clone())
-                self._insert_generated(h)
-        self.tokens_generated += len(out)
-        self.step_seconds.append(time.perf_counter() - t0)
-        return out
+        return cows
 
     # --------------------------------------------------------------- scoring
     def score_slots(self) -> np.ndarray:

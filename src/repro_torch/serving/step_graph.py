@@ -25,6 +25,10 @@ The kernel wrappers' launch counters count launches when the wrapper
 runs: under capture, the launches the graph records. ``recorded`` keeps
 them per variant; ``launches_run`` is what the steps launched on the
 device: recorded launches times replays plus the eager steps' own.
+
+With the tracer on (``repro_torch.spans``), ``run`` is the span
+``engine.launch``, and a variant captured then carries the body's device
+marks (``marks``: warmed up with the body, recorded into the graph).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import spans
 from ..kernels.launches import launch_counts, launches_since
 
 
@@ -69,6 +74,8 @@ class StepGraph:
         self.capture_seconds = 0.0
         self.recorded: Dict[str, int] = {}      # launches per replay
         self.eager_launches: Dict[str, int] = {}
+        # the graph's device marks (None: captured with the tracer off)
+        self.marks: Optional[spans.DeviceMarks] = None
 
     def _load(self, host: np.ndarray,
               lanes: Sequence[Tuple[torch.Tensor, ...]]) -> None:
@@ -92,34 +99,39 @@ class StepGraph:
         copy its outputs into the static outputs. Returns the static
         outputs, valid until the engine's next step: graphs that share a
         pool may reuse each other's memory."""
-        if self._cuda and not eager and self.graph is None:
-            self._load(self._inert, ())
-            self._capture()
-        self._load(host, lanes)
-        if self._cuda and not eager:
-            self.graph.replay()
-            self.replays += 1
+        with spans.span("engine.launch"):
+            if self._cuda and not eager and self.graph is None:
+                self._load(self._inert, ())
+                self._capture()
+            self._load(host, lanes)
+            if self._cuda and not eager:
+                self.graph.replay()
+                self.replays += 1
+                return self.outputs
+            before = launch_counts()
+            out = self._body(self.dev, self.lane_state)
+            for k, n in launches_since(before).items():
+                self.eager_launches[k] = self.eager_launches.get(k, 0) + n
+            if self.outputs is None:
+                self.outputs = tuple(torch.empty_like(t) for t in out)
+            for buf, t in zip(self.outputs, out):
+                buf.copy_(t)
+            self.eager_runs += 1
             return self.outputs
-        before = launch_counts()
-        out = self._body(self.dev, self.lane_state)
-        for k, n in launches_since(before).items():
-            self.eager_launches[k] = self.eager_launches.get(k, 0) + n
-        if self.outputs is None:
-            self.outputs = tuple(torch.empty_like(t) for t in out)
-        for buf, t in zip(self.outputs, out):
-            buf.copy_(t)
-        self.eager_runs += 1
-        return self.outputs
 
     def _capture(self) -> None:
         """Warm the body up on the inert inputs, then capture it. Python's
         cyclic collector is run before the capture and held off during
         it: a dead engine's graphs, freed by a collection that the
         capture's own allocations set off, would be destroyed mid-capture,
-        which CUDA forbids and which invalidates the capture."""
+        which CUDA forbids and which invalidates the capture. With the
+        tracer on, the warm-up makes the body's device marks and the
+        capture records them as event nodes."""
         t0 = time.perf_counter()
+        marks = spans.new_marks()
         rng = self._gen.get_state() if self._gen is not None else None
-        self._body(self.dev, self.lane_state)
+        with spans.armed(marks):
+            self._body(self.dev, self.lane_state)
         if rng is not None:
             self._gen.set_state(rng)
         torch.cuda.synchronize()
@@ -131,7 +143,8 @@ class StepGraph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool), \
+                    spans.armed(marks):
                 out = self._body(self.dev, self.lane_state)
         finally:
             if collecting:
@@ -139,6 +152,7 @@ class StepGraph:
         self.recorded = launches_since(before)
         torch.cuda.synchronize()
         self.graph, self.outputs = graph, tuple(out)
+        self.marks = marks
         self.captures += 1
         self.capture_seconds = time.perf_counter() - t0
 

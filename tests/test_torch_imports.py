@@ -77,7 +77,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.stepcheck.harness",
             "repro_torch.stepcheck.manifest", "repro_torch.stepcheck.rules",
             "repro_torch.stepcheck.runner",
-            "repro_torch.stepcheck.tracing"} <= names
+            "repro_torch.stepcheck.tracing", "repro_torch.spans"} <= names
 
 
 _EXAMPLES_PROBE = """

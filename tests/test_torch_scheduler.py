@@ -105,19 +105,27 @@ def test_scheduler_with_cache_and_tree_matches_jax(policy):
 
 def test_run_serving_on_cpu_completes():
     """The launcher's run function (engine + scheduler + request loop)
-    serves every request with no fault and returns every page."""
+    serves every request with no fault and returns every page; with the
+    tracer on, each decode step is one ``engine.decode_step`` span."""
+    from repro_torch import spans
     model, params, prm = load_reasoner(None, device="cpu")
-    out, engine = run_serving(
-        model, params, prm, policy="sart", n=4, num_requests=3, rate_gap=4,
-        prm_kind="oracle", window=8, max_tokens=32, max_slots=8, seed=0,
-        temperature=0.9)
+    spans.enable()
+    try:
+        out, engine = run_serving(
+            model, params, prm, policy="sart", n=4, num_requests=3,
+            rate_gap=4, prm_kind="oracle", window=8, max_tokens=32,
+            max_slots=8, seed=0, temperature=0.9)
+        names = list(spans.snapshot()["name"])
+    finally:
+        spans.disable()
     assert out["completed_requests"] == 3
     assert out["unfinished_requests"] == 0
     assert out["faults"]["step_faults"] == 0
     assert out["clock"] == out["decode_steps"]
     assert engine.allocator.used_pages == 0
     assert engine.tokens_generated > 0
-    assert len(engine.step_seconds) == engine.decode_steps_executed
+    assert names.count("engine.decode_step") == \
+        engine.decode_steps_executed
 
 
 def test_run_serving_with_prefix_cache_on_cpu():
