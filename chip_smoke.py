@@ -99,7 +99,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                leaves, ndim 1 and >= 2): p, mu and nu bit-equal; timed
                over the 14B layer's leaves beside the plain loop body,
                the bound from its bytes and one
-               ``torch.optim.AdamW(fused=True)`` step;
+               ``torch.optim.AdamW(fused=True)`` step; the top-p
+               sampler (``sample_top_p.cu``; not a TPU kernel) at 320 x
+               152,064 bf16 logits at two spreads and at one row,
+               tokens and thresholds bit-equal to its plain version on
+               the same keys, timed beside one read of the logits and
+               the sort-based sampling it replaced;
   4. parity  — the engine on the card (kernels) against the engine on the
                CPU (plain versions) on small fp32 models, greedy, with
                chunked admission, forked branches, CoW and a suspend/resume
@@ -145,7 +150,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                launches recorded at capture times its variant's replays
                (``Engine.step_launches``). Every request must complete
                with no fault; K2 must launch once per layer per mixed
-               step;
+               step, the top-p sampler once per step (phases 6-8 and
+               10-13 hold its launches to its wrapper's count too);
   6. tree    — the same model and weights, phase 5's engine freed, with
                ``prefix_cache=True, decode_kernel="tree"``: 4 requests whose
                prompts share a 256-token few-shot header. The cache must
@@ -289,10 +295,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                backwards and AdamW run on the DTensors' local shards.
  16. verifiers — the launch-grid check and STEP007 on the card, after
                phase 15 (``[verifiers]`` lines). Each serve-path
-               launcher (K1, K2, both K3 passes, K4 and K5) and the
-               launchers of K5's and K4's backward, bf16 and fp32 (16
-               calls), is called once through its wrapper with its
-               grid function's first grid off by one in x, and must raise
+               launcher (K1, K2, both K3 passes, K4, K5 and the top-p
+               sampler) and the launchers of K5's and K4's backward,
+               bf16 and fp32 (18 calls), is called once through its
+               wrapper with its grid function's first grid off by one
+               in x, and must raise
                (the launcher refuses it before launching; the wrapper
                counts no launch). Then every STEP007 lattice case
                (``repro_torch.stepcheck.bounds.engine_lattice``, both
@@ -342,7 +349,9 @@ Then one JSON line ``{"kernels": [...]}`` (``launches_chaos``: phase
 ``flash_prefill_bwd_hd256``, count phase 14's r1-distill-14b and gemma-7b
 runs, K4's backward row ``ssd_scan_bwd`` its mamba2-130m run and
 ``launches_hymba`` its hymba-1.5b run, the ``adamw`` row the 14B's run
-and ``launches_mamba`` mamba2-130m's; phase 14's counts are the launches
+and ``launches_mamba`` mamba2-130m's, the ``sample_top_p`` row phase 3's
+320-row x1.5 timing (``timed_shapes``: all three) and phase 5's
+launches; phase 14's counts are the launches
 its graphs ran; ``launches_sharded``: what phase 15 ran of K5, its
 backward, K4, its backward and AdamW), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Without a card, or without the repo's
@@ -675,6 +684,7 @@ def phase_build():
     wide = {}       # the head_dim-256 instantiations: registers, spills
     bwd = {name: {} for name in TENSOR_BWD}   # the backwards: the same
     fused = {}      # the AdamW kernel's instantiations: the same
+    sampled = {}    # the top-p sampler's instantiations: the same
     for name, log in sorted(build.build_log.items()):
         fn = "?"
         for line in log.splitlines():
@@ -691,6 +701,8 @@ def phase_build():
                     rows.append(bwd[name].setdefault(fn, {}))
                 if name == "adamw" and (m or r):
                     rows.append(fused.setdefault(fn, {}))
+                if name == "sample_top_p" and (m or r):
+                    rows.append(sampled.setdefault(fn, {}))
                 for row in rows:
                     if m:
                         row["spill_bytes"] = int(m[1]) + int(m[2])
@@ -712,6 +724,11 @@ def phase_build():
           "(registers, spill stores + loads in bytes): " + json.dumps(fused))
     check(all(row.get("spill_bytes", 0) == 0 for row in fused.values()),
           f"the AdamW kernel spills: {fused}")
+    # (at 64 registers, what two CTAs of 512 threads an SM leave, the
+    # sampler spills a few dozen bytes, outside its token loops' loads)
+    print("[build] sample_top_p, the top-p sampler, per instantiation "
+          "(registers, spill stores + loads in bytes): "
+          + json.dumps(sampled))
     for name, rows in bwd.items():
         check(all(row.get("spill_bytes", 0) == 0 for row in rows.values()),
               f"a kernel of {name} spills: {rows}")
@@ -2118,6 +2135,67 @@ def phase_adamw_kernel(torch):
     del lib, lib_params, grads, params, state, leaves, mu, nu
     return {"adamw": errs}, {"adamw": timing}
 
+
+SAMPLER_VOCAB = 152064    # r1-distill-14b's vocabulary
+SAMPLER_ROWS = 320        # a serve step's rows: 256 slots and a 64-row chunk
+
+
+def _plain_sample(torch, gen, logits, temperature: float, top_p: float):
+    """``serving.sampling.sample``'s path before the kernel, on the card:
+    the sort, cumsum and softmaxes of ``apply_top_p``, an exponential draw
+    of [rows, V] and an argmax."""
+    from repro_torch.serving.sampling import apply_top_p
+    probs = torch.softmax(apply_top_p(logits.float() / temperature, top_p),
+                          dim=-1)
+    noise = torch.empty_like(probs).exponential_(1, generator=gen)
+    return torch.argmax(probs / noise, dim=-1).to(torch.int32)
+
+
+def phase_sampler_kernel(torch) -> dict:
+    """Phase 3's sampler row: the top-p kernel (``csrc/sample_top_p.cu``)
+    at a serve step's 320 x 152,064 bf16 logits and at one row (a spawn's
+    sample), temperature 0.9 and top-p 0.95 as the benchmark's cells, on
+    logits at two spreads (x 1.5, most tokens kept; x 6, a few hundred):
+    tokens and thresholds bit-equal to the plain version (run on the card)
+    on the same keys, then timed (``ms``, ``queued_ms``, ``host_us`` as
+    every kernel) beside the bound (one read of the logits at 3.35 TB/s)
+    and ``plain_ms``: the sampling the engine ran before the kernel
+    (``_plain_sample``). Returns the timing by shape."""
+    from repro_torch.kernels.sampling import sample_top_p as sampler
+    from repro_torch.kernels.sampling.ref import sample_top_p_ref
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(dev).manual_seed(13)
+    out = {}
+    for rows, scale in ((SAMPLER_ROWS, 1.5), (SAMPLER_ROWS, 6.0),
+                        (1, 1.5)):
+        x = (torch.randn(rows, SAMPLER_VOCAB, generator=gen, device=dev)
+             * scale).to(torch.bfloat16)
+        keys = torch.randint(-2 ** 62, 2 ** 62, (rows,), generator=gen,
+                             device=dev)
+        tok, thr = sampler.sample_top_p(x, 0.9, 0.95, keys)
+        want_tok, want_thr = sample_top_p_ref(x, 0.9, 0.95, keys)
+        torch.cuda.synchronize()
+        check(torch.equal(thr, want_thr) and torch.equal(tok, want_tok),
+              f"the top-p kernel differs from its plain version at {rows} "
+              f"x {SAMPLER_VOCAB}, scale {scale}: "
+              f"{int((tok != want_tok).sum())} tokens, "
+              f"{int((thr != want_thr).sum())} thresholds")
+
+        def kernel():
+            sampler.sample_top_p(x, 0.9, 0.95, keys)
+
+        def plain():
+            _plain_sample(torch, gen, x, 0.9, 0.95)
+        timing = kernel_ms(torch, kernel)
+        timing["plain_ms"] = time_ms(torch, plain, n=10, warmup=2)
+        timing["bytes"] = x.numel() * x.element_size() + rows * 16
+        timing["bound_ms"] = timing["bytes"] / HBM_BYTES_PER_S * 1e3
+        timing["shape"] = (f"{rows} x {SAMPLER_VOCAB} bf16, logits N(0, "
+                           f"{scale}^2), T 0.9, p 0.95")
+        out[f"rows{rows}_x{scale:g}"] = timing
+    print("[kernels] sampler timed: " + json.dumps(out))
+    return out
+
 def _parity_scenario(torch, eng, vocab: int):
     """A cold request (a 16-token header + its own 21 tokens, a partial
     last page) forks 3 branches that decode 6 steps (CoW of the shared
@@ -2628,6 +2706,7 @@ def phase_serve(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_prefill import paged_prefill
     from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.sampling import sample_top_p
     from repro_torch.launch.serve import run_serving
     from repro_torch.models import Model
     cfg = get_config("r1-distill-14b")
@@ -2641,6 +2720,7 @@ def phase_serve(torch):
 
     paged_attention.launches = 0
     paged_prefill.launches = 0
+    sample_top_p.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out, engine = run_serving(
@@ -2650,7 +2730,8 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     recorded = {"paged_decode": paged_attention.launches,
-                "paged_prefill": paged_prefill.launches}
+                "paged_prefill": paged_prefill.launches,
+                "sample_top_p": sample_top_p.launches}
     launches = _path_launches(engine, recorded)
 
     steps = _step_seconds(t0)
@@ -2690,6 +2771,9 @@ def phase_serve(torch):
           == cfg.num_layers * engine.mixed_steps_executed,
           f"K2 did not launch once per layer per mixed step: {launches}, "
           f"{engine.mixed_steps_executed} mixed steps")
+    check(launches["sample_top_p"] == engine.decode_steps_executed,
+          f"the top-p sampler did not launch once per step: {launches}, "
+          f"{engine.decode_steps_executed} steps")
     return model, params, launches
 
 
@@ -2772,6 +2856,7 @@ def _serve_shared_header(torch, model, params, decode_kernel: str,
     from repro_torch.kernels.flash_prefill import paged_prefill
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      tree_decode)
+    from repro_torch.kernels.sampling import sample_top_p
     gc.collect()                 # the previous engine and its KV pools
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated() / 1e9
@@ -2781,6 +2866,7 @@ def _serve_shared_header(torch, model, params, decode_kernel: str,
 
     paged_attention.launches = 0
     paged_prefill.launches = 0
+    sample_top_p.launches = 0
     tree_decode.shared_launches = tree_decode.branch_launches = 0
     t0 = time.perf_counter()
     metrics = sch.run(max_steps=2_000_000)
@@ -2788,6 +2874,7 @@ def _serve_shared_header(torch, model, params, decode_kernel: str,
     wall = time.perf_counter() - t0
     recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
+                "sample_top_p": sample_top_p.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
                 "paged_tree_branch": tree_decode.branch_launches}
     launches = _path_launches(engine, recorded)
@@ -2892,6 +2979,7 @@ def phase_exact_serve(torch, model, params, paged_p50: float,
     from repro_torch.kernels.flash_prefill import flash_prefill, paged_prefill
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      tree_decode)
+    from repro_torch.kernels.sampling import sample_top_p
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
     gc.collect()                 # phase 6's engines and their KV pools
     torch.cuda.empty_cache()
@@ -2923,6 +3011,7 @@ def phase_exact_serve(torch, model, params, paged_p50: float,
 
     paged_attention.launches = 0
     paged_prefill.launches = 0
+    sample_top_p.launches = 0
     tree_decode.shared_launches = tree_decode.branch_launches = 0
     flash_prefill.launches = 0
     t0 = time.perf_counter()
@@ -2932,6 +3021,7 @@ def phase_exact_serve(torch, model, params, paged_p50: float,
     # K5 runs eagerly in each admission; the steps' kernels replay
     recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
+                "sample_top_p": sample_top_p.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
                 "paged_tree_branch": tree_decode.branch_launches}
     launches = dict(_path_launches(engine, recorded),
@@ -3066,6 +3156,7 @@ def _chaos_run(torch, model, params, tag: str, *, plan: str,
     from repro_torch.kernels.flash_prefill import paged_prefill
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      tree_decode)
+    from repro_torch.kernels.sampling import sample_top_p
     gc.collect()                 # the previous engine and its KV pools
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3076,6 +3167,7 @@ def _chaos_run(torch, model, params, tag: str, *, plan: str,
                                poisoned=poisoned)
     paged_attention.launches = 0
     paged_prefill.launches = 0
+    sample_top_p.launches = 0
     tree_decode.shared_launches = tree_decode.branch_launches = 0
     t0 = time.perf_counter()
     metrics = sch.run(max_steps=2_000_000)
@@ -3083,6 +3175,7 @@ def _chaos_run(torch, model, params, tag: str, *, plan: str,
     wall = time.perf_counter() - t0
     recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
+                "sample_top_p": sample_top_p.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
                 "paged_tree_branch": tree_decode.branch_launches}
     launches = _path_launches(engine, recorded)
@@ -3233,6 +3326,7 @@ def phase_ssm_serve(torch):
     from repro_torch.kernels.flash_prefill import paged_prefill
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      tree_decode)
+    from repro_torch.kernels.sampling import sample_top_p
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.serve import run_serving
     from repro_torch.models import Model
@@ -3251,6 +3345,7 @@ def phase_ssm_serve(torch):
 
     paged_attention.launches = 0
     paged_prefill.launches = 0
+    sample_top_p.launches = 0
     tree_decode.shared_launches = tree_decode.branch_launches = 0
     ssd_scan.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3263,6 +3358,7 @@ def phase_ssm_serve(torch):
     wall = time.perf_counter() - t0
     recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
+                "sample_top_p": sample_top_p.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
                 "paged_tree_branch": tree_decode.branch_launches,
                 "ssd_scan": ssd_scan.launches}
@@ -3300,7 +3396,8 @@ def phase_ssm_serve(torch):
     check(launches["ssd_scan"] > 0 and launches["ssd_scan"]
           == cfg.num_layers * engine.mixed_steps_executed,
           f"K4 did not carry every mixed step's layers: {launches}")
-    check(all(launches[k] == 0 for k in launches if k != "ssd_scan"),
+    check(all(launches[k] == 0 for k in launches
+              if k not in ("ssd_scan", "sample_top_p")),
           f"an attention kernel launched in the ssm serve: {launches}")
     return launches
 
@@ -3549,11 +3646,13 @@ def _family_serve(torch, tag: str, model, params, full, step_bytes: int,
     from repro_torch.kernels.flash_prefill import flash_prefill, paged_prefill
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      tree_decode)
+    from repro_torch.kernels.sampling import sample_top_p
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.serve import run_serving
     cfg = model.cfg
     paged_attention.launches = 0
     paged_prefill.launches = 0
+    sample_top_p.launches = 0
     tree_decode.shared_launches = tree_decode.branch_launches = 0
     ssd_scan.launches = 0
     flash_prefill.launches = 0
@@ -3567,6 +3666,7 @@ def _family_serve(torch, tag: str, model, params, full, step_bytes: int,
     wall = time.perf_counter() - t0
     recorded = {"paged_decode": paged_attention.launches,
                 "paged_prefill": paged_prefill.launches,
+                "sample_top_p": sample_top_p.launches,
                 "paged_tree_shared": tree_decode.shared_launches,
                 "paged_tree_branch": tree_decode.branch_launches,
                 "ssd_scan": ssd_scan.launches,
@@ -3611,7 +3711,7 @@ def _family_serve(torch, tag: str, model, params, full, step_bytes: int,
           f"{tag}: K1 and K2 did not carry the steps: {launches}, "
           f"{engine.mixed_steps_executed} mixed steps")
     check(all(launches[k] == 0 for k in launches
-              if k not in ("paged_decode", "paged_prefill")),
+              if k not in ("paged_decode", "paged_prefill", "sample_top_p")),
           f"{tag}: a kernel off the path launched: {launches}")
     del engine
     line["eager_vs_graphs"] = _eager_vs_graphs(
@@ -4435,9 +4535,10 @@ def grid_lookup_us(torch, n: int = 100_000) -> dict:
 
 
 def _verifier_refusals(torch) -> int:
-    """Each serve-path launcher and the two backwards' launchers, both
-    routes, called once through its wrapper with its grid function's first
-    grid off by one in x: the launcher must refuse it (RuntimeError from
+    """Each serve-path launcher (the top-p sampler's too) and the two
+    backwards' launchers, both routes, called once through its wrapper
+    with its grid function's first grid off by one in x: the launcher
+    must refuse it (RuntimeError from
     ``build.raise_on_error``) and the wrapper must count no launch. Returns
     the refusals."""
     import dataclasses
@@ -4448,6 +4549,7 @@ def _verifier_refusals(torch) -> int:
     from repro_torch.kernels.launches import launch_counts
     from repro_torch.kernels.paged_attention import paged_attention as k1
     from repro_torch.kernels.paged_attention import tree_decode as k3
+    from repro_torch.kernels.sampling import sample_top_p as sampler
     from repro_torch.kernels.ssd_scan import ssd_scan as k4
     from repro_torch.kernels.ssd_scan import ssd_scan_bwd as k4b
     dev = torch.device(DEVICE)
@@ -4506,6 +4608,10 @@ def _verifier_refusals(torch) -> int:
             (k4b, "ssd_scan_bwd_grid",
              lambda: k4b.ssd_scan_bwd(x4, dt4, a4, b4, c4, st4, x4,
                                       chunk=8)),
+            (sampler, "sample_top_p_grid",
+             lambda: sampler.sample_top_p(
+                 f(3, 1000), 0.9, 0.95,
+                 torch.zeros(3, dtype=torch.int64, device=dev))),
         ]
         for mod, name, call in calls:
             call()                      # the true grid launches
@@ -4648,7 +4754,7 @@ def phase_verifiers(torch) -> dict:
     guards and the examples, on the card."""
     t0 = time.perf_counter()
     refused = _verifier_refusals(torch)
-    check(refused == 16, f"{refused} of 16 launcher calls refused a wrong "
+    check(refused == 18, f"{refused} of 18 launcher calls refused a wrong "
                          f"grid")
     t1 = time.perf_counter()
     lattice = _verifier_lattice(torch)
@@ -4951,6 +5057,10 @@ def main() -> int:
     adamw_errs, adamw_timing = phase_adamw_kernel(torch)
     errs.update(adamw_errs)
     timing.update(adamw_timing)
+    sampler = phase_sampler_kernel(torch)
+    errs["sample_top_p"] = [0.0]          # bit-equal, checked in the phase
+    timing["sample_top_p"] = dict(sampler["rows320_x1.5"], ops=0,
+                                  library_ms=None, shapes=sampler)
     if args.skip_serve:
         print(json.dumps(timing))
         return 0
@@ -5051,6 +5161,13 @@ def main() -> int:
         "torch.optim.AdamW(fused=True).step() over the same bf16 leaves "
         "and gradients (its moments bf16; decoupled decay, no clip): a "
         "yardstick the port never calls")
+    meta["sample_top_p"] = (
+        "src/repro_torch/csrc/sample_top_p.cu",
+        "none in the JAX package: jnp ops in its jitted step "
+        "(src/repro/serving/sampling.py:45); the port's sort-based "
+        "sampling (serving/sampling.py, plain_ms)",
+        "bit-equal to kernels/sampling/ref.py (tokens and thresholds)",
+        "none: no single PyTorch call samples top-p")
     # the head_dim-256 instantiations (gemma-7b, phases 12 and 14): rows
     # of their own, timed at gemma-7b's serve (training) shapes
     meta.update({kernel_key(name, WIDE): meta[name] for name in
@@ -5077,7 +5194,8 @@ def main() -> int:
                                          ("header_chunk", "header_chunk"),
                                          ("moe_serve",
                                           "qwen3_moe_serve_shape"),
-                                         ("S4096", "S4096"))
+                                         ("S4096", "S4096"),
+                                         ("shapes", "timed_shapes"))
                if k in tm},
         })
         if moe_line["launches"].get(name):

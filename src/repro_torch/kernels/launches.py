@@ -9,6 +9,7 @@ from typing import Dict
 from .adamw import adamw
 from .flash_prefill import flash_prefill, flash_prefill_bwd, paged_prefill
 from .paged_attention import paged_attention, tree_decode
+from .sampling import sample_top_p
 from .ssd_scan import ssd_scan, ssd_scan_bwd
 
 
@@ -22,7 +23,8 @@ def launch_counts() -> Dict[str, int]:
             "ssd_scan_bwd": ssd_scan_bwd.launches,
             "flash_prefill": flash_prefill.launches,
             "flash_prefill_bwd": flash_prefill_bwd.launches,
-            "adamw": adamw.launches}
+            "adamw": adamw.launches,
+            "sample_top_p": sample_top_p.launches}
 
 
 def launches_since(before: Dict[str, int]) -> Dict[str, int]:

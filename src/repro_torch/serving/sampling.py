@@ -11,6 +11,8 @@ import dataclasses
 
 import torch
 
+from ..kernels.sampling.sample_top_p import sample_top_p
+
 NEG_INF = -1e30
 
 
@@ -53,9 +55,20 @@ def sample(gen: torch.Generator, logits: torch.Tensor,
     is 0; else one draw per row from ``gen`` (on the logits' device):
     argmax(p / E) with E ~ Exp(1), the draw ``torch.multinomial(p, 1)``
     makes from the same generator state, without its checks of ``p``,
-    which read values on the host (a captured step may not)."""
+    which read values on the host (a captured step may not).
+
+    Logits on the card with ``temperature > 0`` and no top-k go to the
+    top-p kernel (``kernels/sampling``): the same kept set and the same
+    race, with its noise from Philox keyed by one int64 a row drawn from
+    ``gen``, and no sort."""
     if params.temperature == 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
+    if logits.is_cuda and params.temperature > 0 and params.top_k == 0:
+        keys = torch.empty(logits.numel() // logits.shape[-1],
+                           dtype=torch.int64, device=logits.device)
+        keys.random_(generator=gen)
+        return sample_top_p(logits, params.temperature, params.top_p,
+                            keys)[0]
     logits = logits.float() / params.temperature
     logits = apply_top_k(logits, params.top_k)
     logits = apply_top_p(logits, params.top_p)
