@@ -1,2 +1,3 @@
-"""The harness's own code: discovery, weights, the proxy between the
-scheduler and the engine, the output check and the trace reduction."""
+"""The harness's own code: discovery, what the model families share, the
+proxy between the scheduler and the engine, the output check and the
+trace reduction."""

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -30,6 +31,7 @@ class Run:
     device_kind: str
     trace: Optional[object] = None          # trace.TraceSummary
     prefix_stats: Optional[Tuple[dict, dict]] = None  # window start, end
+    family: Optional[ModuleType] = None     # bench/families/<family>.py
 
     def peaks(self) -> Optional[dict]:
         """The card's published peaks by its name, or None for a device

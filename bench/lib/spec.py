@@ -2,12 +2,14 @@
 
 A cell ``<config>.<traffic>`` is the file ``bench/workloads/<cell>.json``;
 its configuration is the ``file`` that ``BENCHMARK.json`` names for it;
-its arrivals come from ``bench/traffic/<kind>.py``; its reference from
+its arrivals come from ``bench/traffic/<kind>.py``; its model, weights
+and work counts from ``bench/families/<family>.py``, its reference from
 ``bench/reference/<family>.py``; each metric from
 ``bench/metrics/<metric>.py``, or from the file of the metric's name up
 to its first dot (``step_ms.py`` reads ``step_ms.serve`` and
-``step_ms.batch``). Adding a cell, a configuration, a traffic kind or a
-metric is adding files and an entry: nothing here names one.
+``step_ms.batch``). Adding a cell, a configuration, an architecture, a
+traffic kind or a metric is adding files and an entry: nothing here
+names one.
 """
 from __future__ import annotations
 
@@ -88,6 +90,7 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
                 [m for m in bm["per_layer"] if reports(m, name)], root)
     # every piece the cell will need is found now, before any work
     traffic_module(cell)
+    family_module(cell)
     reference_module(cell)
     for m in cell.end_to_end + cell.per_layer:
         metric_module(m["name"], root)
@@ -124,6 +127,22 @@ def traffic_module(cell: Cell) -> ModuleType:
     kind = cell.workload["arrivals"]["kind"]
     return _load(_find(cell.root / "bench" / "traffic", kind,
                        "traffic kind"))
+
+
+# what a family file exports (bench/families/__init__.py)
+FAMILY_EXPORTS = ("model_config", "make_params", "matmul_params",
+                  "context_flops", "attention_layers", "state_bytes",
+                  "DEVICE_MARKS")
+
+
+def family_module(cell: Cell) -> ModuleType:
+    mod = _load(_find(cell.root / "bench" / "families",
+                      cell.config["family"], "model family"))
+    missing = [n for n in FAMILY_EXPORTS if not hasattr(mod, n)]
+    if missing:
+        raise SpecError(f"model family {cell.config['family']!r} lacks "
+                        f"{missing}")
+    return mod
 
 
 def reference_module(cell: Cell) -> ModuleType:

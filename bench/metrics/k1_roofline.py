@@ -1,8 +1,8 @@
 """k1_roofline.<serve|batch>: K1's work over the traced slice
 (bench/work/kv_bytes.py: each K/V page the decode rows attend once, plus
-their q and outputs) over the device time of K1's kernels in the slice,
-as a share of the card's HBM bandwidth (bench/peaks.json). Nothing to
-read where K1 did not run."""
+their q and outputs, in the layers that hold K/V) over the device time
+of K1's kernels in the slice, as a share of the card's HBM bandwidth
+(bench/peaks.json). Nothing to read where K1 did not run."""
 from bench.work.kv_bytes import decode_bytes
 
 
@@ -14,7 +14,7 @@ def roofline(run, kernel: str):
     if not launches or seconds <= 0:
         return None
     ps = run.workload["engine"]["page_size"]
-    work = sum(decode_bytes(run.config, s.tables, ps)
+    work = sum(decode_bytes(run.family, run.config, s.tables, ps)
                for s in run.steps if s.traced)
     return 100.0 * work / seconds / peaks["hbm_bytes_per_s"]
 

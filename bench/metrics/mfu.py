@@ -1,6 +1,7 @@
 """mfu.<serve|batch>: the model FLOPs of every decode and chunk row the
-window's steps ran (bench/work/model_flops.py), over the window's
-seconds, as a share of the card's bf16 peak (bench/peaks.json)."""
+window's steps ran (bench/work/model_flops.py, with the counts of the
+configuration's family), over the window's seconds, as a share of the
+card's bf16 peak (bench/peaks.json)."""
 from bench.work.model_flops import step_flops
 
 
@@ -10,7 +11,8 @@ def read(run, name):
     if peaks is None or not steps:
         return None
     a, b = run.host_window
-    flops = sum(step_flops(run.config, s.tokens, s.ctx)
-                + step_flops(run.config, s.chunk_tokens, s.chunk_ctx)
+    fam, cfg = run.family, run.config
+    flops = sum(step_flops(fam, cfg, s.tokens, s.ctx)
+                + step_flops(fam, cfg, s.chunk_tokens, s.chunk_ctx)
                 for s in steps)
     return 100.0 * flops / (b - a) / peaks["bf16_flops_per_s"]

@@ -3,11 +3,13 @@
     python3 bench/run.py --workload <cell> --seed <n> --seconds <s> \\
         --trace <0|1>
 
-Set-up (counted in ``setup_s``): the weights from ``--seed`` on the card,
-the engine and its KV pool, one step of every variant the traffic uses
-(each captures its CUDA graph; a checkout's first run also builds the
-kernels, into ``build/`` inside the checkout), then the cell's traffic
-from the schedule's start until the window opens at steady occupancy.
+Set-up (counted in ``setup_s``): the model and its weights from
+``--seed`` on the card, as the configuration's family
+(``bench/families/<family>.py``) builds them, the engine and its KV
+pool, one step of every variant the traffic uses (each captures its
+CUDA graph; a checkout's first run also builds the kernels, into
+``build/`` inside the checkout), then the cell's traffic from the
+schedule's start until the window opens at steady occupancy.
 The window then measures for ``--seconds``; ``--trace 1`` profiles its
 last seconds. After the window the program's state is freed and the
 served tokens are checked against the plain reference (``correct``).
@@ -61,7 +63,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     from bench.lib import check as chk
     from bench.lib import driver, spec
     from bench.lib import trace as tr
-    from bench.lib.model import DTYPES, make_params, model_config
+    from bench.lib.model import DTYPES
     from bench.lib.record import Run, percentile
     from bench.work.step_bytes import step_bytes
     from repro_torch.core import OraclePRM, Scheduler, SchedulerConfig
@@ -71,9 +73,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
 
     marks = {"imports": time.perf_counter() - t_start}
     cfg_file, wl = cell.config, cell.workload
-    mc = model_config(cfg_file)
+    family = spec.family_module(cell)
+    mc = family.model_config(cfg_file)
     dtype = DTYPES[cfg_file["serve_dtype"]]
-    params = make_params(mc, seed, device, dtype)
+    params = family.make_params(mc, seed, device, dtype)
     model = Model(mc, dtype=dtype, device=device)
     model.load_params(params)
     e, smp = wl["engine"], wl["sampling"]
@@ -118,7 +121,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     run = Run(cfg_file, wl, proxy.records, proxy.steps, proxy.spawns,
               (ws, we), (ws, proxy.trace_started or we), ws - t_start,
               torch.cuda.get_device_name() if cuda else device, summary,
-              (proxy.stats_at_window, stats) if stats is not None else None)
+              (proxy.stats_at_window, stats) if stats is not None else None,
+              family)
     attempted = len(run.due_in_window())
     failed = sum(1 for r in run.due_in_window() if r.req.quarantined)
     faults = dict(sch.fault_counters)
@@ -144,8 +148,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str,
     if steps and peaks:
         # the least a step could take: its bytes at the card's bandwidth
         notes["byte_bound_ms"] = 1e3 * sum(
-            step_bytes(cfg_file, params, s.ctx) for s in steps) / len(
-            steps) / peaks["hbm_bytes_per_s"]
+            step_bytes(family, cfg_file, params, s.ctx, s.tokens)
+            for s in steps) / len(steps) / peaks["hbm_bytes_per_s"]
     # the program's state goes before the reference runs: its peak is read
     del sch, engine, model
     proxy.inner = proxy._graphs = proxy.prof = None

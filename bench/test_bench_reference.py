@@ -6,15 +6,16 @@ from __future__ import annotations
 import pytest
 import torch
 
-from bench.conftest import TINY, TINY_MOE
-from bench.lib.model import make_params, model_config
+from bench.conftest import TINY, TINY_MOE, tiny_cell
+from bench.lib import spec
 from bench.reference import dense, moe
 
 
 def _both(config, seqs):
     from repro_torch.models import Model
-    mc = model_config(config)
-    params = make_params(mc, 2**31 + 5, "cpu", torch.float32)
+    family = spec.family_module(tiny_cell(config))
+    mc = family.model_config(config)
+    params = family.make_params(mc, 2**31 + 5, "cpu", torch.float32)
     model = Model(mc, dtype=torch.float32, device="cpu")
     model.load_params(params)
     tok = torch.tensor(seqs)

@@ -9,9 +9,17 @@ import pytest
 import torch
 
 from bench import run
-from bench.conftest import TINY_MOE, tiny_cell
+from bench.conftest import TINY_MOE, TINY_WORKLOAD, tiny_cell
+from bench.lib import spec
 
 SEED = 2**31 + 77
+
+# the shared-prefix cell's path: one header leads every prompt, served
+# through the prefix cache and decoded by the tree kernel
+TREE_PREFIX = dict(
+    prompts=dict(TINY_WORKLOAD["prompts"], shared_header=16),
+    engine=dict(TINY_WORKLOAD["engine"], max_pages_per_branch=24,
+                decode_kernel="tree", prefix_cache=True))
 
 
 def _serve(cell, seconds=2.0, control=False):
@@ -19,9 +27,12 @@ def _serve(cell, seconds=2.0, control=False):
                         time.perf_counter(), control=control)
 
 
-@pytest.mark.parametrize("config", [None, TINY_MOE], ids=["dense", "moe"])
-def test_sound_run_is_correct_and_the_control_is_not(config, one_thread):
-    cell = tiny_cell(config)
+@pytest.mark.parametrize("config,workload", [
+    (None, {}), (TINY_MOE, {}), (None, TREE_PREFIX)],
+    ids=["dense", "moe", "tree-prefix"])
+def test_sound_run_is_correct_and_the_control_is_not(config, workload,
+                                                    one_thread):
+    cell = tiny_cell(config, **workload)
     limit = cell.workload["check"]["limits"]["logit_gap_max"]
     out, rec, notes = _serve(cell)
     assert out["correct"], notes
@@ -29,6 +40,13 @@ def test_sound_run_is_correct_and_the_control_is_not(config, one_thread):
     assert notes["positions"] >= 20 and notes["program_agree"] == 1.0
     assert set(out["metrics"]) == {"answer_p90_s", "ttft_p90_s",
                                    "itl_p95_ms", "tokens_per_s", "setup_s"}
+    hit = spec.read_metric("prefix_hit_rate", rec)
+    if cell.workload["engine"]["prefix_cache"]:
+        assert 0 < hit <= 1
+    else:
+        assert hit is None
+    # K3's and K1's device time come from a trace, and there is none
+    assert spec.read_metric("k3_roofline.serve", rec) is None
     assert list(out)[-1] == "check"
     assert out["check"]["logit_gap_max"] == {
         "value": notes["program_gap_max"], "limit": limit}
@@ -90,15 +108,20 @@ def _token_altered(monkeypatch):
     _outputs(monkeypatch, edit)
 
 
-@pytest.mark.parametrize("fault", [_kv_unchanged, _half_batch,
-                                   _token_altered])
-def test_each_fault_makes_the_run_incorrect(monkeypatch, fault,
+FAULTS = (_kv_unchanged, _half_batch, _token_altered)
+
+
+@pytest.mark.parametrize("fault,workload", [
+    pytest.param(f, w, id=f.__name__ + tag)
+    for tag, w in (("", {}), ("-tree-prefix", TREE_PREFIX)) for f in FAULTS])
+def test_each_fault_makes_the_run_incorrect(monkeypatch, fault, workload,
                                             one_thread):
     fault(monkeypatch)
-    out, rec, notes = _serve(tiny_cell())
+    cell = tiny_cell(**workload)
+    out, rec, notes = _serve(cell)
     assert not out["correct"], notes
     assert out["check"]["logit_gap_max"]["value"] > \
-        tiny_cell().workload["check"]["limits"]["logit_gap_max"]
+        cell.workload["check"]["limits"]["logit_gap_max"]
 
 
 def test_forbidden_modules_compare_whole_names():

@@ -22,9 +22,8 @@ def _sig(t, n=40):
             [prob for _, prob in reqs])
 
 
-@pytest.mark.parametrize("cell", ["r1-distill-14b.sart-steady",
-                                  "qwen3-moe-235b-a22b.sart-batch",
-                                  "r1-distill-14b.sart-batch"])
+@pytest.mark.parametrize("cell", [w["name"] for w in
+                                  spec.load_benchmark()["workloads"]])
 def test_generators_repeat_per_seed(cell):
     big = 2**31 + 1234567
     assert _sig(_make(cell, big)) == _sig(_make(cell, big))
@@ -59,16 +58,42 @@ def test_open_loop_rate_and_prompt_shape():
                for i in range(len(due) - 4))
 
 
+def test_open_loop_blocks_hold_the_rate_on_every_seed():
+    name = "r1-distill-14b.sart-shared-prefix"
+    cell = spec.load_cell(name)
+    arrivals = cell.workload["arrivals"]
+    k, rate = arrivals["block"], arrivals["rate_per_s"]
+    for seed in (2**31 + 11, 12):
+        due = _make(name, seed, horizon=100.0).due
+        assert len(due) % k == 0
+        # every block of k arrivals spans k / rate seconds exactly
+        ends = [0.0] + due[k - 1::k]
+        assert [b - a for a, b in zip(ends, ends[1:])] == \
+            pytest.approx([k / rate] * (len(due) // k), rel=1e-9)
+    # the whole schedule as one block is the default, bit for bit
+    mod = spec.traffic_module(cell)
+    wl = dict(cell.workload, arrivals={"kind": "open_poisson",
+                                       "rate_per_s": rate})
+    whole = mod.make(wl, 97, 5, 100.0)
+    n = len(whole.due)
+    wl["arrivals"] = dict(wl["arrivals"], block=n)
+    assert mod.make(wl, 97, 5, 100.0).due == whole.due
+
+
 def test_shared_header_leads_every_prompt():
-    wl = {"arrivals": {"kind": "open_poisson", "rate_per_s": 1.2},
-          "prompts": {"median": 128, "sigma": 0.5, "min": 32, "max": 512,
-                      "shared_header": 2048}}
-    t = spec.traffic_module(spec.load_cell("r1-distill-14b.sart-steady")
-                            ).make(wl, 152064, 9, 60.0)
-    heads = {tuple(t.requests.get(i)[0][:2048]) for i in range(20)}
+    name = "r1-distill-14b.sart-shared-prefix"
+    p = spec.load_cell(name).workload["prompts"]
+    assert (p["shared_header"], p["median"], p["min"], p["max"]) == \
+        (2048, 128, 32, 512)
+    t = _make(name, 9)
+    n = len(t.requests)
+    heads = {tuple(t.requests.get(i)[0][:2048]) for i in range(n)}
     assert len(heads) == 1
-    assert all(32 <= len(t.requests.get(i)[0]) - 2048 <= 512
-               for i in range(20))
+    questions = sorted(len(t.requests.get(i)[0]) - 2048 for i in range(n))
+    assert 32 <= questions[0] and questions[-1] <= 512
+    assert 118 <= questions[n // 2] <= 138
+    # another seed draws another header
+    assert _make(name, 10).requests.get(0)[0][:2048] != list(heads.pop())
 
 
 def test_closed_loop_sends_on_answer():

@@ -35,19 +35,20 @@ import numpy as np  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-# the program's per-layer readers: every cell's, the open loop's, MoE's
+# the program's per-layer readers: every cell's, then ``device_ms`` of
+# each device mark of the configuration's family, then the open loop's
 PROGRAM_METRICS = ("engine_host_ms", "sched_host_ms", "idle_engine",
-                   "idle_sched", "device_ms.attention", "device_ms.head")
+                   "idle_sched")
 SERVE_ONLY = ("queue_wait_p50_s", "first_branch_p90_s")
-MOE_ONLY = ("device_ms.moe_route",)
 
 
 def metric_names(cell) -> list:
+    from bench.lib import spec
     serve = "itl_p95_ms" in {m["name"] for m in cell.end_to_end}
     tag = ".serve" if serve else ".batch"
     names = [m + tag for m in PROGRAM_METRICS]
-    if cell.config.get("family") == "moe":
-        names += [m + tag for m in MOE_ONLY]
+    names += [f"device_ms.{k}{tag}"
+              for k in spec.family_module(cell).DEVICE_MARKS]
     if serve:
         names += list(SERVE_ONLY)
     return names

@@ -7,6 +7,12 @@ stratified quantiles of the exponential, scaled to a mean of exactly
 likewise (``prompts.Requests``). So every seed gets the same gaps and
 lengths as multisets: bursts of short gaps, long pauses and the longest
 prompts all arrive, at places the seed chooses.
+
+With ``"block": k`` in the arrivals, the gaps are stratified over each
+block of ``k`` arrivals instead of the whole schedule: every block holds
+the ``k`` quantiles in its own order and spans exactly ``k / rate``
+seconds. A window then sees the same load on every seed, up to the
+blocks it cuts, while bursts and pauses still come within each block.
 """
 from __future__ import annotations
 
@@ -23,10 +29,15 @@ class OpenPoisson:
                  horizon_s: float):
         rate = float(workload["arrivals"]["rate_per_s"])
         n = int(math.ceil(rate * horizon_s * 1.25)) + 16
+        block = int(workload["arrivals"].get("block", n))
+        n = -(-n // block) * block
         rng = np.random.default_rng([int(seed), 0xa771])
-        q = quantiles_exponential(n, 1.0)
-        scale = sum(q) / n * rate
-        self.due = np.cumsum(in_order([g / scale for g in q], rng)).tolist()
+        q = quantiles_exponential(block, 1.0)
+        scale = sum(q) / block * rate
+        gaps = []
+        for _ in range(n // block):
+            gaps += in_order([g / scale for g in q], rng)
+        self.due = np.cumsum(gaps).tolist()
         self.requests = Requests(workload["prompts"], vocab, seed, n)
 
     def first(self) -> List[Tuple[float, int]]:

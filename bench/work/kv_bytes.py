@@ -7,6 +7,8 @@ q read and its output written. So a kernel that reads a shared prompt
 page once per sibling (K1) shows that cost as a lower share, and one
 that reads it once (K3) does not.
 
+The layers that hold K/V are the family's ``attention_layers``.
+
 Worked count, r1-distill-14b (8 KV heads of 128, 48 layers, bf16): a
 token's K and V are 2*8*128*2 = 4,096 bytes a layer, 196,608 in all; a
 16-token page 3 MiB. Two siblings sharing a full 20-token prompt page
@@ -41,13 +43,14 @@ def unique_tokens(tables: Iterable[Tuple[Sequence[int], int]],
     return sum(fill.values())
 
 
-def decode_bytes(config: dict, tables, page_size: int,
+def decode_bytes(family, config: dict, tables, page_size: int,
                  elem: int = 2) -> int:
-    """The step's decode attention work in bytes over all layers."""
+    """The step's decode attention work in bytes over the layers that
+    hold K/V."""
     tables = list(tables)
     heads = config["num_attention_heads"]
     hd = config.get("head_dim", config["hidden_size"] // heads)
-    layers = config["num_hidden_layers"]
+    layers = family.attention_layers(config)
     kv = unique_tokens(tables, page_size) * kv_token_bytes(config, elem)
     qo = len(tables) * heads * hd * elem * 2
     return (kv + qo) * layers

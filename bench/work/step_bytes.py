@@ -3,9 +3,11 @@
 
 Every served weight once (a mixture of experts runs every expert on its
 capacity buffer, so all experts' weights), the final norm and the LM head,
-plus the K/V every decode row attends. At 256 rows of ~550 tokens of
-context the K/V of r1-distill-14b is ~28 GB a step, more than its
-weights, so it is not left out here.
+plus the K/V every decode row attends in the family's
+``attention_layers`` and each decode row's recurrent state
+(``state_bytes``). At 256 rows of ~550 tokens of context the K/V of
+r1-distill-14b is ~28 GB a step, more than its weights, so it is not
+left out here.
 
 Worked count, r1-distill-14b: a layer holds 275,258,368 bf16 parameters
 (62,914,560 of attention, 7,168 of biases, 212,336,640 of SwiGLU) and
@@ -31,7 +33,11 @@ def weight_bytes(params: dict) -> int:
             + head.numel() * head.element_size())
 
 
-def step_bytes(config: dict, params: dict, context: int) -> int:
-    """Weights plus the K/V of ``context`` attended tokens in all rows."""
-    return weight_bytes(params) + context * kv_token_bytes(config) \
-        * config["num_hidden_layers"]
+def step_bytes(family, config: dict, params: dict, context: int,
+               rows: int) -> int:
+    """Weights, the K/V of ``context`` attended tokens in all rows, and
+    the recurrent state of ``rows`` decode rows."""
+    return (weight_bytes(params)
+            + context * kv_token_bytes(config)
+            * family.attention_layers(config)
+            + rows * family.state_bytes(config))
